@@ -1,0 +1,52 @@
+"""Carry the JAX package's host arrays into the port.
+
+Both packages hold their host data as numpy, so these helpers take numpy
+arrays (or any object exposing the same fields, such as an
+``nmc_tpu`` BlockedProblem) and return the port's containers and tensors.
+Tests build both engines from the same arrays through them, so the two
+packages compute on identical J, h and layout. Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import Union
+
+import numpy as np
+import torch
+
+from .core.problem import BlockedProblem, IsingProblem
+from .device import resolve_device, resolve_dtype
+
+_BLOCKED_FIELDS = ("J_rows", "J_diag", "h", "active", "perm", "inv_perm",
+                   "n", "block_size", "colored")
+
+
+def problem_from_numpy(J, h=None, name: str = "ising") -> IsingProblem:
+    """IsingProblem from dense J [N, N] and fields h [N] (zeros if None)."""
+    J = np.asarray(J)
+    return IsingProblem(J, np.zeros(J.shape[0]) if h is None else h, name=name)
+
+
+def blocked_from_numpy(b) -> BlockedProblem:
+    """The port's BlockedProblem from a BlockedProblem of either package,
+    or from a mapping of its numpy fields (J_rows, J_diag, h, active, perm,
+    inv_perm, n, block_size, colored). Arrays are copied; pass the result to
+    `SweepEngine.from_blocked_problem` to put it on a device."""
+    get = b.__getitem__ if isinstance(b, Mapping) else (lambda f: getattr(b, f))
+    f = {k: get(k) for k in _BLOCKED_FIELDS}
+    return BlockedProblem(
+        J_rows=np.array(f["J_rows"]), J_diag=np.array(f["J_diag"]),
+        h=np.array(f["h"]), active=np.array(f["active"], dtype=bool),
+        perm=np.array(f["perm"], dtype=np.int32),
+        inv_perm=np.array(f["inv_perm"], dtype=np.int32),
+        n=int(f["n"]), block_size=int(f["block_size"]),
+        colored=bool(f["colored"]))
+
+
+def states_from_numpy(m, *, dtype: Union[str, torch.dtype] = torch.float32,
+                      device=None) -> torch.Tensor:
+    """Spin states (or any per-spin array) as a tensor on `device`."""
+    device = resolve_device(device)
+    return torch.as_tensor(np.asarray(m), dtype=resolve_dtype(dtype, device),
+                           device=device)

@@ -1,0 +1,84 @@
+"""Instance loaders for the reference's edge-list dialects (host side).
+
+Copies of the edge-list loaders of ``nmc_tpu/io/loaders.py``:
+  * wishart / DCL: 0-indexed `i j J_ij`, no fields, diagonal lines skipped;
+  * chimera droplet: 1-indexed, diagonal lines carry h_i;
+  * contrived tree: 0-indexed, diagonal lines carry h_i.
+The reference negates (J = -J, h = -h) to match the Hamiltonian sign;
+`negate=True` does that here so loaders return ready-to-solve problems.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+
+from ..core.problem import IsingProblem
+
+
+def _parse_edge_lines(path):
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split()
+            yield int(float(parts[0])), int(float(parts[1])), float(parts[2])
+
+
+def load_edgelist(
+    path: str,
+    *,
+    index_base: int = 0,
+    diagonal_is_field: bool = False,
+    negate: bool = True,
+    n: Optional[int] = None,
+    name: Optional[str] = None,
+) -> IsingProblem:
+    """Generic edge-list -> IsingProblem."""
+    edges, fields = [], {}
+    max_idx = -1
+    for i, j, w in _parse_edge_lines(path):
+        i -= index_base
+        j -= index_base
+        max_idx = max(max_idx, i, j)
+        if i == j:
+            if diagonal_is_field:
+                fields[i] = w
+            continue
+        edges.append((i, j, w))
+    N = n if n is not None else max_idx + 1
+    J = np.zeros((N, N))
+    h = np.zeros(N)
+    for i, j, w in edges:
+        J[i, j] = w
+        J[j, i] = w
+    for i, w in fields.items():
+        h[i] = w
+    if negate:
+        J = -J
+        h = -h
+    return IsingProblem(J, h, name=name or os.path.basename(path))
+
+
+def load_wishart(path: str, negate: bool = True) -> IsingProblem:
+    """0-indexed couplings-only dialect (wishart + DCL instances)."""
+    return load_edgelist(path, index_base=0, diagonal_is_field=False,
+                         negate=negate)
+
+
+load_dcl = load_wishart
+
+
+def load_chimera(path: str, negate: bool = True) -> IsingProblem:
+    """1-indexed dialect with diagonal h lines (Chimera droplet instances)."""
+    return load_edgelist(path, index_base=1, diagonal_is_field=True,
+                         negate=negate)
+
+
+def load_contrived_tree(path: str, negate: bool = True) -> IsingProblem:
+    """0-indexed dialect with diagonal h lines (contrived wishart-backbone)."""
+    return load_edgelist(path, index_base=0, diagonal_is_field=True,
+                         negate=negate)

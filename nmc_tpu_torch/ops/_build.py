@@ -1,0 +1,75 @@
+"""Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on first use into
+``csrc/_build/lib<name>-<hash>.so``, keyed by a hash of the source and the
+flags, so an edited source rebuilds and an unchanged one loads at once. The
+library exposes a plain C interface (no PyTorch headers), which keeps the
+build to seconds. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME, else from PATH, else /usr/local/cuda."""
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = ([os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else [])
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless the hashed library already exists.
+    nvcc's output (ptxas register and shared-memory report) is kept beside
+    the library as <lib>.log."""
+    out = library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)   # atomic: concurrent builders never see half a file
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (first use) and load csrc/<name>.cu; cached per process."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(build(name)))
+    return _LIBS[name]

@@ -1,0 +1,44 @@
+"""nmc_tpu_torch must import where JAX is not installed, as on the machine
+with the card: every submodule imports with `jax` blocked, and nothing in
+the package imports JAX or the JAX package."""
+
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent / "nmc_tpu_torch"
+
+
+def test_imports_without_jax():
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None          # any `import jax` now raises
+        sys.path.insert(0, {str(PKG.parent)!r})
+        import nmc_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            nmc_tpu_torch.__path__, "nmc_tpu_torch.")
+            if m.name != "nmc_tpu_torch.__main__"]
+        for name in names:
+            importlib.import_module(name)
+        leaked = [m for m, mod in sys.modules.items() if mod is not None
+                  and (m.split(".")[0] in ("nmc_tpu", "jax", "jaxlib"))]
+        assert not leaked, leaked
+        import torch
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 16
+
+
+def test_no_source_imports_jax():
+    pattern = re.compile(r"^\s*(import jax|from jax|import nmc_tpu\b|"
+                         r"from nmc_tpu\b(?!_torch))", re.M)
+    offenders = [str(p) for p in PKG.rglob("*.py")
+                 if pattern.search(p.read_text())]
+    assert not offenders
