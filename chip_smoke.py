@@ -5,21 +5,38 @@
 
 Phases, each printing one JSON line; any failure raises and the script exits
 non-zero without printing a result:
-  1. device   — a CUDA card must be present (else exit 1); prints
-                `nvidia-smi --query-gpu=name,power.limit` for it;
-  2. build    — builds csrc/*.cu with nvcc (first use) and reports seconds;
-  3. kernel   — the colored sweep kernel (K1) against its plain torch version
-                on chimera 8x8 (N = 512, n_pad = 640), R = 256, T = 16, with
-                identical injected uniforms; then the kernel's own Philox
-                draws against the enumerated Boltzmann law of a 4-cycle;
-  4. nmc      — nmc_run on the same instance, 256 chains, reduced depth,
-                with the kernel launch count of that run; plus the NMC cycle
-                loop at a small size on the card against the CPU path;
-  5. throughput — spin-flip attempts/s of the kernel and of the plain torch
-                version at bench.py's configuration (R = 2048, 1024 sweeps
-                x 4 iterations).
-Then one line {"kernels": [...]} with launches, error and times, the card's
-name and power limit, and last {"ok": true, "device": {...}}.
+  1. device    — a CUDA card must be present (else exit 1); prints
+                 `nvidia-smi --query-gpu=name,power.limit` for it;
+  2. build     — builds every csrc/*.cu with nvcc, one process per source,
+                 all at once (first use), and reports seconds;
+  3. kernel    — K1 (colored_sweeps) against its plain torch version on
+                 chimera 8x8 (N = 512, n_pad = 640), R = 256, T = 16, with
+                 identical injected uniforms; then K1's own Philox draws
+                 against the enumerated Boltzmann law of a 4-cycle;
+  4. streamed_kernels — K3 (colored_sweeps_sparse) on chimera 16x16
+                 (n_pad 2048) and K2 (colored_sweeps_streamed) on a random
+                 3-regular +-J graph with N = 4096, each against its plain
+                 version at R = 256, T = 16 with identical uniforms, in an
+                 "all" and a "heated clusters + beta_row" case; then
+                 K1 = K2 = K3 bit for bit with their own Philox draws on
+                 chimera 8x8, and the Boltzmann TV of K2 and K3;
+  5. nmc_512   — nmc_run on chimera 8x8, 256 chains, reduced depth, through
+                 K1 (launch count of that run); plus the NMC cycle loop at a
+                 small size on the card against the CPU path;
+  6. nmc_2048  — nmc_run on chimera 16x16, 256 chains, edge-message LBP,
+                 reduced depth, through K3;
+  7. npt_2048  — apt_preprocess builds a beta ladder on chimera 16x16 and
+                 npt_run exchanges replicas on it (two NMC replicas), every
+                 sweep through K3 (the plain replicas with a per-replica
+                 beta_row);
+  8. nmc_4096  — nmc_run on the 3-regular N = 4096 graph, through K2;
+  9. throughput — spin-flip attempts/s of each kernel and its plain version
+                 in turns (K1 at bench.py's configuration, R = 2048, 1024
+                 sweeps; K3 and K2 at R = 2048, 256 sweeps), CUDA events;
+                 each kernel's flips per attempt, and the least time the
+                 card could take for the same work.
+Then one line {"kernels": [...]}, the card's name and power limit, and last
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -30,6 +47,18 @@ import time
 import numpy as np
 
 TEMP_X = 20.0
+R_CHECK, T_CHECK = 256, 16
+HOT_BETA = 0.25
+# Work counted in a kernel's bound: per attempt one Philox-4x32-10 (10 rounds
+# of 2 mul, 2 mulhi, 4 xor and 2 add) and ~10 operations for the draw (the
+# beta product, tanhf counted as one, p_up, the compare, dm); per flip one
+# FMA (2 operations) per nonzero coupling of the row; per sweep 3 per spin
+# for the energy. The H100's published peak rates give no integer rate, so
+# all of it is held against the f32 rate outside the tensor cores.
+OPS_PER_ATTEMPT = 110
+PEAK_F32_OPS = 67e12        # H100 SXM, FP32 outside the tensor cores
+PEAK_HBM_BYTES = 3.35e12    # H100 SXM, HBM3
+DEVICE = "cuda"
 
 
 def emit(obj):
@@ -39,6 +68,22 @@ def emit(obj):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def _wrappers():
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    return {"colored_sweeps": sc.colored_sweeps,
+            "colored_sweeps_streamed": sc.colored_sweeps_streamed,
+            "colored_sweeps_sparse": sc.colored_sweeps_sparse}
+
+
+def reset_counts():
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def read_counts():
+    return {name: w.launches for name, w in _wrappers().items()}
 
 
 def phase_device():
@@ -55,28 +100,123 @@ def phase_device():
 
 def phase_build():
     from nmc_tpu_torch.ops import _build
-    cached = _build.library_path("colored_sweeps").exists()
+    cached = {n: _build.library_path(n).exists() for n in _build.sources()}
     t0 = time.perf_counter()
-    path = _build.build("colored_sweeps")
-    _build.load_library("colored_sweeps")
+    paths = _build.build_all()
+    for name in paths:
+        _build.load_library(name)
     seconds = time.perf_counter() - t0
-    log = path.with_suffix(".log")
-    ptxas = ([ln.strip() for ln in log.read_text().splitlines()
-              if "registers" in ln or "spill" in ln or "smem" in ln]
-             if log.exists() else [])
-    emit({"phase": "build", "library": path.name, "cached": cached,
-          "seconds": seconds, "ptxas": ptxas})
+    ptxas = {}
+    for name, path in paths.items():
+        log = path.with_suffix(".log")
+        ptxas[name] = ([ln.strip() for ln in log.read_text().splitlines()
+                        if "registers" in ln or "spill" in ln or "smem" in ln]
+                       if log.exists() else [])
+    emit({"phase": "build", "libraries": sorted(p.name for p in paths.values()),
+          "cached": cached, "seconds": seconds, "ptxas": ptxas})
 
+
+# ---- instances -------------------------------------------------------------
 
 def _flagship():
     """bench.py's fallback instance: chimera C(8,8,4), +-J, normalized."""
     from nmc_tpu_torch.io.generators import chimera_graph
     from nmc_tpu_torch.ops.engine import SweepEngine
     prob = chimera_graph(8, 8, seed=0).normalized()[0]
-    eng = SweepEngine(prob, use_coloring=True, device="cuda")
-    check(eng.n_pad == 640 and eng.blocked.colored,
-          f"expected a colored n_pad=640 layout, got {eng.n_pad}")
+    eng = SweepEngine(prob, use_coloring=True, device=DEVICE)
+    check(eng.n_pad == 640 and eng.sweep_kernel == "colored_sweeps",
+          f"expected a colored n_pad=640 K1 layout, got {eng.n_pad}")
     return prob, eng
+
+
+def _chimera2048():
+    """chimera C(16,16,4), +-J, normalized: the K3 layout."""
+    from nmc_tpu_torch.io.generators import chimera_graph
+    from nmc_tpu_torch.ops.engine import SweepEngine
+    prob = chimera_graph(16, 16, seed=0).normalized()[0]
+    eng = SweepEngine(prob, use_coloring=True, device=DEVICE)
+    check(eng.n_pad == 2048 and eng.sweep_kernel == "colored_sweeps_sparse",
+          f"chimera 16x16: n_pad {eng.n_pad}, route {eng.sweep_kernel}")
+    return prob, eng
+
+
+def _regular3(N=4096):
+    """The union of three random perfect matchings with +-1 weights, from
+    np.random.default_rng(0): the K2 layout (dense J row blocks)."""
+    from nmc_tpu_torch.core.problem import IsingProblem, block_sparse_tiles
+    from nmc_tpu_torch.ops.engine import SweepEngine
+    rng = np.random.default_rng(0)
+    J = np.zeros((N, N))
+    for _ in range(3):
+        p = rng.permutation(N)
+        a, c = p[:N // 2], p[N // 2:]
+        w = rng.choice([-1.0, 1.0], size=N // 2)
+        J[a, c] = w
+        J[c, a] = w
+    prob = IsingProblem(J, np.zeros(N), name="regular3_4096")
+    eng = SweepEngine(prob, use_coloring=True, device=DEVICE)
+    K = block_sparse_tiles(eng.blocked)[0].shape[1]
+    nB = eng.blocked.num_blocks
+    check(eng.sweep_kernel == "colored_sweeps_streamed" and K > nB // 2,
+          f"3-regular: route {eng.sweep_kernel}, K {K}, nB {nB}")
+    return prob, eng, K
+
+
+def _tiles(eng):
+    """K3's col_idx and J_tiles of an engine's layout, on the card."""
+    import torch
+    from nmc_tpu_torch.core.problem import block_sparse_tiles
+    if eng.stream_tiles is not None:
+        return eng.stream_tiles
+    col_idx, J_tiles = block_sparse_tiles(eng.blocked)
+    return (torch.as_tensor(col_idx, dtype=torch.int32, device=DEVICE),
+            torch.as_tensor(J_tiles, device=DEVICE))
+
+
+def _kernel_fns(name, eng):
+    """(kernel, plain version) of one wrapper on an engine's layout, both
+    taking (h, m0, phi0, generator, beta, beta_row, mask, beta_spin, *,
+    num_sweeps, uniforms)."""
+    import functools
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    if name == "colored_sweeps_sparse":
+        args = _tiles(eng)
+        k, p = sc.colored_sweeps_sparse, sc.colored_sweeps_sparse_reference
+    else:
+        args = (eng.J_rows,)
+        k, p = sc.colored_sweeps_streamed, sc.colored_sweeps_streamed_reference
+    return functools.partial(k, *args), functools.partial(p, *args)
+
+
+# ---- kernel phases -----------------------------------------------------------
+
+def _compare(torch, name, k, p, J, h, m0, mask):
+    """Kernel result k against plain result p from identical uniforms."""
+    R, n_pad = m0.shape
+    torch.cuda.synchronize()
+    differ = (k.m != p.m).any(dim=1)
+    n_diff = int(differ.sum())
+    check(n_diff <= 1, f"{name}: spins differ in {n_diff} replicas")
+    same = ~differ
+    phi_err = float((k.phi[same] - p.phi[same]).abs().max())
+    e_err = float((k.energies[:, same] - p.energies[:, same]).abs().max())
+    phi_self = float((k.phi - (k.m @ J + h)).abs().max())
+    check(torch.isin(k.m, torch.tensor([-1.0, 1.0], device=DEVICE)).all(),
+          f"{name}: spins outside +-1")
+    check(phi_self <= 1e-4, f"{name}: phi off m@J+h by {phi_self}")
+    check(phi_err <= 1e-4, f"{name}: phi off the plain version by {phi_err}")
+    check(e_err <= 1e-3, f"{name}: energies off the plain version by {e_err}")
+    check(bool((k.e_best <= k.energies.min(dim=0).values).all()),
+          f"{name}: e_best above the sweep minimum")
+    check(bool((k.m_best[same] == p.m_best[same]).all()),
+          f"{name}: best states differ from the plain version")
+    frozen = ~mask.expand(R, n_pad)
+    check(bool((k.m[frozen] == m0[frozen]).all()), f"{name}: frozen spins moved")
+    check(bool((k.m[~frozen] != m0[~frozen]).any()),
+          f"{name}: no free spin moved")
+    return {"replicas_differing": n_diff, "phi_max_abs_err": phi_err,
+            "energy_max_abs_err": e_err, "phi_vs_mJ_h": phi_self}, \
+        max(phi_err, e_err)
 
 
 def phase_kernel():
@@ -85,62 +225,129 @@ def phase_kernel():
     from nmc_tpu_torch.ops.sweeps_cuda import (colored_sweeps,
                                                colored_sweeps_reference)
     prob, eng = _flagship()
-    R, T, n_pad = 256, 16, eng.n_pad
-    gen = torch.Generator(device="cuda").manual_seed(1)
+    R, T, n_pad = R_CHECK, T_CHECK, eng.n_pad
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
     m0 = eng.init_states(gen, R)
     phi0 = eng.fields(m0)
-    u = torch.rand((T, R, n_pad), generator=gen, device="cuda")
-    cl = (torch.rand((R, n_pad), generator=gen, device="cuda") < 0.5) & eng.active
+    u = torch.rand((T, R, n_pad), generator=gen, device=DEVICE)
+    cl = (torch.rand((R, n_pad), generator=gen, device=DEVICE) < 0.5) & eng.active
     cases = {
         # all spins at beta = 1, as in an ALL phase
-        "all": (torch.full((T,), 1.0, device="cuda"),
-                torch.ones((), device="cuda"), eng.active.expand(R, n_pad)),
+        "all": (torch.full((T,), 1.0, device=DEVICE),
+                torch.ones((), device=DEVICE), eng.active.expand(R, n_pad)),
         # an NMC C phase: clusters heated to beta/temp_x, the rest frozen
-        "heated_clusters": (torch.full((T,), 2.5, device="cuda"),
+        "heated_clusters": (torch.full((T,), 2.5, device=DEVICE),
                             torch.where(cl, 1.0 / TEMP_X, 1.0), cl),
     }
-    J, h = eng.J_full, eng.h
     max_err = 0.0
-    out = {"phase": "kernel", "R": R, "T": T, "n_pad": n_pad}
+    out = {"phase": "kernel", "kernel": "colored_sweeps", "R": R, "T": T,
+           "n_pad": n_pad}
     for name, (beta, bs, mask) in cases.items():
-        k = colored_sweeps(J, h, m0, phi0, None, beta, bs, mask,
+        k = colored_sweeps(eng.J_full, eng.h, m0, phi0, None, beta, bs, mask,
                            num_sweeps=T, block_size=128, uniforms=u)
-        p = colored_sweeps_reference(J, h, m0, phi0, None, beta, bs, mask,
-                                     num_sweeps=T, block_size=128, uniforms=u)
-        torch.cuda.synchronize()
-        differ = (k.m != p.m).any(dim=1)
-        n_diff = int(differ.sum())
-        check(n_diff <= 1, f"{name}: spins differ in {n_diff} replicas")
-        same = ~differ
-        phi_err = float((k.phi[same] - p.phi[same]).abs().max())
-        e_err = float((k.energies[:, same] - p.energies[:, same]).abs().max())
-        phi_self = float((k.phi - (k.m @ J + h)).abs().max())
-        check(torch.isin(k.m, torch.tensor([-1.0, 1.0], device="cuda")).all(),
-              f"{name}: spins outside +-1")
-        check(phi_self <= 1e-4, f"{name}: phi off m@J+h by {phi_self}")
-        check(phi_err <= 1e-4, f"{name}: phi off the plain version by {phi_err}")
-        check(e_err <= 1e-3, f"{name}: energies off the plain version by {e_err}")
-        check(bool((k.e_best <= k.energies.min(dim=0).values).all()),
-              f"{name}: e_best above the sweep minimum")
-        check(bool((k.m_best[same] == p.m_best[same]).all()),
-              f"{name}: best states differ from the plain version")
-        frozen = ~mask.expand(R, n_pad)
-        check(bool((k.m[frozen] == m0[frozen]).all()),
-              f"{name}: frozen spins moved")
-        check(bool((k.m[~frozen] != m0[~frozen]).any()),
-              f"{name}: no free spin moved")
-        max_err = max(max_err, phi_err, e_err)
-        out[name] = {"replicas_differing": n_diff, "phi_max_abs_err": phi_err,
-                     "energy_max_abs_err": e_err, "phi_vs_mJ_h": phi_self}
-    out["boltzmann_tv"] = _boltzmann_tv(torch)
-    check(out["boltzmann_tv"] < 0.05, f"Philox TV {out['boltzmann_tv']} >= 0.05")
+        p = colored_sweeps_reference(eng.J_full, eng.h, m0, phi0, None, beta,
+                                     bs, mask, num_sweeps=T, block_size=128,
+                                     uniforms=u)
+        out[name], err = _compare(torch, name, k, p, eng.J_full, eng.h, m0,
+                                  mask)
+        max_err = max(max_err, err)
+
+    def k1(eng, m, gen, beta, sweeps):
+        return eng.run(m, gen, sweeps, beta, blocked_input=True,
+                       blocked_output=True).m
+
+    out["boltzmann_tv"] = _boltzmann_tv(torch, k1)
+    check(out["boltzmann_tv"] < 0.05, f"K1 Philox TV {out['boltzmann_tv']}")
     emit(out)
     return max_err
 
 
-def _boltzmann_tv(torch):
-    """Kernel with its own Philox draws on an enumerable 4-cycle with
-    fields; total variation distance of the visited states from Boltzmann."""
+def phase_streamed_kernels(c2048, r4096):
+    """K3 and K2 against their plain versions at full width; the three
+    kernels against each other; K2's and K3's Philox Boltzmann TV."""
+    import torch
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    R, T = R_CHECK, T_CHECK
+    out = {"phase": "streamed_kernels", "R": R, "T": T}
+    max_err = {}
+    for name, eng in (("colored_sweeps_sparse", c2048[1]),
+                      ("colored_sweeps_streamed", r4096[1])):
+        kernel, plain = _kernel_fns(name, eng)
+        n_pad = eng.n_pad
+        gen = torch.Generator(device=DEVICE).manual_seed(11)
+        m0 = eng.init_states(gen, R)
+        phi0 = eng.fields(m0)
+        u = torch.rand((T, R, n_pad), generator=gen, device=DEVICE)
+        cl = ((torch.rand((R, n_pad), generator=gen, device=DEVICE) < 0.5)
+              & eng.active)
+        cases = {
+            "all": (torch.full((T,), 1.0, device=DEVICE),
+                    torch.ones(R, device=DEVICE), eng.active[None], None),
+            "heated_clusters_beta_row": (
+                torch.full((T,), 2.5, device=DEVICE),
+                torch.linspace(0.5, 2.0, R, device=DEVICE), cl,
+                torch.where(cl, 1.0 / TEMP_X, 1.0)),
+        }
+        res = {"n_pad": n_pad, "num_blocks": eng.blocked.num_blocks}
+        if name == "colored_sweeps_sparse":
+            res["tiles_per_row_block"] = int(eng.stream_tiles[0].shape[1])
+        else:
+            res["tiles_per_row_block"] = r4096[2]
+        err = 0.0
+        for case, (beta, beta_row, mask, bs) in cases.items():
+            k = kernel(eng.h, m0, phi0, None, beta, beta_row, mask, bs,
+                       num_sweeps=T, uniforms=u)
+            p = plain(eng.h, m0, phi0, None, beta, beta_row, mask, bs,
+                      num_sweeps=T, uniforms=u)
+            res[case], e = _compare(torch, f"{name} {case}", k, p,
+                                    eng.J_full, eng.h, m0, mask)
+            err = max(err, e)
+        max_err[name] = err
+        out[name] = res
+
+    # K1 = K2 = K3 with their own Philox draws: on +-J couplings phi is
+    # integer-valued, so the three compute the same function exactly
+    _, eng = _flagship()
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    m0 = eng.init_states(gen, R)
+    phi0 = eng.fields(m0)
+    beta = torch.full((T,), 2.0, device=DEVICE)
+    ones = torch.ones(R, device=DEVICE)
+    k1 = sc.colored_sweeps(
+        eng.J_full, eng.h, m0, phi0,
+        torch.Generator(device=DEVICE).manual_seed(7), beta,
+        torch.ones((), device=DEVICE), eng.active.expand(R, eng.n_pad),
+        num_sweeps=T)
+    same = {}
+    for name in ("colored_sweeps_streamed", "colored_sweeps_sparse"):
+        kernel, _ = _kernel_fns(name, eng)
+        kr = kernel(eng.h, m0, phi0,
+                    torch.Generator(device=DEVICE).manual_seed(7), beta, ones,
+                    eng.active[None], None, num_sweeps=T)
+        same[name] = all(torch.equal(a, b) for a, b in zip(k1, kr))
+        check(same[name], f"{name} differs from K1 with the same Philox seed")
+    check(bool((k1.m != m0).any()), "K1 moved no spin")
+    out["k1_k2_k3_bit_equal_philox"] = same
+
+    for name in ("colored_sweeps_streamed", "colored_sweeps_sparse"):
+        def run(eng, m, gen, beta, sweeps, name=name):
+            kernel, _ = _kernel_fns(name, eng)
+            return kernel(eng.h, m, eng.fields(m), gen,
+                          torch.full((sweeps,), beta, device=DEVICE),
+                          torch.ones(m.shape[0], device=DEVICE),
+                          eng.active[None], None, num_sweeps=sweeps).m
+        tv = _boltzmann_tv(torch, run)
+        check(tv < 0.05, f"{name} Philox TV {tv} >= 0.05")
+        out[name]["boltzmann_tv"] = tv
+    emit(out)
+    return max_err
+
+
+def _boltzmann_tv(torch, run):
+    """A kernel with its own Philox draws on an enumerable 4-cycle with
+    fields (`run(engine, m, generator, beta, sweeps)` returns the blocked
+    states after `sweeps` sweeps); total variation distance of the visited
+    states from Boltzmann."""
     import itertools
     from nmc_tpu_torch.core.problem import IsingProblem
     from nmc_tpu_torch.ops.engine import SweepEngine
@@ -158,13 +365,12 @@ def _boltzmann_tv(torch):
     target = np.zeros(2 ** n)
     target[(((states + 1) / 2) @ weights).astype(int)] = p
 
-    eng = SweepEngine(prob, block_size=8, use_coloring=True, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(4)
+    eng = SweepEngine(prob, block_size=8, use_coloring=True, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
     m = eng.init_states(gen, 2048)
     counts = np.zeros(2 ** n)
     for it in range(25):
-        m = eng.run(m, gen, 4, beta, blocked_input=True,
-                    blocked_output=True).m
+        m = run(eng, m, gen, beta, 4)
         if it >= 5:
             orig = eng.from_blocked(m).cpu().numpy()
             idx = (((orig + 1) / 2) @ weights).astype(int)
@@ -173,64 +379,71 @@ def _boltzmann_tv(torch):
     return float(np.abs(counts - target).sum() / 2)
 
 
-def phase_nmc():
-    """nmc_run on chimera 8x8 with 256 chains, through the kernel."""
-    import torch
-    from nmc_tpu_torch.models.nmc import NMCConfig, nmc_run
-    from nmc_tpu_torch.ops.sweeps_cuda import colored_sweeps
-    from nmc_tpu_torch.utils.metrics import MetricsLogger
-    prob, _ = _flagship()
-    cfg = NMCConfig(num_sweeps_initial=2000, num_sweeps_per_NMC_phase=500,
-                    num_NMC_cycles=3, num_chains=256, use_coloring=True,
-                    record_m=False)
-    reduced = {"num_sweeps_initial": [10000, 2000],
-               "num_sweeps_per_NMC_phase": [10000, 500],
-               "num_NMC_cycles": [10, 3]}
-    metrics = MetricsLogger()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    colored_sweeps.launches = 0
-    t0 = time.perf_counter()
-    res = nmc_run(prob, cfg, gen, metrics=metrics, device="cuda")
-    wall = time.perf_counter() - t0
-    launches = colored_sweeps.launches
+# ---- main paths --------------------------------------------------------------
 
-    check(launches > 0, "nmc_run launched no colored sweep kernel")
+def _nmc_main_path(prob, cfg, kernel, seed):
+    """nmc_run with the launch counts set to 0 just before and read just
+    after; the kernel's per-chain best energy against the f64 energy of
+    the m_best it kept."""
+    import torch
+    from nmc_tpu_torch.models.nmc import nmc_run
+    from nmc_tpu_torch.utils.metrics import MetricsLogger
+    metrics = MetricsLogger()
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = nmc_run(prob, cfg, gen, metrics=metrics, device=DEVICE)
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    check(launches[kernel] > 0, f"nmc_run launched no {kernel}")
+    check(all(v == 0 for k, v in launches.items() if k != kernel),
+          f"nmc_run launched other kernels than {kernel}: {launches}")
     R, n = cfg.num_chains, prob.n
     check(res.m_best.shape == (R, n) and res.min_energy.shape == (R,),
           f"unexpected shapes {res.m_best.shape}, {res.min_energy.shape}")
     check(np.isin(res.m_best, [-1.0, 1.0]).all(), "m_best outside +-1")
     check(np.isfinite(res.energy_overall).all(), "non-finite sweep energies")
-    # The kernel's own numbers: each chain's best state is the state of its
-    # lowest sweep energy over all phases, so that f32 energy, reported by
-    # the kernel, must match the f64 energy of the m_best it kept.
+    # each chain's best state is the state of its lowest sweep energy over
+    # all phases, so that f32 energy, reported by the kernel, must match
+    # the f64 energy of the m_best it kept
     recompute = prob.energy(res.m_best)
-    kernel_best = res.energy_overall.min(axis=0)
-    best_err = float(np.abs(kernel_best - recompute).max())
+    best_err = float(np.abs(res.energy_overall.min(axis=0) - recompute).max())
     check(best_err <= 1e-3,
           f"kernel best energies off the f64 energy of m_best by {best_err}")
     check(np.allclose(res.min_energy, recompute, rtol=0, atol=1e-9),
           "min_energy differs from the f64 recompute")
     sweeps = metrics.of_kind("sweeps")
-    warm_best = sweeps[0]["min_energy"]
-    best = float(res.min_energy.min())
+    return res, {
+        "N": n, "num_chains": R, "launches": launches[kernel],
+        "wall_seconds": wall, "warmup_best": sweeps[0]["min_energy"],
+        "best_energy": float(res.min_energy.min()),
+        "kernel_best_vs_f64_max_abs_err": best_err,
+        "phase_times": [{"phase": r["phase"], "seconds": r["seconds"],
+                         "min_energy": r["min_energy"]} for r in sweeps],
+        "lbp": [{"cycle": r["cycle"], "seconds": r["seconds"],
+                 "cluster_spins": r["total"]}
+                for r in metrics.of_kind("clusters")]}
+
+
+def phase_nmc_512():
+    """nmc_run on chimera 8x8 with 256 chains, through K1."""
+    import torch
+    from nmc_tpu_torch.models.nmc import NMCConfig
+    prob, _ = _flagship()
+    cfg = NMCConfig(num_sweeps_initial=2000, num_sweeps_per_NMC_phase=500,
+                    num_NMC_cycles=3, num_chains=256, use_coloring=True,
+                    record_m=False)
+    res, out = _nmc_main_path(prob, cfg, "colored_sweeps", 0)
     # At this depth the C phase re-samples the backbone at beta/temp_x
-    # (about 55% of the spins in the chip runs), so with few chains the NMC
-    # best can end above the warm-up's (the JAX package on this instance,
-    # 16 chains: -876 against -882); with 256 chains and these seeds it
-    # reaches it.
-    check(best <= warm_best,
-          f"NMC best {best} above the warm-up best {warm_best}")
-    phases = [{"phase": r["phase"], "seconds": r["seconds"],
-               "min_energy": r["min_energy"]} for r in sweeps]
-    lbp = [{"cycle": r["cycle"], "seconds": r["seconds"],
-            "cluster_spins": r["total"]} for r in metrics.of_kind("clusters")]
-    emit({"phase": "nmc", "N": n, "num_chains": R, "reduced": reduced,
-          "launches": launches, "wall_seconds": wall,
-          "warmup_best": warm_best, "best_energy": best,
-          "kernel_best_vs_f64_max_abs_err": best_err,
-          "phase_times": phases, "lbp": lbp,
-          "small_parity": _nmc_small_parity(torch)})
-    return launches
+    # (about 55% of the spins), so with few chains the NMC best can end
+    # above the warm-up's; with 256 chains and these seeds it reaches it.
+    check(out["best_energy"] <= out["warmup_best"],
+          f"NMC best {out['best_energy']} above the warm-up best")
+    emit({"phase": "nmc_512", "reduced": {
+        "num_sweeps_initial": [10000, 2000],
+        "num_sweeps_per_NMC_phase": [10000, 500], "num_NMC_cycles": [10, 3]},
+        **out, "small_parity": _nmc_small_parity(torch)})
+    return out["launches"]
 
 
 def _nmc_small_parity(torch):
@@ -269,48 +482,227 @@ def _nmc_small_parity(torch):
     return {"m_best_equal": True, "energy_max_abs_err": err}
 
 
-def phase_throughput(card):
-    """Attempts/s of the kernel and of the plain version, bench.py's shapes."""
+def phase_nmc_2048(c2048):
+    """nmc_run on chimera 16x16 with 256 chains and edge-message LBP,
+    through K3."""
+    from nmc_tpu_torch.models.nmc import NMCConfig
+    prob, _ = c2048
+    cfg = NMCConfig(num_sweeps_initial=2000, num_sweeps_per_NMC_phase=500,
+                    num_NMC_cycles=3, num_chains=256, use_coloring=True,
+                    record_m=False, sparse_lbp_threshold=1024)
+    _, out = _nmc_main_path(prob, cfg, "colored_sweeps_sparse", 0)
+    check(out["launches"] >= 1 + 3 * cfg.num_NMC_cycles,
+          f"nmc_run launched K3 {out['launches']} times")
+    emit({"phase": "nmc_2048", "sparse_lbp_threshold": 1024, "reduced": {
+        "num_sweeps_initial": [10000, 2000],
+        "num_sweeps_per_NMC_phase": [10000, 500], "num_NMC_cycles": [10, 3]},
+        **out})
+    return out["launches"]
+
+
+def phase_nmc_4096(r4096):
+    """nmc_run on the 3-regular N = 4096 graph (edge-message LBP, above the
+    default threshold), through K2, at a small depth."""
+    from nmc_tpu_torch.models.nmc import NMCConfig
+    prob = r4096[0]
+    cfg = NMCConfig(num_sweeps_initial=500, num_sweeps_per_NMC_phase=100,
+                    num_NMC_cycles=1, num_chains=64, use_coloring=True,
+                    record_m=False)
+    _, out = _nmc_main_path(prob, cfg, "colored_sweeps_streamed", 1)
+    check(out["launches"] == 1 + 3 * cfg.num_NMC_cycles,
+          f"nmc_run launched K2 {out['launches']} times")
+    emit({"phase": "nmc_4096", "reduced": {
+        "num_sweeps_initial": [10000, 500],
+        "num_sweeps_per_NMC_phase": [10000, 100], "num_NMC_cycles": [10, 1],
+        "num_chains": [256, 64]}, **out})
+    return out["launches"]
+
+
+def phase_npt_2048(c2048):
+    """apt_preprocess builds a beta ladder on chimera 16x16 with reduced
+    sweeps; npt_run exchanges replicas on it, the two coldest running NMC,
+    with every engine call through K3 (the plain replicas' betas as K3's
+    beta_row)."""
     import torch
-    from nmc_tpu_torch.ops.sweeps_cuda import colored_sweeps_reference
-    prob, eng = _flagship()
-    R, sweeps, iters = 2048, 1024, 4
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    m = eng.init_states(gen, R)
-    beta = torch.full((sweeps,), 2.0, device="cuda")
+    from nmc_tpu_torch.models.apt import APTConfig, apt_preprocess
+    from nmc_tpu_torch.models.npt import NPTConfig, npt_run
+    from nmc_tpu_torch.utils.metrics import MetricsLogger
+    prob, _ = c2048
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    apt_cfg = APTConfig(num_sweeps_MCMC=200, num_sweeps_read=100, num_rng=64,
+                        beta_start=0.5, beta_max=3.0, use_coloring=True)
+    apt_metrics = MetricsLogger()
+    reset_counts()
+    t0 = time.perf_counter()
+    apt = apt_preprocess(prob, apt_cfg, gen, metrics=apt_metrics,
+                         device=DEVICE)
+    apt_seconds = time.perf_counter() - t0
+    apt_launches = read_counts()
+    ladder = np.asarray(apt.beta)
+    L = ladder.size
+    check(L >= 4 and np.all(np.diff(ladder) > 0), f"APT ladder {ladder}")
+    check(apt_launches["colored_sweeps_sparse"] == len(
+        apt_metrics.of_kind("apt_rung")), f"APT launches {apt_launches}")
 
-    def kernel_step(m):
-        return eng.run(m, gen, sweeps, 2.0, blocked_input=True,
-                       blocked_output=True).m
+    npt_cfg = NPTConfig(num_sweeps_MCMC=1200, num_sweeps_read=600,
+                        num_swap_attempts=4,
+                        num_swapping_pairs=max(1, (L - 1) // 4),
+                        num_cycles=1, use_coloring=True,
+                        record_last_round_m=False, lambda_start=3.0,
+                        tolerance=1e-8, max_iterations=200)
+    doNMC = [False] * (L - 2) + [True] * 2
+    metrics = MetricsLogger()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = npt_run(prob, ladder, doNMC, npt_cfg, gen, metrics=metrics,
+                  device=DEVICE)
+    npt_seconds = time.perf_counter() - t0
+    launches = read_counts()
+    rounds = npt_cfg.num_swap_attempts
+    # per round one K3 call for the plain replicas, three (C, NC, ALL) for
+    # the NMC replicas' one cycle
+    check(launches["colored_sweeps_sparse"] == 4 * rounds
+          and launches["colored_sweeps"] == 0
+          and launches["colored_sweeps_streamed"] == 0,
+          f"npt_run launches {launches}")
+    check(res.rounds_completed == rounds, "npt_run stopped early")
+    check(np.isin(res.best_state, [-1.0, 1.0]).all(), "best state outside +-1")
+    e64 = float(prob.energy(res.best_state))
+    check(abs(e64 - res.min_energy) <= 1e-9, "min_energy is not the f64 one")
+    kernel_best = metrics.of_kind("sweeps")[-1]["min_energy"]
+    best_err = abs(kernel_best - e64)
+    check(best_err <= 1e-3,
+          f"NPT best {kernel_best} off the f64 energy {e64} by {best_err}")
+    check(np.isfinite(res.Energy).all() and res.Energy.shape == (L,),
+          "non-finite replica energies")
+    emit({"phase": "npt_2048", "apt": {
+        "num_rungs": L, "beta_first_last": [ladder[0], ladder[-1]],
+        "launches": apt_launches["colored_sweeps_sparse"],
+        "seconds": apt_seconds, "reduced": {
+            "num_sweeps_MCMC": [1000, 200], "num_sweeps_read": [1000, 100],
+            "num_rng": [100, 64], "beta_max": [30.0, 3.0]}},
+        "npt": {"replicas": L, "nmc_replicas": 2, "rounds": rounds,
+                "sweeps_per_round": npt_cfg.derived_budgets()[0],
+                "launches": launches["colored_sweeps_sparse"],
+                "beta_row_min_max": [ladder[0], ladder[L - 3]],
+                "accepted_swaps": int(res.swap_counts.sum()),
+                "attempted_swaps": rounds * npt_cfg.num_swapping_pairs,
+                "best_energy_f64": e64, "kernel_best_vs_f64": best_err,
+                "seconds": npt_seconds,
+                "round_seconds": [r["seconds"]
+                                  for r in metrics.of_kind("sweeps")]}})
+    return apt_launches["colored_sweeps_sparse"] + launches[
+        "colored_sweeps_sparse"]
 
-    def plain_step(m):
-        return colored_sweeps_reference(
-            eng.J_full, eng.h, m, eng.fields(m), gen, beta,
-            torch.ones((), device="cuda"), eng.active.expand(R, eng.n_pad),
-            num_sweeps=sweeps, block_size=eng.blocked.block_size).m
 
-    def timed(step, m):
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            m = step(m)
-        torch.cuda.synchronize()
-        check(np.isfinite(float(m.sum().item())), "non-finite state")
-        return time.perf_counter() - t0, m
+# ---- throughput and bounds ---------------------------------------------------
 
-    m = kernel_step(m)
-    m = plain_step(m)
+def _timed_ms(torch, step, m, iters):
+    """Mean ms per call of `step` over `iters` calls, CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        m = step(m)
+    end.record()
+    torch.cuda.synchronize()
+    check(np.isfinite(float(m.phi.sum())), "non-finite fields")
+    return start.elapsed_time(end) / iters, m
+
+
+def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0):
+    """Kernel and plain version in turns (plain, kernel, kernel, plain) on
+    one layout; flips per attempt from single-sweep kernel calls; the
+    least time the card could take for one call's work."""
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    from nmc_tpu_torch.ops.sweeps_cuda import ColoredSweepResult
+    n_pad = eng.n_pad
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    m0 = eng.init_states(gen, R)
+    betas = torch.full((sweeps,), beta, device=DEVICE)
+    if name == "colored_sweeps":
+        mask = eng.active.expand(R, n_pad)
+        one = torch.ones((), device=DEVICE)
+
+        def call(fn, m, T):
+            return fn(eng.J_full, eng.h, m.m, m.phi, gen, betas[:T], one,
+                      mask, num_sweeps=T, block_size=eng.blocked.block_size)
+        fns = (sc.colored_sweeps, sc.colored_sweeps_reference)
+        j_bytes = 4 * n_pad * n_pad
+        mask_bytes = R * n_pad + 4 * R * n_pad   # [R, n_pad] mask, beta_spin
+    else:
+        fns = _kernel_fns(name, eng)
+        ones = torch.ones(R, device=DEVICE)
+
+        def call(fn, m, T):
+            return fn(eng.h, m.m, m.phi, gen, betas[:T], ones,
+                      eng.active[None], None, num_sweeps=T)
+        j_bytes = (4 * n_pad * n_pad if name == "colored_sweeps_streamed"
+                   else sum(t.numel() * t.element_size()
+                            for t in eng.stream_tiles))
+        mask_bytes = n_pad + 4 * R              # [1, n_pad] mask, beta_row
+    state = ColoredSweepResult(m0, eng.fields(m0), None, None, None)
+    kernel, plain = fns
+    state = call(kernel, state, sweeps)        # burn-in (and warm-up)
+    state = call(plain, state, sweeps)
     times = {"kernel": [], "plain": []}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        dt, m = timed(kernel_step if name == "kernel" else plain_step, m)
-        times[name].append(dt)
-    attempts = iters * sweeps * R * prob.n
-    k_dt, p_dt = min(times["kernel"]), min(times["plain"])
-    out = {"phase": "throughput", "R": R, "sweeps": sweeps, "iters": iters,
-           "N": prob.n, "card": card, "seconds": times,
-           "kernel_attempts_per_s": attempts / k_dt,
-           "plain_attempts_per_s": attempts / p_dt,
-           "kernel_ms_per_call": 1e3 * k_dt / iters,
-           "plain_ms_per_call": 1e3 * p_dt / iters}
+    for turn in ("plain", "kernel", "kernel", "plain"):
+        fn = kernel if turn == "kernel" else plain
+        ms, state = _timed_ms(torch, lambda s: call(fn, s, sweeps), state,
+                              iters)
+        times[turn].append(ms)
+    N = prob.n
+
+    def measure_flips(state):
+        """Flips per attempt: one sweep per call, spins that changed."""
+        flips, calls = 0, 32
+        for _ in range(calls):
+            nxt = call(kernel, state, 1)
+            flips += int((nxt.m != state.m).sum())
+            state = nxt
+        return flips / (calls * R * N), state
+
+    rate, state = measure_flips(state)
+    # the same kernel at a hot beta, where far more spins flip: if the time
+    # per call grows much less than the J-row traffic of the flips, the
+    # phi update's L2 (or HBM) bytes are not what bounds it at beta
+    betas.fill_(HOT_BETA)
+    hot_ms, state = _timed_ms(torch, lambda s: call(kernel, s, sweeps), state,
+                              1)
+    hot_rate, state = measure_flips(state)
+    attempts = R * sweeps * N
+    degree = np.count_nonzero(prob.J) / N
+    ops = (attempts * OPS_PER_ATTEMPT + attempts * rate * 2 * degree
+           + 3 * R * sweeps * n_pad)
+    nbytes = (j_bytes + 4 * n_pad + mask_bytes + 4 * sweeps   # J, h, masks
+              + 2 * 4 * R * n_pad                             # m0, phi0
+              + 3 * 4 * R * n_pad + 4 * R + 4 * sweeps * R)   # outputs
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_HBM_BYTES
+    k_ms, p_ms = min(times["kernel"]), min(times["plain"])
+    return {"name": name, "R": R, "sweeps": sweeps, "iters": iters, "N": N,
+            "n_pad": n_pad, "beta": beta, "ms": times,
+            "kernel_ms_per_call": k_ms, "plain_ms_per_call": p_ms,
+            "kernel_attempts_per_s": attempts / (k_ms * 1e-3),
+            "plain_attempts_per_s": attempts / (p_ms * 1e-3),
+            "flips_per_attempt": rate,
+            "flips_per_sweep_per_replica": rate * N,
+            "hot": {"beta": HOT_BETA, "kernel_ms_per_call": hot_ms,
+                    "flips_per_attempt": hot_rate},
+            "mean_degree": degree, "bound_ops": ops, "bound_bytes": nbytes,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_throughput(card, c2048, r4096):
+    import torch
+    out = {"phase": "throughput", "card": card}
+    prob, eng = _flagship()
+    out["colored_sweeps"] = _throughput_one(torch, "colored_sweeps", prob,
+                                            eng, 2048, 1024, 4)
+    out["colored_sweeps_sparse"] = _throughput_one(
+        torch, "colored_sweeps_sparse", c2048[0], c2048[1], 2048, 256, 4)
+    out["colored_sweeps_streamed"] = _throughput_one(
+        torch, "colored_sweeps_streamed", r4096[0], r4096[1], 2048, 256, 4)
     emit(out)
     return out
 
@@ -322,17 +714,33 @@ def main():
               "test runs on a CUDA card only", file=sys.stderr)
         sys.exit(1)
     import nmc_tpu_torch  # noqa: F401  (fails here outside a checkout)
+    t_start = time.perf_counter()
     card = phase_device()
     phase_build()
-    max_err = phase_kernel()
-    launches = phase_nmc()
-    tp = phase_throughput(card)
+    c2048, r4096 = _chimera2048(), _regular3()
+    errs = {"colored_sweeps": phase_kernel()}
+    errs.update(phase_streamed_kernels(c2048, r4096))
+    launches = {"colored_sweeps": phase_nmc_512(),
+                "colored_sweeps_sparse": phase_nmc_2048(c2048)}
+    launches["colored_sweeps_sparse"] += phase_npt_2048(c2048)
+    launches["colored_sweeps_streamed"] = phase_nmc_4096(r4096)
+    tp = phase_throughput(card, c2048, r4096)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    sources = {"colored_sweeps": ("nmc_tpu_torch/csrc/colored_sweeps.cu",
+                                  "nmc_tpu/ops/sweeps_pallas.py:128"),
+               "colored_sweeps_streamed": (
+                   "nmc_tpu_torch/csrc/colored_sweeps.cu",
+                   "nmc_tpu/ops/sweeps_pallas.py:291"),
+               "colored_sweeps_sparse": (
+                   "nmc_tpu_torch/csrc/colored_sweeps_sparse.cu",
+                   "nmc_tpu/ops/sweeps_pallas.py:493")}
     emit({"kernels": [{
-        "name": "colored_sweeps", "route": "cuda",
-        "source": "nmc_tpu_torch/csrc/colored_sweeps.cu",
-        "replaces": "nmc_tpu/ops/sweeps_pallas.py:128",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": tp["kernel_ms_per_call"], "plain_ms": tp["plain_ms_per_call"]}]})
+        "name": name, "route": "cuda", "source": src, "replaces": rep,
+        "launches": launches[name], "max_abs_err": errs[name],
+        "ms": tp[name]["kernel_ms_per_call"],
+        "plain_ms": tp[name]["plain_ms_per_call"],
+        "bound_ms": tp[name]["bound_ms"], "bound_by": tp[name]["bound_by"],
+        "library_ms": None} for name, (src, rep) in sources.items()]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

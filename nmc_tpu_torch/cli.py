@@ -1,10 +1,14 @@
-"""Command-line entry point of the port: the `nmc` subcommand.
+"""Command-line entry points of the port: `nmc`, `apt` and `npt`.
 
     python -m nmc_tpu_torch nmc --J J.npy --h h.npy --coloring --chains 256
     python -m nmc_tpu_torch nmc --instance path.txt --format chimera --coloring
+    python -m nmc_tpu_torch apt --J J.npy --coloring --out-dir Results/data
+    python -m nmc_tpu_torch npt --J J.npy --coloring \
+        --beta-list Results/data/beta_list_python.npy --nmc-coldest 2
 
-Same flags and the same JSON output keys as ``python -m nmc_tpu nmc``. It
-runs on the first CUDA card when there is one, else on the CPU.
+Same flags and the same JSON output keys as ``python -m nmc_tpu``'s
+subcommands of those names. They run on the first CUDA card when there is
+one, else on the CPU.
 """
 
 from __future__ import annotations
@@ -45,12 +49,21 @@ def _add_problem_args(p):
                    help="graph-colored blocks (sparse topologies)")
 
 
-def cmd_nmc(args):
+def _device_and_generator(args):
     import torch
 
     from .device import default_device
-    from .models.nmc import NMCConfig, nmc_run
+    device = default_device()
+    return device, torch.Generator(device=device).manual_seed(args.seed)
+
+
+def _metrics(args):
     from .utils.metrics import MetricsLogger
+    return MetricsLogger(path=args.metrics, echo=bool(args.metrics))
+
+
+def cmd_nmc(args):
+    from .models.nmc import NMCConfig, nmc_run
 
     prob = _load_problem(args)
     cfg = NMCConfig(
@@ -62,15 +75,63 @@ def cmd_nmc(args):
         use_coloring=args.coloring, record_m=False,
         tolerance=args.lbp_tolerance, max_iterations=args.lbp_iters,
     )
-    device = default_device()
-    generator = torch.Generator(device=device).manual_seed(args.seed)
-    metrics = MetricsLogger(path=args.metrics, echo=bool(args.metrics))
-    res = nmc_run(prob, cfg, generator, metrics=metrics, device=device)
+    device, generator = _device_and_generator(args)
+    res = nmc_run(prob, cfg, generator, metrics=_metrics(args), device=device)
     out = {"min_energy": float(res.min_energy.min()),
            "min_energy_unnormalized": float(res.min_energy.min()
                                             * res.norm_factor),
            "num_chains": cfg.num_chains}
     print(json.dumps(out))
+
+
+def cmd_apt(args):
+    from .models.apt import APTConfig, apt_preprocess
+
+    prob = _load_problem(args)
+    cfg = APTConfig(
+        num_sweeps_MCMC=args.sweeps, num_sweeps_read=args.sweeps_read,
+        num_rng=args.chains, beta_start=args.beta_start, alpha=args.alpha,
+        beta_max=args.beta_max, save_dir=args.out_dir,
+        block_size=args.block_size, use_coloring=args.coloring,
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every, resume=args.resume,
+    )
+    device, generator = _device_and_generator(args)
+    res = apt_preprocess(prob, cfg, generator, metrics=_metrics(args),
+                         device=device)
+    print(json.dumps({"num_rungs": len(res.beta),
+                      "beta": [round(b, 6) for b in res.beta]}))
+
+
+def cmd_npt(args):
+    from .models.npt import NPTConfig, npt_run
+
+    prob = _load_problem(args)
+    beta_list = np.load(args.beta_list) if args.beta_list else \
+        np.linspace(args.beta_start, args.beta_max, args.replicas)
+    R = beta_list.shape[0]
+    doNMC = [False] * (R - args.nmc_coldest) + [True] * args.nmc_coldest
+    cfg = NPTConfig(
+        num_sweeps_MCMC=args.sweeps, num_sweeps_read=args.sweeps_read,
+        num_swap_attempts=args.swap_attempts,
+        num_swapping_pairs=max(round(args.swap_fraction * R), 1),
+        num_cycles=args.cycles, global_beta=args.beta,
+        temp_x=args.temp_x, lambda_start=args.lambda_start,
+        block_size=args.block_size, use_coloring=args.coloring,
+        record_last_round_m=False,
+        tolerance=args.lbp_tolerance, max_iterations=args.lbp_iters,
+        checkpoint_path=args.checkpoint, checkpoint_every=args.checkpoint_every,
+        resume=args.resume,
+    )
+    device, generator = _device_and_generator(args)
+    res = npt_run(prob, beta_list, doNMC, cfg, generator,
+                  metrics=_metrics(args), device=device)
+    print(json.dumps({
+        "Energy": [float(e) for e in res.Energy],
+        "min_energy": res.min_energy,
+        "min_energy_unnormalized": res.min_energy * res.norm_factor,
+        "acceptance_rate": res.acceptance_rate,
+    }))
 
 
 def main(argv=None):
@@ -89,6 +150,43 @@ def main(argv=None):
     p.add_argument("--lbp-iters", type=int, default=200)
     p.add_argument("--chains", type=int, default=1)
     p.set_defaults(fn=cmd_nmc)
+
+    p = sub.add_parser("apt", help="adaptive beta-schedule preprocessor")
+    _add_problem_args(p)
+    p.add_argument("--sweeps", type=int, default=1000)
+    p.add_argument("--sweeps-read", type=int, default=1000)
+    p.add_argument("--chains", type=int, default=100)
+    p.add_argument("--beta-start", type=float, default=0.5)
+    p.add_argument("--alpha", type=float, default=1.25)
+    p.add_argument("--beta-max", type=float, default=30.0)
+    p.add_argument("--out-dir", default="Results/data")
+    p.add_argument("--checkpoint")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--resume", action="store_true")
+    p.set_defaults(fn=cmd_apt)
+
+    p = sub.add_parser("npt", help="replica exchange with NMC replicas")
+    _add_problem_args(p)
+    p.add_argument("--beta-list", help="beta_list_python.npy from apt")
+    p.add_argument("--replicas", type=int, default=16)
+    p.add_argument("--beta-start", type=float, default=0.3)
+    p.add_argument("--beta-max", type=float, default=5.0)
+    p.add_argument("--nmc-coldest", type=int, default=5)
+    p.add_argument("--sweeps", type=int, default=10_000)
+    p.add_argument("--sweeps-read", type=int, default=100)
+    p.add_argument("--swap-attempts", type=int, default=10)
+    p.add_argument("--swap-fraction", type=float, default=0.3)
+    p.add_argument("--cycles", type=int, default=10)
+    p.add_argument("--beta", type=float, default=1 / 0.366838 * 5,
+                   help="global_beta for NMC replicas")
+    p.add_argument("--temp-x", type=float, default=20.0)
+    p.add_argument("--lambda-start", type=float, default=3.0)
+    p.add_argument("--lbp-tolerance", type=float, default=1e-8)
+    p.add_argument("--lbp-iters", type=int, default=200)
+    p.add_argument("--checkpoint", help="checkpoint .npz path")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--resume", action="store_true")
+    p.set_defaults(fn=cmd_npt)
 
     args = ap.parse_args(argv)
     return args.fn(args)

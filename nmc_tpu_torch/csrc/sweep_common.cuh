@@ -1,0 +1,134 @@
+// Device code shared by the colored sweep kernels (colored_sweeps.cu: K1 and
+// K2; colored_sweeps_sparse.cu: K3). One CTA owns one replica for all T
+// sweeps, with its phi (f32) and m (int8) in shared memory; these helpers are
+// the per-block heat-bath draw, the flip list and the end-of-sweep energy
+// that all three run the same way, so that on one layout and one seed the
+// three kernels compute the same function draw for draw.
+//
+// Random numbers: Philox-4x32-10 with key = seed and counter = (spin column,
+// replica, sweep, 0); the uniform is (bits >> 8) * 2^-24 as on the TPU. The
+// two seed words are read from device memory, so the caller draws them on
+// the card without a host sync. A non-null `uniforms` pointer
+// ([T, R, n_pad] f32) replaces Philox so a kernel can be held against its
+// plain torch version draw for draw.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace nmc {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ uint32_t philox4x32_10_word0(
+    uint32_t c0, uint32_t c1, uint32_t c2, uint32_t c3,
+    uint32_t k0, uint32_t k1) {
+  // Salmon et al., "Parallel random numbers: as easy as 1, 2, 3" (SC'11).
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    const uint32_t lo0 = 0xD2511F53u * c0;
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo1 = 0xCD9E8D57u * c2;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return c0;
+}
+
+// What one replica's draws read. K1 multiplies beta_t * beta_spin[col]; the
+// streamed kernels K2/K3 multiply (beta_t * beta_row) * beta_spin[col], in
+// that order as the Pallas kernels do, and skip the last factor when
+// beta_spin is null (the Pallas kernels multiply by 1 there).
+struct ReplicaDraws {
+  const float* beta_spin;  // this replica's row [n_pad], or null (K2/K3)
+  const uint8_t* mask;     // this replica's update mask row [n_pad]
+  const float* uniforms;   // [T, R, n_pad] injected draws, or null
+  size_t u_offset;         // r * n_pad
+  size_t u_sweep;          // R * n_pad
+  float beta_row;          // per-replica factor (K2/K3)
+  uint32_t r, seed0, seed1;
+};
+
+// Heat-bath draws for the B spins of the block starting at column s: every
+// unmasked spin takes +1 with p_up = (1 + tanh(beta * phi)) / 2 at once
+// (exact Gibbs, the block is an independent set). dm[i] gets new - old.
+template <bool kRowBeta>
+__device__ __forceinline__ void draw_block(
+    const ReplicaDraws& a, int t, float beta_t, int s, int B,
+    const float* phi, int8_t* m, float* dm) {
+  for (int i = threadIdx.x; i < B; i += blockDim.x) {
+    const int col = s + i;
+    float d = 0.f;
+    if (a.mask[col]) {
+      float u;
+      if (a.uniforms != nullptr) {
+        u = a.uniforms[(size_t)t * a.u_sweep + a.u_offset + col];
+      } else {
+        const uint32_t bits = philox4x32_10_word0(
+            (uint32_t)col, a.r, (uint32_t)t, 0u, a.seed0, a.seed1);
+        u = (float)(bits >> 8) * 5.9604644775390625e-08f;  // 2^-24
+      }
+      float betab;
+      if (kRowBeta) {
+        betab = beta_t * a.beta_row;
+        if (a.beta_spin != nullptr) betab = betab * a.beta_spin[col];
+      } else {
+        betab = beta_t * a.beta_spin[col];
+      }
+      const float p_up = 0.5f * (1.0f + tanhf(betab * phi[col]));
+      const int8_t old = m[col];
+      const int8_t nw = u < p_up ? 1 : -1;
+      m[col] = nw;
+      d = (float)(nw - old);
+    }
+    dm[i] = d;
+  }
+}
+
+// Warp 0 lists the block's flipped spins (dm != 0) in spin order with a
+// ballot; the caller synchronises before and after.
+__device__ __forceinline__ void list_flips(const float* dm, int* flips,
+                                           int* num_flips, int B) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  int count = 0;
+  for (int chunk = 0; chunk < B; chunk += 32) {
+    const int i = chunk + lane;
+    const bool flipped = i < B && dm[i] != 0.f;
+    const unsigned ballot = __ballot_sync(0xffffffffu, flipped);
+    if (flipped) flips[count + __popc(ballot & ((1u << lane) - 1u))] = i;
+    count += __popc(ballot);
+  }
+  if (lane == 0) *num_flips = count;
+}
+
+// Warp 0: E = -0.5 * m.(phi + h) into energies[t, r] and the running best
+// (strict <). The xor butterfly leaves the same sum in every lane, so the
+// best-state branch is warp-uniform. The caller synchronises after.
+__device__ __forceinline__ void end_of_sweep(
+    const int8_t* m, const float* phi, const float* h, int n_pad,
+    float* energy_tr, float* m_best_r, float& e_best) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  float acc = 0.f;
+  for (int j = lane; j < n_pad; j += 32)
+    acc += (float)m[j] * (phi[j] + h[j]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  const float e = -0.5f * acc;
+  if (lane == 0) *energy_tr = e;
+  if (e < e_best) {
+    for (int j = lane; j < n_pad; j += 32) m_best_r[j] = (float)m[j];
+    e_best = e;
+  }
+}
+
+}  // namespace nmc

@@ -12,8 +12,9 @@ Phases are mask/beta parametrizations of one sweep engine call, so on a
 colored layout every phase runs the colored sweep kernel.
 
 Both cluster policies are supported: recompute LBP every cycle, or once up
-front via `clusters_once`. LBP runs on dense [N, N] messages; the JAX
-package's edge-message LBP for N > `sparse_lbp_threshold` is not ported yet.
+front via `clusters_once`. LBP runs on dense [N, N] messages up to
+`sparse_lbp_threshold` spins and on directed-edge messages above it
+(ops/lbp_sparse.py), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from ..ops.clusters import cluster_mask, find_clusters, flatten_clusters
 from ..ops.engine import SweepEngine
 from ..ops.lbp import (convexification_epsilon, lbp_convexified,
                        lbp_convexified_batch)
+from ..ops.lbp_sparse import (EdgeGraph, sparse_lbp_convexified,
+                              sparse_lbp_convexified_batch)
 from ..utils.metrics import MetricsLogger
 
 
@@ -53,8 +56,9 @@ class NMCConfig:
     max_iterations: int = 100
     tolerance: float = float(np.finfo(np.float64).eps)
     clusters_once: bool = False           # False = recompute LBP every cycle
-    sparse_lbp_threshold: int = 2048      # above this N the JAX package runs
-                                          # edge-message LBP (not ported yet)
+    sparse_lbp_threshold: int = 2048      # above this N, LBP runs on edge
+                                          # messages (ops/lbp_sparse) instead
+                                          # of dense [N,N] message matrices
     normalize: bool = True
     record_m: bool = True
     # execution knobs
@@ -76,72 +80,70 @@ class NMCResult(NamedTuple):
     norm_factor: float
 
 
-def _require_dense_lbp(problem: IsingProblem, cfg: NMCConfig):
-    if problem.n > cfg.sparse_lbp_threshold:
-        raise NotImplementedError(
-            f"N={problem.n} > sparse_lbp_threshold={cfg.sparse_lbp_threshold} "
-            "needs the edge-message LBP (ops/lbp_sparse.py), which is not "
-            "ported yet (ROADMAP queue 1, sparse LBP)")
-
-
 def _to_numpy(x: torch.Tensor) -> np.ndarray:
     return x.cpu().numpy()
 
 
-def _extract_clusters(problem: IsingProblem, m_star: np.ndarray,
-                      cfg: NMCConfig, device, dtype) -> np.ndarray:
-    """Convexified LBP -> backbone clusters -> flat index array."""
-    _require_dense_lbp(problem, cfg)
-    eps = convexification_epsilon(problem.J, problem.h)
-    out = lbp_convexified(
-        torch.as_tensor(problem.J, dtype=dtype, device=device),
-        torch.as_tensor(problem.h, dtype=dtype, device=device),
-        cfg.global_beta, m_star, eps,
-        lambda_start=cfg.lambda_start, lambda_end=cfg.lambda_end,
-        lambda_reduction_factor=cfg.lambda_reduction_factor,
-        tolerance=cfg.tolerance, max_iterations=cfg.max_iterations,
-    )
+def _ladder(cfg: NMCConfig) -> dict:
+    return dict(lambda_start=cfg.lambda_start, lambda_end=cfg.lambda_end,
+                lambda_reduction_factor=cfg.lambda_reduction_factor,
+                tolerance=cfg.tolerance, max_iterations=cfg.max_iterations)
+
+
+def _clusters_from_beliefs(problem, beliefs, cfg) -> list:
     # threshold a float64 reconstruction of the marginal: the reference
     # discriminates 7-nines thresholds on f64 marginals, but an f32 device
     # tanh saturates to 1.0 — tanh in f64 of the pre-tanh belief restores
     # the discrimination band
-    marginal = np.tanh(cfg.global_beta * np.asarray(out.belief, np.float64))
-    clusters = find_clusters(problem.J, marginal, cfg.threshold_initial,
-                             cfg.threshold_cutoff, cfg.threshold_step)
-    return flatten_clusters(clusters)
+    marginals = np.tanh(cfg.global_beta * np.asarray(beliefs, np.float64))
+    return [flatten_clusters(find_clusters(
+        problem.J, m, cfg.threshold_initial, cfg.threshold_cutoff,
+        cfg.threshold_step)) for m in marginals.reshape(-1, problem.n)]
+
+
+def _extract_clusters(problem: IsingProblem, m_star: np.ndarray,
+                      cfg: NMCConfig, device, dtype) -> np.ndarray:
+    """Convexified LBP -> backbone clusters -> flat index array, one chain.
+
+    Large instances (N > cfg.sparse_lbp_threshold) use edge-message LBP
+    (O(nnz) per iteration) instead of dense [N, N] message matrices."""
+    eps = convexification_epsilon(problem.J, problem.h)
+    h = torch.as_tensor(problem.h, dtype=dtype, device=device)
+    if problem.n > cfg.sparse_lbp_threshold:
+        _, belief = sparse_lbp_convexified(
+            EdgeGraph.from_dense(problem.J), h, cfg.global_beta, m_star, eps,
+            return_belief=True, **_ladder(cfg))
+    else:
+        belief = lbp_convexified(
+            torch.as_tensor(problem.J, dtype=dtype, device=device), h,
+            cfg.global_beta, m_star, eps, **_ladder(cfg)).belief
+    return _clusters_from_beliefs(problem, belief, cfg)[0]
 
 
 def _per_chain_clusters(problem, m_star, cfg, device=None,
                         dtype=torch.float64) -> list:
     """Clusters per chain (list of flat index arrays, length R).
 
-    The lambda-annealed LBP runs batched over chains (one call per rung);
-    the irregular threshold/growth pass stays on the host per chain.
+    The lambda-annealed LBP runs batched over chains (one call per rung),
+    on dense or edge messages by `sparse_lbp_threshold`; the irregular
+    threshold/growth pass stays on the host per chain.
     """
-    _require_dense_lbp(problem, cfg)
     device = resolve_device(device)
     R = m_star.shape[0]
     if R == 1:
-        return [_extract_clusters(problem, m_star[r], cfg, device, dtype)
-                for r in range(R)]
+        return [_extract_clusters(problem, m_star[0], cfg, device, dtype)]
     eps = convexification_epsilon(problem.J, problem.h)
-    _, beliefs = lbp_convexified_batch(
-        torch.as_tensor(problem.J, dtype=dtype, device=device),
-        torch.as_tensor(problem.h, dtype=dtype, device=device),
-        cfg.global_beta, np.asarray(m_star, dtype=np.float64), eps,
-        lambda_start=cfg.lambda_start, lambda_end=cfg.lambda_end,
-        lambda_reduction_factor=cfg.lambda_reduction_factor,
-        tolerance=cfg.tolerance, max_iterations=cfg.max_iterations,
-        return_belief=True)
-    # f64 marginal reconstruction for threshold discrimination (see
-    # _extract_clusters)
-    marginals = np.tanh(cfg.global_beta * np.asarray(beliefs, np.float64))
-    return [
-        flatten_clusters(find_clusters(
-            problem.J, marginals[r], cfg.threshold_initial,
-            cfg.threshold_cutoff, cfg.threshold_step))
-        for r in range(R)
-    ]
+    h = torch.as_tensor(problem.h, dtype=dtype, device=device)
+    m_star = np.asarray(m_star, dtype=np.float64)
+    if problem.n > cfg.sparse_lbp_threshold:
+        _, beliefs = sparse_lbp_convexified_batch(
+            EdgeGraph.from_dense(problem.J), h, cfg.global_beta, m_star, eps,
+            return_belief=True, **_ladder(cfg))
+    else:
+        _, beliefs = lbp_convexified_batch(
+            torch.as_tensor(problem.J, dtype=dtype, device=device), h,
+            cfg.global_beta, m_star, eps, return_belief=True, **_ladder(cfg))
+    return _clusters_from_beliefs(problem, beliefs, cfg)
 
 
 def _stack_masks(n, R, all_clusters) -> np.ndarray:
@@ -274,7 +276,6 @@ def nmc_run(
 ) -> NMCResult:
     """Full NMC solve: normalize, annealed warm-up to find m*, then the NMC
     cycle loop. `generator` (default: seed 0 on `device`) drives every draw."""
-    _require_dense_lbp(problem, cfg)
     if device is None and generator is not None:
         device = generator.device
     device = resolve_device(device)

@@ -1,8 +1,9 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` compiles on first use into
-``csrc/_build/lib<name>-<hash>.so``, keyed by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads at once. The
+``csrc/_build/lib<name>-<hash>.so``, keyed by a hash of the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source rebuilds
+and an unchanged one loads at once. The
 library exposes a plain C interface (no PyTorch headers), which keeps the
 build to seconds. Nothing here runs at import time.
 """
@@ -15,8 +16,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
@@ -37,11 +39,17 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def sources() -> List[str]:
+    """Names of the CUDA sources (csrc/<name>.cu), one library each."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -66,6 +74,13 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_all() -> Dict[str, Path]:
+    """Build every csrc/*.cu at once, one nvcc process per source."""
+    names = sources()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load_library(name: str) -> ctypes.CDLL:

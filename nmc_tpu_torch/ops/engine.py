@@ -4,14 +4,17 @@ Owns the device copies of a BlockedProblem and runs batched sweeps in
 ORIGINAL spin order (permutation and padding handled internally); the
 counterpart of ``nmc_tpu/ops/engine.py``.
 
-Routing:
-  * a colored, block-Jacobi, fixed-order run without state recording goes
-    to `colored_sweeps` — the CUDA kernel (K1) on a CUDA device, its plain
-    torch version on the CPU. On CUDA the kernel covers n_pad <= 1536; the
-    larger layouts belong to the streamed kernels K2/K3, which are not
-    ported yet, so they raise rather than quietly run the plain path;
-  * everything else (sequential within-block scans, recorded states) runs
-    `ops/sweeps.run_sweeps` in plain torch, as JAX ran it through XLA.
+Routing of a colored, block-Jacobi, fixed-order run without state
+recording, as in the JAX engine (`sweep_kernel` names the choice, made once
+at setup from the layout):
+  * n_pad <= 1536: `colored_sweeps` (K1, dense J);
+  * above, when every row block touches at most nB/2 column tiles of J:
+    `colored_sweeps_sparse` (K3, the block-sparse tiles, built at setup);
+  * else `colored_sweeps_streamed` (K2, dense J row blocks).
+Each wrapper launches its CUDA kernel on a CUDA device and runs its plain
+torch version on the CPU. Everything else (sequential within-block scans,
+recorded states) runs `ops/sweeps.run_sweeps` in plain torch, as JAX ran it
+through XLA.
 """
 
 from __future__ import annotations
@@ -22,13 +25,15 @@ import numpy as np
 import torch
 
 from ..core.energy import local_fields
-from ..core.problem import BlockedProblem, IsingProblem, block_problem
+from ..core.problem import (BlockedProblem, IsingProblem, block_problem,
+                            block_sparse_tiles)
 from ..device import resolve_device, resolve_dtype
 from .sweeps import SweepResult, anneal_schedule, run_sweeps
-from .sweeps_cuda import colored_sweeps
+from .sweeps_cuda import (colored_sweeps, colored_sweeps_sparse,
+                          colored_sweeps_streamed)
 
-# Largest n_pad the resident-J colored kernel serves on CUDA; above it the
-# JAX package streams J (K2, or K3 for block-sparse layouts).
+# Largest n_pad the dense colored kernel K1 serves; above it the JAX package
+# streams J (K2, or K3 for block-sparse layouts), and so does the port.
 K1_MAX_N_PAD = 1536
 
 
@@ -93,6 +98,20 @@ class SweepEngine:
         self.active = torch.as_tensor(blocked.active, device=dev)
         self._inv_perm = torch.as_tensor(blocked.inv_perm, dtype=torch.long,
                                          device=dev)
+        self.stream_tiles = None
+        if not blocked.colored:
+            self.sweep_kernel = None
+        elif blocked.n_pad <= K1_MAX_N_PAD:
+            self.sweep_kernel = "colored_sweeps"
+        else:
+            col_idx, J_tiles = block_sparse_tiles(blocked)
+            if col_idx.shape[1] <= blocked.num_blocks // 2:
+                self.sweep_kernel = "colored_sweeps_sparse"
+                self.stream_tiles = (
+                    torch.as_tensor(col_idx, dtype=torch.int32, device=dev),
+                    torch.as_tensor(J_tiles, dtype=dt, device=dev))
+            else:
+                self.sweep_kernel = "colored_sweeps_streamed"
 
     # ---- layout helpers -------------------------------------------------
     @property
@@ -148,6 +167,7 @@ class SweepEngine:
         sweeps_per_beta: int = 1,
         initial_beta: float = 0.0,
         beta_spin=None,          # [n] | [R, n] per-spin beta multiplier (heating)
+        beta_replica=None,       # [R] per-replica beta multiplier (PT)
         update_mask=None,        # [n] | [R, n] bool; False = frozen
         record_m: bool = False,
         blocked_input: bool = False,
@@ -168,7 +188,11 @@ class SweepEngine:
         else:
             beta_sweep = self._tensor(beta)
 
-        if beta_spin is None:
+        if beta_replica is not None:
+            if beta_spin is not None:
+                raise ValueError("pass beta_spin or beta_replica, not both")
+            bs = self._tensor(beta_replica).reshape(R, 1)
+        elif beta_spin is None:
             bs = torch.ones((), dtype=self.dtype, device=self.device)
         else:
             bs = self._tensor(beta_spin)
@@ -185,24 +209,15 @@ class SweepEngine:
 
         phi = self.fields(m0)
 
-        kernel_path = (self.blocked.colored
+        kernel_path = (self.sweep_kernel is not None
                        and self.within_block == "jacobi"
                        and self.block_order == "fixed"
                        and not record_m)
         if kernel_path:
-            if self.device.type == "cuda" and self.n_pad > K1_MAX_N_PAD:
-                raise NotImplementedError(
-                    f"colored sweeps at n_pad={self.n_pad} > {K1_MAX_N_PAD} "
-                    "need the streamed kernels K2/K3 "
-                    "(pallas_colored_sweeps_streamed/_sparse), which are not "
-                    "ported yet (ROADMAP queue 2)")
-            cres = colored_sweeps(
-                self.J_full, self.h, m0, phi, generator, beta_sweep, bs, mask,
-                num_sweeps=num_sweeps, block_size=self.blocked.block_size,
-                uniforms=uniforms)
-            res = SweepResult(m=cres.m, phi=cres.phi, m_best=cres.m_best,
-                              e_best=cres.e_best, energies=cres.energies,
-                              M=None)
+            res = self._run_kernel(m0, phi, generator, beta_sweep, bs, mask,
+                                   beta_replica, beta_spin is not None,
+                                   update_mask is not None, num_sweeps,
+                                   uniforms)
         else:
             res = run_sweeps(
                 self.J_rows, self.J_diag, self.h, m0, phi, generator,
@@ -218,3 +233,34 @@ class SweepEngine:
             energies=res.energies,
             M=self.from_blocked(res.M) if res.M is not None else None,
         )
+
+    def _run_kernel(self, m0, phi, generator, beta_sweep, bs, mask,
+                    beta_replica, has_bs, has_mask, num_sweeps, uniforms):
+        """The colored sweep kernel chosen at setup (`sweep_kernel`)."""
+        if self.sweep_kernel == "colored_sweeps":
+            cres = colored_sweeps(
+                self.J_full, self.h, m0, phi, generator, beta_sweep, bs, mask,
+                num_sweeps=num_sweeps, block_size=self.blocked.block_size,
+                uniforms=uniforms)
+        else:
+            # the streamed kernels' parameters, as the JAX engine passes them
+            R = m0.shape[0]
+            beta_row = (self._tensor(beta_replica).reshape(R)
+                        if beta_replica is not None
+                        else torch.ones((R,), dtype=self.dtype,
+                                        device=self.device))
+            bs_arg = bs.expand(R, self.n_pad) if has_bs else None
+            mask_arg = mask if has_mask else self.active.reshape(1, self.n_pad)
+            if self.sweep_kernel == "colored_sweeps_sparse":
+                col_idx, J_tiles = self.stream_tiles
+                cres = colored_sweeps_sparse(
+                    col_idx, J_tiles, self.h, m0, phi, generator, beta_sweep,
+                    beta_row, mask_arg, bs_arg, num_sweeps=num_sweeps,
+                    uniforms=uniforms)
+            else:
+                cres = colored_sweeps_streamed(
+                    self.J_rows, self.h, m0, phi, generator, beta_sweep,
+                    beta_row, mask_arg, bs_arg, num_sweeps=num_sweeps,
+                    uniforms=uniforms)
+        return SweepResult(m=cres.m, phi=cres.phi, m_best=cres.m_best,
+                           e_best=cres.e_best, energies=cres.energies, M=None)

@@ -3,7 +3,8 @@
 A trimmed counterpart of ``nmc_tpu/utils/metrics.py``: `MetricsLogger`
 appends one JSON record per event to an optional file and keeps them in
 memory. The NMC driver logs one `sweeps` record per phase (with its wall
-time) and one `clusters` record per cycle.
+time) and one `clusters` record per cycle; APT logs one `apt_rung` record
+per rung and NPT one `swap` and one `sweeps` record per swap round.
 """
 
 from __future__ import annotations
@@ -58,6 +59,16 @@ class MetricsLogger:
                         seconds=seconds,
                         attempts_per_sec=attempts / max(seconds, 1e-12),
                         min_energy=min_energy)
+
+    def swap_stats(self, *, round_index: int, pairs, accepted,
+                   energies=None):
+        return self.log("swap", round_index=round_index, pairs=pairs,
+                        accepted=accepted, energies=energies)
+
+    def apt_rung(self, *, rung: int, beta: float, sigma_E: float,
+                 seconds: float):
+        return self.log("apt_rung", rung=rung, beta=beta, sigma_E=sigma_E,
+                        seconds=seconds)
 
     def cluster_stats(self, *, cycle: int, sizes, seconds: float = 0.0):
         return self.log("clusters", cycle=cycle, sizes=sizes,

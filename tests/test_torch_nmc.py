@@ -104,11 +104,73 @@ def test_nmc_run_reaches_ground_state():
     assert res.norm_factor == 1.0
 
 
-def test_nmc_run_refuses_sparse_lbp_sizes():
-    prob = ea_2d(4, seed=0)
-    cfg = tn.NMCConfig(sparse_lbp_threshold=8, num_chains=2, block_size=8)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        tn.nmc_run(prob, cfg, device="cpu")
+@pytest.mark.parametrize("clusters_once", [False, True])
+def test_nmc_subroutine_above_sparse_threshold_matches_jax(clusters_once):
+    """N = 32 > sparse_lbp_threshold = 16: both drivers extract clusters
+    with edge-message LBP (JAX per chain, the port batched over chains);
+    with JAX's uniforms replayed the runs agree as in the dense case."""
+    prob = chimera_graph(2, 2, seed=3).normalized()[0]
+    R = 4
+    common = dict(num_sweeps_per_NMC_phase=6, num_NMC_cycles=2,
+                  record_m=False, clusters_once=clusters_once,
+                  sparse_lbp_threshold=16, use_coloring=True, block_size=8,
+                  num_chains=R, **LBP)
+    jcfg = jn.NMCConfig(dtype="float64", **common)
+    tcfg = tn.NMCConfig(dtype="float64", **common)
+    jeng = JaxEngine(prob, block_size=8, use_coloring=True,
+                     dtype=jnp.float64)
+    teng = SweepEngine.from_blocked_problem(
+        interop.blocked_from_numpy(jeng.blocked),
+        interop.problem_from_numpy(prob.J, prob.h), dtype="float64",
+        device="cpu")
+    rng = np.random.default_rng(8)
+    m_star = np.where(rng.random((R, prob.n)) < 0.5, -1.0, 1.0)
+    key = jax.random.PRNGKey(3)
+
+    jr = jn.nmc_subroutine(jeng, prob, m_star, key, jcfg)
+    tr = tn.nmc_subroutine(
+        teng, teng.problem, m_star, None, tcfg,
+        uniforms=nmc_phase_uniforms(key, jcfg, R, teng.n_pad))
+
+    assert tr.phase_labels == jr.phase_labels
+    np.testing.assert_array_equal(tr.all_clusters, jr.all_clusters)
+    assert tr.all_clusters.size > 0
+    np.testing.assert_array_equal(tr.m_best, jr.m_best)
+    np.testing.assert_array_equal(tr.m_final, jr.m_final)
+    np.testing.assert_allclose(tr.energy_overall, jr.energy_overall,
+                               rtol=0, atol=1e-9)
+    np.testing.assert_allclose(tr.min_energy, jr.min_energy, rtol=0,
+                               atol=1e-9)
+
+
+def test_per_chain_clusters_above_sparse_threshold_match_jax():
+    prob = chimera_graph(2, 2, seed=5).normalized()[0]
+    rng = np.random.default_rng(2)
+    m_star = np.where(rng.random((3, prob.n)) < 0.5, -1.0, 1.0)
+    jcfg = jn.NMCConfig(sparse_lbp_threshold=16, **LBP)
+    tcfg = tn.NMCConfig(sparse_lbp_threshold=16, **LBP)
+    for rows in (m_star, m_star[:1]):        # batched LBP, and one chain
+        a = jn._per_chain_clusters(prob, rows, jcfg)
+        b = tn._per_chain_clusters(prob, rows, tcfg, device="cpu",
+                                   dtype=torch.float64)
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
+def test_nmc_run_above_sparse_threshold_reaches_ground_state():
+    prob = ea_2d(4, seed=0)                  # 16 spins, enumerable
+    states = np.array(list(itertools.product([-1, 1], repeat=prob.n)), float)
+    ground = prob.energy(states).min()
+    cfg = tn.NMCConfig(num_sweeps_initial=300, num_sweeps_per_NMC_phase=50,
+                       num_NMC_cycles=2, num_chains=8, use_coloring=True,
+                       block_size=8, record_m=False, dtype="float64",
+                       sparse_lbp_threshold=8, **LBP)
+    res = tn.nmc_run(prob, cfg, torch.Generator().manual_seed(0),
+                     device="cpu")
+    np.testing.assert_allclose(res.min_energy, prob.energy(res.m_best),
+                               atol=1e-12)
+    assert res.min_energy.min() == pytest.approx(ground, abs=1e-9)
 
 
 def test_cli_nmc_prints_the_jax_cli_keys(tmp_path, capsys):
