@@ -30,13 +30,33 @@ non-zero without printing a result:
                  sweep through K3 (the plain replicas with a per-replica
                  beta_row);
   8. nmc_4096  — nmc_run on the 3-regular N = 4096 graph, through K2;
-  9. throughput — spin-flip attempts/s of each kernel and its plain version
+  9. round_kernels — K4 (ensemble_round) on 4 chimera 8x8 instances and K5
+                 (ensemble_round_sparse) on 2 chimera 16x16 instances, R = 32,
+                 6 NMC slots with ~50% backbones, a geometric beta_row, 3
+                 cycles of 8 sweeps, each against its plain version with
+                 identical injected uniforms; K4 = K5 bit for bit with their
+                 own Philox draws on the 8x8 family; the Boltzmann TV of
+                 each, chaining rounds on an enumerable 4-cycle;
+ 10. ensemble_512 — EnsembleNMC at the campaign defaults on 20 chimera 8x8
+                 instances (32 replicas, 6 NMC slots, planes LBP every 8
+                 rounds), 16 rounds in 2 chunks, through K4; bests against
+                 their f64 energies, the per-round split into LBP refresh,
+                 round kernel and swaps;
+ 11. ensemble_2048 — the same on 20 chimera 16x16 instances through K5, 8
+                 rounds;
+ 12. campaign  — `python -m nmc_tpu_torch campaign --arm nmc` (in process) on
+                 a small chimera family written in the reference's format
+                 with ground states by enumeration: through K4, every
+                 instance a hit, the records parse;
+ 13. throughput — spin-flip attempts/s of each kernel and its plain version
                  in turns (K1 at bench.py's configuration, R = 2048, 1024
-                 sweeps; K3 and K2 at R = 2048, 256 sweeps), CUDA events;
-                 each kernel's flips per attempt, and the least time the
-                 card could take for the same work.
-Then one line {"kernels": [...]}, the card's name and power limit, and last
-{"ok": true, "device": {...}}.
+                 sweeps; K3 and K2 at R = 2048, 256 sweeps; K4 and K5 at the
+                 ensemble configurations, one 576-sweep round per launch),
+                 CUDA events; each kernel's flips per attempt, and the least
+                 time the card could take for the same work.
+Phases 5-8 and 10-12 are the main paths: each sets the launch counts to 0
+just before it and reads them just after. Then one line {"kernels": [...]},
+the card's name and power limit, and last {"ok": true, "device": {...}}.
 """
 
 import json
@@ -71,10 +91,13 @@ def check(cond, msg):
 
 
 def _wrappers():
+    from nmc_tpu_torch.ops import round_cuda as rc
     from nmc_tpu_torch.ops import sweeps_cuda as sc
     return {"colored_sweeps": sc.colored_sweeps,
             "colored_sweeps_streamed": sc.colored_sweeps_streamed,
-            "colored_sweeps_sparse": sc.colored_sweeps_sparse}
+            "colored_sweeps_sparse": sc.colored_sweeps_sparse,
+            "ensemble_round": rc.ensemble_round,
+            "ensemble_round_sparse": rc.ensemble_round_sparse}
 
 
 def reset_counts():
@@ -595,6 +618,458 @@ def phase_npt_2048(c2048):
         "colored_sweeps_sparse"]
 
 
+# ---- the campaign engine: round kernels K4 / K5 -------------------------------
+
+ENS_R, ENS_NMC = 32, 6           # the campaign's replicas and NMC slots
+GLOBAL_BETA = 13.63              # the campaign's --global-beta
+
+
+def _ensemble(size, count, rounds_cfg=None, seed0=0):
+    """EnsembleNMC on `count` chimera size x size instances (seeds seed0..),
+    normalized, as the campaign builds it at its defaults: the geometric
+    32-replica ladder over beta 0.25-32, the 6 coldest replicas NMC,
+    global beta 13.63, 3 cycles of 64 sweeps, planes LBP every 8 rounds."""
+    from nmc_tpu_torch.campaign import build_ladder
+    from nmc_tpu_torch.io.generators import chimera_graph
+    from nmc_tpu_torch.parallel import EnsembleNMC, ShardedNPTConfig
+    probs = [chimera_graph(size, size, seed=s).normalized()[0]
+             for s in range(seed0, seed0 + count)]
+    beta = build_ladder(0.25, 32.0, ENS_R)
+    kw = dict(sweeps_per_phase=64, num_cycles=3, num_swapping_pairs=ENS_R // 4,
+              global_beta=GLOBAL_BETA, temp_x=TEMP_X,
+              threshold_initial=0.999999, threshold_cutoff=0.99999,
+              use_coloring=True, lbp_mode="auto", lbp_every=8)
+    cfg = ShardedNPTConfig(**{**kw, **(rounds_cfg or {})})
+    doNMC = [False] * (ENS_R - ENS_NMC) + [True] * ENS_NMC
+    t0 = time.perf_counter()
+    ens = EnsembleNMC(probs, beta, doNMC, cfg, device=DEVICE)
+    return probs, ens, time.perf_counter() - t0
+
+
+def _round_inputs(torch, ens, seed):
+    """Random states, ~50% backbones on every slot, the 6 NMC slots and a
+    geometric beta_row (global beta on the NMC slots), for one call of a
+    round kernel on an engine's layout."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    state = ens.init_state(gen)
+    cl = ((torch.rand(state.m.shape, generator=gen, device=DEVICE) < 0.5)
+          & ens.active)
+    dn = state.do_nmc_slot
+    beta = torch.where(dn, GLOBAL_BETA, ens.beta_list[state.slot_to_beta])
+    return state.m, cl, dn, beta.contiguous(), gen
+
+
+def _round_fns(ens):
+    """(kernel, plain version) of the engine's round kernel, both taking
+    (m0, cl, do_nmc, beta_row, generator, *, num_cycles, sweeps_per_phase,
+    uniforms, flips)."""
+    import functools
+    from nmc_tpu_torch.ops import round_cuda as rc
+    if ens.round_path == "K5":
+        col_idx, J_tiles = ens._stream_tiles
+        pre = (col_idx, J_tiles, ens.h, ens.active)
+        return (functools.partial(rc.ensemble_round_sparse, *pre),
+                functools.partial(rc.ensemble_round_sparse_reference, *pre))
+    pre = (ens.J_full, ens.h, ens.active)
+    bs = dict(block_size=ens.blocked0.block_size)
+    return (functools.partial(rc.ensemble_round, *pre, **bs),
+            functools.partial(rc.ensemble_round_reference, *pre, **bs))
+
+
+def _tiles_of(torch, ens):
+    """K5's union tiles (col_idx, J_tiles) of an engine's dense layout."""
+    from types import SimpleNamespace
+    from nmc_tpu_torch.parallel.ensemble_nmc import _union_tiles
+    b0 = ens.blocked0
+    col_idx, J_tiles = _union_tiles([
+        SimpleNamespace(J_rows=J, num_blocks=b0.num_blocks,
+                        block_size=b0.block_size)
+        for J in ens.J_rows.cpu().numpy()])
+    return (torch.as_tensor(col_idx, device=DEVICE),
+            torch.as_tensor(J_tiles, device=DEVICE))
+
+
+def _compare_round(torch, name, probs, ens, k, p, m0):
+    """Kernel result k against plain result p from identical uniforms: at
+    most one replica differing per instance, energies within 1e-3 elsewhere
+    and against the f64 energy of the states, padding unmoved."""
+    torch.cuda.synchronize()
+    differ = (k.m != p.m).any(dim=2) | (k.m_best != p.m_best).any(dim=2)
+    per_inst = differ.sum(dim=1)
+    check(int(per_inst.max()) <= 1,
+          f"{name}: replicas differ per instance {per_inst.tolist()}")
+    same = ~differ
+    eb_err = float((k.e_best - p.e_best)[same].abs().max())
+    ec_err = float((k.e_carried - p.e_carried)[same].abs().max())
+    check(eb_err <= 1e-3 and ec_err <= 1e-3,
+          f"{name}: e_best off by {eb_err}, e_carried by {ec_err}")
+    check(torch.isin(k.m, torch.tensor([-1.0, 1.0], device=DEVICE)).all(),
+          f"{name}: spins outside +-1")
+    pad = ~ens.active
+    check(bool((k.m[..., pad] == m0[..., pad]).all()),
+          f"{name}: padding spins moved")
+    check(bool((k.m != m0).any()), f"{name}: no spin moved")
+    check(bool((k.e_best <= k.e_carried + 1e-4).all()),
+          f"{name}: a slot's best is above its carried state")
+    inv = ens.blocked0.inv_perm
+    m, mb = k.m.cpu().numpy(), k.m_best.cpu().numpy()
+    f64 = 0.0
+    for i, prob in enumerate(probs):
+        f64 = max(f64, float(np.abs(prob.energy(m[i][:, inv])
+                                    - k.e_carried[i].cpu().numpy()).max()),
+                  float(np.abs(prob.energy(mb[i][:, inv])
+                               - k.e_best[i].cpu().numpy()).max()))
+    check(f64 <= 1e-3, f"{name}: energies off their f64 value by {f64}")
+    return {"replicas_differing": per_inst.tolist(),
+            "e_best_max_abs_err": eb_err, "e_carried_max_abs_err": ec_err,
+            "vs_f64_max_abs_err": f64}, max(eb_err, ec_err)
+
+
+def phase_round_kernels():
+    """K4 and K5 against their plain versions at full width with identical
+    uniforms; K4 = K5 with Philox; the Boltzmann TV of each."""
+    import torch
+    from nmc_tpu_torch.core.problem import block_sparse_tiles
+    from nmc_tpu_torch.ops import round_cuda as rc
+    out = {"phase": "round_kernels", "R": ENS_R, "nmc_slots": ENS_NMC,
+           "num_cycles": 3, "sweeps_per_phase": 8}
+    errs = {}
+    kw = dict(num_cycles=3, sweeps_per_phase=8)
+    for name, size, count in (("ensemble_round", 8, 4),
+                              ("ensemble_round_sparse", 16, 2)):
+        probs, ens, _ = _ensemble(size, count)
+        want = "K4" if name == "ensemble_round" else "K5"
+        check(ens.round_path == want, f"{size}x{size}: {ens.round_path}")
+        kernel, plain = _round_fns(ens)
+        m0, cl, dn, beta, gen = _round_inputs(torch, ens, 21)
+        P = len(rc.phase_list(3, 1))
+        u = torch.rand((P, 8) + tuple(m0.shape), generator=gen,
+                       device=DEVICE)
+        k = kernel(m0, cl, dn, beta, None, uniforms=u, **kw)
+        p = plain(m0, cl, dn, beta, None, uniforms=u, **kw)
+        res, errs[name] = _compare_round(torch, name, probs, ens, k, p, m0)
+        res.update(instances=count, n_pad=ens.n_pad,
+                   num_blocks=ens.blocked0.num_blocks)
+        if want == "K5":
+            res["tiles_per_row_block"] = int(ens._stream_tiles[0].shape[1])
+        out[name] = res
+        if want == "K4":
+            k4_ens, k4_inputs = ens, (m0, cl, dn, beta)
+
+    # K4 = K5 with their own Philox draws on the 8x8 family's layout: the
+    # couplings are +-1, so phi is integer-valued and the two agree exactly
+    m0, cl, dn, beta = k4_inputs
+    col_idx, J_tiles = _tiles_of(torch, k4_ens)
+    f4 = torch.zeros(tuple(dn.shape), dtype=torch.int32, device=DEVICE)
+    f5 = torch.zeros_like(f4)
+    k4 = rc.ensemble_round(
+        k4_ens.J_full, k4_ens.h, k4_ens.active, m0, cl, dn, beta,
+        torch.Generator(device=DEVICE).manual_seed(7), block_size=128,
+        flips=f4, **kw)
+    k5 = rc.ensemble_round_sparse(
+        col_idx, J_tiles, k4_ens.h, k4_ens.active, m0, cl, dn, beta,
+        torch.Generator(device=DEVICE).manual_seed(7), flips=f5, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(k4, k5))
+    check(same and torch.equal(f4, f5), "K5 differs from K4 with one seed")
+    check(bool((k4.m != m0).any()), "K4 moved no spin")
+    out["k4_k5_bit_equal_philox"] = same
+    out["k4_flips_per_slot_mean"] = float(f4.float().mean())
+
+    for name in ("ensemble_round", "ensemble_round_sparse"):
+        def run(eng, m, gen, beta, sweeps, name=name):
+            R, n_pad = m.shape
+            zeros = torch.zeros((1, R, n_pad), dtype=torch.bool,
+                                device=DEVICE)
+            common = (eng.h[None], eng.active, m[None], zeros, zeros[..., 0],
+                      torch.full((1, R), beta, device=DEVICE), gen)
+            if name == "ensemble_round":
+                res = rc.ensemble_round(eng.J_full[None], *common,
+                                        block_size=eng.blocked.block_size,
+                                        num_cycles=1, sweeps_per_phase=sweeps)
+            else:
+                ci, jt = block_sparse_tiles(eng.blocked)
+                res = rc.ensemble_round_sparse(
+                    torch.as_tensor(ci, device=DEVICE),
+                    torch.as_tensor(jt, device=DEVICE)[None], *common,
+                    num_cycles=1, sweeps_per_phase=sweeps)
+            return res.m[0]
+        tv = _boltzmann_tv(torch, run)
+        check(tv < 0.05, f"{name} Philox TV {tv} >= 0.05")
+        out[name]["boltzmann_tv"] = tv
+    emit(out)
+    return errs
+
+
+def _ensemble_main_path(size, rounds, chunks, kernel):
+    """EnsembleNMC through `kernel` as the campaign drives it: chunks of
+    rounds, each ended by best() (the one host sync); the launch counts are
+    set to 0 just before and read just after. The last chunk runs with the
+    per-stage timing split."""
+    import torch
+    probs, ens, setup = _ensemble(size, 20)
+    want = {"ensemble_round": "K4", "ensemble_round_sparse": "K5"}[kernel]
+    check(ens.round_path == want, f"round_path {ens.round_path} != {want}")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    state = ens.init_state(gen)
+    per_chunk = rounds // chunks
+    chunk_seconds, timings = [], {}
+    torch.cuda.synchronize()
+    reset_counts()
+    for c in range(chunks):
+        t0 = time.perf_counter()
+        state = ens.run_scanned(
+            state, per_chunk, timings=timings if c == chunks - 1 else None)
+        eb, mb = ens.best(state)
+        chunk_seconds.append(time.perf_counter() - t0)
+    launches = read_counts()
+    check(launches[kernel] == rounds,
+          f"{kernel} launched {launches[kernel]} times for {rounds} rounds")
+    check(all(v == 0 for k, v in launches.items() if k != kernel),
+          f"other kernels launched: {launches}")
+    e64 = np.array([p.energy(mb[i]) for i, p in enumerate(probs)])
+    best_err = float(np.abs(e64 - eb).max())
+    check(np.isfinite(eb).all() and best_err <= 1e-3,
+          f"bests off their f64 energies by {best_err}")
+    check(np.isin(mb, [-1.0, 1.0]).all(), "best states outside +-1")
+    b2s = state.beta_to_slot.cpu().numpy()
+    check(all(sorted(r.tolist()) == list(range(ENS_R)) for r in b2s),
+          "beta_to_slot is not a permutation")
+    moved = int((state.beta_to_slot
+                 != torch.arange(ENS_R, device=DEVICE)).sum())
+    cl = state.cl.float().sum(dim=2)[state.do_nmc_slot]
+    return launches[kernel], {
+        "instances": len(probs), "N": probs[0].n, "n_pad": ens.n_pad,
+        "replicas": ENS_R, "nmc_slots": ENS_NMC, "rounds": rounds,
+        "chunks": chunks, "round_path": ens.round_path,
+        "launches": launches[kernel], "setup_seconds": setup,
+        "chunk_seconds": chunk_seconds,
+        "seconds_per_round": sum(chunk_seconds) / rounds,
+        "last_chunk_split_seconds_per_round": {
+            k: v / per_chunk for k, v in timings.items()},
+        "best_energy_mean": float(eb.mean()),
+        "bests_vs_f64_max_abs_err": best_err,
+        "labels_moved": moved,
+        "backbone_spins_per_nmc_slot_mean": float(cl.mean()),
+    }, (probs, ens, state)
+
+
+def phase_ensemble_512():
+    launches, out, keep = _ensemble_main_path(8, 16, 2, "ensemble_round")
+    emit({"phase": "ensemble_512", "reduced": {"rounds": [2777, 16]}, **out})
+    return launches, keep
+
+
+def phase_ensemble_2048():
+    launches, out, keep = _ensemble_main_path(16, 8, 1,
+                                              "ensemble_round_sparse")
+    emit({"phase": "ensemble_2048", "reduced": {"rounds": [2777, 8]}, **out})
+    return launches, keep
+
+
+def _write_chimera_family(folder, count=3, seed=0):
+    """`count` chimera 1x2 instances (16 spins, +-1 couplings, a few
+    fields) in the reference's chimera dialect (1-indexed, diagonal lines
+    carry h, the file's values negated on load) with groundstates_otn2d.txt
+    from enumeration. Returns {name: raw ground-state energy}."""
+    import itertools
+    import os
+    from nmc_tpu_torch.io.generators import chimera_graph
+    from nmc_tpu_torch.io.loaders import load_chimera
+    rng = np.random.default_rng(seed)
+    states = np.array(list(itertools.product([-1.0, 1.0], repeat=16)))
+    gs, lines = {}, []
+    for k in range(count):
+        prob = chimera_graph(1, 2, seed=seed + k)
+        h = rng.choice([-0.5, 0.5], size=prob.n) * (rng.random(prob.n) < 0.3)
+        name = f"{k + 1:03d}.txt"
+        rows = [f"{i + 1} {i + 1} {-h[i]}" for i in range(prob.n) if h[i]]
+        iu, ju = np.nonzero(np.triu(prob.J, 1))
+        rows += [f"{i + 1} {j + 1} {-prob.J[i, j]}" for i, j in zip(iu, ju)]
+        path = os.path.join(folder, name)
+        with open(path, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        e = load_chimera(path).energy(states)
+        best = int(np.argmin(e))
+        gs[name] = float(e[best])
+        bits = " ".join(str(int(x)) for x in (states[best] + 1) // 2)
+        lines.append(f"{name} : {gs[name]} {bits}")
+    with open(os.path.join(folder, "groundstates_otn2d.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return gs
+
+
+def phase_campaign():
+    """The campaign CLI's nmc arm at its defaults on a small chimera family
+    with exact ground states, in process, through K4."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from nmc_tpu_torch import cli
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_campaign_") as tmp:
+        folder = os.path.join(tmp, "family")
+        os.makedirs(folder)
+        gs = _write_chimera_family(folder)
+        out = os.path.join(tmp, "out.jsonl")
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["campaign", "--kind", "chimera", "--folder", folder,
+                      "--arm", "nmc", "--out", out, "--device", DEVICE])
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        with open(out) as f:
+            recs = [json.loads(line) for line in f]
+    text = buf.getvalue()
+    check("round_path=K4" in text, "the campaign did not take K4")
+    check(launches["ensemble_round"] > 0
+          and all(v == 0 for k, v in launches.items()
+                  if k != "ensemble_round"), f"campaign launches {launches}")
+    check(sorted(r["name"] for r in recs) == sorted(gs),
+          "campaign records do not cover the family")
+    check(all(r["hit"] and abs(r["found_raw"] - gs[r["name"]]) <= 1e-9
+              for r in recs), "campaign missed a ground state")
+    emit({"phase": "campaign", "instances": len(recs), "hits": len(recs),
+          "launches": launches["ensemble_round"], "seconds": seconds,
+          "hit_sweeps": [r["hit_sweeps"] for r in recs],
+          "engine": [ln for ln in text.splitlines()
+                     if ln.startswith("engine:")]})
+    return launches["ensemble_round"]
+
+
+def _round_work(torch, ens, state, cfg_kw, flips, sweeps_per_round):
+    """(operations, bytes) of one round on these inputs: per attempted spin
+    update (the phase masks of the NMC slots counted) 110 operations, per
+    flip one FMA per nonzero coupling of the row, per sweep 3 per spin for
+    the energy, per phase and at the end a phi rebuild over the nonzero
+    couplings; each input read once and each output written once."""
+    from nmc_tpu_torch.ops.round_cuda import phase_list
+    act = ens.active
+    dn = state.do_nmc_slot[..., None]
+    cl = state.cl
+    T = cfg_kw["sweeps_per_phase"]
+    attempts = 0
+    for kind in phase_list(cfg_kw["num_cycles"], 1):
+        if kind == "C":
+            mask = torch.where(dn, cl & act, act)
+        elif kind == "NC":
+            mask = torch.where(dn, ~cl & act, act)
+        else:
+            mask = act.expand_as(cl)
+        attempts += T * int(mask.sum())
+    I, R, n_pad = state.m.shape
+    nnz = int((ens.J_full != 0).sum())              # over all instances
+    degree = nnz / (I * int(act.sum()))
+    P = len(phase_list(cfg_kw["num_cycles"], 1))
+    ops = (attempts * OPS_PER_ATTEMPT + flips * 2 * degree
+           + 3 * I * R * n_pad * sweeps_per_round + 2 * R * nnz * (P + 1))
+    if ens.round_path == "K5":
+        j_bytes = sum(t.numel() * t.element_size() for t in ens._stream_tiles)
+    else:
+        j_bytes = ens.J_full.numel() * 4
+    nbytes = (j_bytes + 4 * I * n_pad + n_pad              # J, h, act
+              + 4 * I * R * n_pad + I * R * n_pad          # m0, cl
+              + I * R + 4 * I * R + 8                      # do_nmc, beta, seed
+              + 2 * 4 * I * R * n_pad + 2 * 4 * I * R)     # outputs
+    return attempts, ops, nbytes
+
+
+def _throughput_round(torch, name, keep, iters=3, plain_sweeps=8):
+    """A round kernel and its plain version in turns (plain, kernel, kernel,
+    plain) on an ensemble run's final state; the plain version runs
+    `plain_sweeps` sweeps per phase and its time is scaled to 64."""
+    probs, ens, state = keep
+    kernel, plain = _round_fns(ens)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    beta = torch.where(state.do_nmc_slot, GLOBAL_BETA,
+                       ens.beta_list[state.slot_to_beta]).contiguous()
+    args = (state.m, state.cl, state.do_nmc_slot, beta, gen)
+    full = dict(num_cycles=3, sweeps_per_phase=64)
+    cut = dict(num_cycles=3, sweeps_per_phase=plain_sweeps)
+    flips = torch.zeros(tuple(beta.shape), dtype=torch.int32, device=DEVICE)
+    kernel(*args, flips=flips, **full)                   # warm-up
+    times = {"kernel": [], "plain_scaled": []}
+    for turn in ("plain", "kernel", "kernel", "plain"):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        n = iters if turn == "kernel" else 1
+        start.record()
+        for _ in range(n):
+            if turn == "kernel":
+                kernel(*args, **full)
+            else:
+                plain(*args, **cut)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / n
+        if turn == "kernel":
+            times["kernel"].append(ms)
+        else:
+            times["plain_scaled"].append(ms * 64 / plain_sweeps)
+    sweeps_per_round = 3 * 3 * 64
+    n_flips = int(flips.sum())
+    probes = _round_probes(torch, ens, kernel, args)
+    attempts, ops, nbytes = _round_work(torch, ens, state, full, n_flips,
+                                        sweeps_per_round)
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_HBM_BYTES
+    k_ms, p_ms = min(times["kernel"]), min(times["plain_scaled"])
+    I, R, n_pad = state.m.shape
+    return {"name": name, "instances": I, "R": R, "N": probs[0].n,
+            "n_pad": n_pad, "sweeps_per_launch": sweeps_per_round,
+            "iters": iters, "ms": times, "kernel_ms_per_call": k_ms,
+            "plain_ms_per_call": p_ms,
+            "plain_note": f"plain version timed at {plain_sweeps} sweeps "
+                          "per phase, scaled to 64",
+            "attempts_per_launch": attempts,
+            "kernel_attempts_per_s": attempts / (k_ms * 1e-3),
+            "flips_per_attempt": n_flips / attempts,
+            "bound_ops": ops, "bound_bytes": nbytes,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "probes": probes}
+
+
+def _round_probes(torch, ens, kernel, args):
+    """Single launches that split a round kernel's time: the same launch
+    (`base`); 8 instead of 64 sweeps per phase (the phi rebuilds and fixed
+    costs stay: t = a + b * sweeps); every slot at the coldest rung, 32
+    (few flips); and the first instance's J for all 640 slots (one J
+    instead of 20 in the caches). ms and flips per attempt of each."""
+    m, cl, dn, beta, gen = args
+    I, R, n_pad = m.shape
+
+    def once(fn, *a, sweeps=64):
+        flips = torch.zeros(tuple(a[3].shape), dtype=torch.int32,
+                            device=DEVICE)
+        fn(*a, flips=flips, num_cycles=3, sweeps_per_phase=sweeps)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*a, num_cycles=3, sweeps_per_phase=sweeps)
+        end.record()
+        torch.cuda.synchronize()
+        return {"ms": start.elapsed_time(end),
+                "flips_per_slot_sweep": float(flips.float().mean())
+                / (9 * sweeps)}
+
+    out = {"base": once(kernel, *args),
+           "sweeps_per_phase_8": once(kernel, *args, sweeps=8),
+           "cold_beta_32": once(kernel, m, cl, dn, torch.full_like(beta, 32.0),
+                                gen)}
+    if ens.round_path == "K4":
+        from nmc_tpu_torch.ops.round_cuda import ensemble_round
+        one = (ens.J_full[:1].contiguous(), ens.h[:1].contiguous(),
+               ens.active)
+        flat = (m.reshape(1, I * R, n_pad), cl.reshape(1, I * R, n_pad),
+                dn.reshape(1, I * R), beta.reshape(1, I * R), gen)
+        out["one_instance_640_slots"] = once(
+            lambda *a, **k: ensemble_round(*one, *a,
+                                           block_size=ens.blocked0.block_size,
+                                           **k), *flat)
+    return out
+
+
 # ---- throughput and bounds ---------------------------------------------------
 
 def _timed_ms(torch, step, m, iters):
@@ -693,7 +1168,7 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def phase_throughput(card, c2048, r4096):
+def phase_throughput(card, c2048, r4096, ens512, ens2048):
     import torch
     out = {"phase": "throughput", "card": card}
     prob, eng = _flagship()
@@ -703,6 +1178,10 @@ def phase_throughput(card, c2048, r4096):
         torch, "colored_sweeps_sparse", c2048[0], c2048[1], 2048, 256, 4)
     out["colored_sweeps_streamed"] = _throughput_one(
         torch, "colored_sweeps_streamed", r4096[0], r4096[1], 2048, 256, 4)
+    out["ensemble_round"] = _throughput_round(torch, "ensemble_round",
+                                              ens512)
+    out["ensemble_round_sparse"] = _throughput_round(
+        torch, "ensemble_round_sparse", ens2048, plain_sweeps=4)
     emit(out)
     return out
 
@@ -724,7 +1203,11 @@ def main():
                 "colored_sweeps_sparse": phase_nmc_2048(c2048)}
     launches["colored_sweeps_sparse"] += phase_npt_2048(c2048)
     launches["colored_sweeps_streamed"] = phase_nmc_4096(r4096)
-    tp = phase_throughput(card, c2048, r4096)
+    errs.update(phase_round_kernels())
+    launches["ensemble_round"], ens512 = phase_ensemble_512()
+    launches["ensemble_round_sparse"], ens2048 = phase_ensemble_2048()
+    launches["ensemble_round"] += phase_campaign()
+    tp = phase_throughput(card, c2048, r4096, ens512, ens2048)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     sources = {"colored_sweeps": ("nmc_tpu_torch/csrc/colored_sweeps.cu",
                                   "nmc_tpu/ops/sweeps_pallas.py:128"),
@@ -733,7 +1216,12 @@ def main():
                    "nmc_tpu/ops/sweeps_pallas.py:291"),
                "colored_sweeps_sparse": (
                    "nmc_tpu_torch/csrc/colored_sweeps_sparse.cu",
-                   "nmc_tpu/ops/sweeps_pallas.py:493")}
+                   "nmc_tpu/ops/sweeps_pallas.py:493"),
+               "ensemble_round": ("nmc_tpu_torch/csrc/ensemble_round.cu",
+                                  "nmc_tpu/ops/round_pallas.py:458"),
+               "ensemble_round_sparse": (
+                   "nmc_tpu_torch/csrc/ensemble_round.cu",
+                   "nmc_tpu/ops/round_pallas.py:340")}
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[name], "max_abs_err": errs[name],

@@ -1,8 +1,7 @@
 """nmc_tpu_torch — the PyTorch/CUDA port of nmc_tpu (Nonlocal Monte Carlo).
 
-Runs the NMC solver on graph-colored blocks with its colored sweep kernel
-hand-written in CUDA for Hopper (csrc/colored_sweeps.cu, built with nvcc on
-first use). Module paths and public names mirror ``nmc_tpu``; the JAX
+Runs the NMC solvers on graph-colored blocks with their kernels
+hand-written in CUDA for Hopper (csrc/*.cu, built with nvcc on first use). Module paths and public names mirror ``nmc_tpu``; the JAX
 package stays the reference the port is tested against, and nothing here
 imports JAX.
 
@@ -10,8 +9,11 @@ The port covers the problem containers, colouring, generators and
 loaders, energies, the sweep engine with its three colored sweep kernels
 (K1 dense, K2 dense streamed, K3 block-sparse; each with a plain torch
 twin), dense and edge-message LBP, backbone clusters, the NMC driver, the
-APT beta schedule, NPT replica exchange and checkpoints, with the
-`nmc`/`apt`/`npt` CLI.
+APT beta schedule, NPT replica exchange and checkpoints, and the campaign
+engine: `EnsembleNMC` (many instances x a replica ladder, whole rounds
+through the round kernels K4 dense and K5 block-sparse, each with a plain
+torch twin; in-round slotted-edge, edge-message or dense LBP; device label
+swaps), with the `nmc`/`apt`/`npt`/`campaign` CLI.
 """
 
 from . import device  # noqa: F401  (sets the full-f32 matmul policy)
@@ -20,19 +22,29 @@ from .core.problem import BlockedProblem, IsingProblem, block_problem
 from .models.apt import APTConfig, APTResult, apt_preprocess
 from .models.nmc import NMCConfig, NMCResult, nmc_run, nmc_subroutine
 from .models.npt import NPTConfig, NPTResult, npt_run
-from .ops.clusters import cluster_mask, find_clusters, flatten_clusters
+from .ops.clusters import (backbone_mask_device, cluster_mask,
+                           find_clusters, flatten_clusters)
 from .ops.coloring import color_groups, greedy_coloring, num_colors
 from .ops.engine import SweepEngine
 from .ops.lbp import (atanh_saturated, convexification_epsilon,
                       lbp_convexified, lbp_convexified_batch,
                       loopy_belief_propagation)
+from .ops.lbp_jit import (convexified_marginal_dense,
+                          convexified_marginal_sparse)
+from .ops.lbp_planes import (EdgeSlotPlanes, build_edge_slot_planes,
+                             convexified_marginal_planes, w_slot_from_tiles)
 from .ops.lbp_sparse import (EdgeGraph, sparse_lbp, sparse_lbp_convexified,
                              sparse_lbp_convexified_batch)
+from .ops.round_cuda import (EnsembleRoundResult, ensemble_round,
+                             ensemble_round_reference, ensemble_round_sparse,
+                             ensemble_round_sparse_reference)
 from .ops.sweeps_cuda import (colored_sweeps, colored_sweeps_reference,
                               colored_sweeps_sparse,
                               colored_sweeps_sparse_reference,
                               colored_sweeps_streamed,
                               colored_sweeps_streamed_reference)
+from .parallel import (EnsembleNMC, EnsembleNMCState, ShardedNPTConfig,
+                       metropolis_label_swap, select_pairs_device)
 
 __version__ = "0.1.0"
 
@@ -42,12 +54,19 @@ __all__ = [
     "SweepEngine", "colored_sweeps", "colored_sweeps_reference",
     "colored_sweeps_streamed", "colored_sweeps_streamed_reference",
     "colored_sweeps_sparse", "colored_sweeps_sparse_reference",
+    "ensemble_round", "ensemble_round_reference", "ensemble_round_sparse",
+    "ensemble_round_sparse_reference", "EnsembleRoundResult",
+    "EnsembleNMC", "EnsembleNMCState", "ShardedNPTConfig",
+    "metropolis_label_swap", "select_pairs_device",
     "NMCConfig", "NMCResult", "nmc_run", "nmc_subroutine",
     "APTConfig", "APTResult", "apt_preprocess",
     "NPTConfig", "NPTResult", "npt_run",
     "loopy_belief_propagation", "lbp_convexified", "lbp_convexified_batch",
     "EdgeGraph", "sparse_lbp", "sparse_lbp_convexified",
-    "sparse_lbp_convexified_batch",
+    "sparse_lbp_convexified_batch", "convexified_marginal_dense",
+    "convexified_marginal_sparse", "convexified_marginal_planes",
+    "EdgeSlotPlanes", "build_edge_slot_planes", "w_slot_from_tiles",
+    "backbone_mask_device",
     "atanh_saturated", "convexification_epsilon",
     "find_clusters", "flatten_clusters", "cluster_mask",
     "greedy_coloring", "color_groups", "num_colors",

@@ -1,14 +1,16 @@
-"""Command-line entry points of the port: `nmc`, `apt` and `npt`.
+"""Command-line entry points of the port: `nmc`, `apt`, `npt` and `campaign`.
 
     python -m nmc_tpu_torch nmc --J J.npy --h h.npy --coloring --chains 256
     python -m nmc_tpu_torch nmc --instance path.txt --format chimera --coloring
     python -m nmc_tpu_torch apt --J J.npy --coloring --out-dir Results/data
     python -m nmc_tpu_torch npt --J J.npy --coloring \
         --beta-list Results/data/beta_list_python.npy --nmc-coldest 2
+    python -m nmc_tpu_torch campaign --kind chimera --folder DIR --arm nmc
 
 Same flags and the same JSON output keys as ``python -m nmc_tpu``'s
-subcommands of those names. They run on the first CUDA card when there is
-one, else on the CPU.
+subcommands of those names (`campaign` for its `pt` and `nmc` arms). Every
+subcommand takes `--device` (default `cuda`): without a card it fails
+unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -47,13 +49,27 @@ def _add_problem_args(p):
     p.add_argument("--block-size", type=int, default=128)
     p.add_argument("--coloring", action="store_true",
                    help="graph-colored blocks (sparse topologies)")
+    add_device_arg(p)
+
+
+def add_device_arg(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; cpu only "
+                        "when named)")
+
+
+def resolve_cli_device(name: str):
+    """The device `--device` names; `cuda` without a card raises."""
+    import torch
+
+    from .device import default_device
+    return default_device() if name == "cuda" else torch.device(name)
 
 
 def _device_and_generator(args):
     import torch
 
-    from .device import default_device
-    device = default_device()
+    device = resolve_cli_device(args.device)
     return device, torch.Generator(device=device).manual_seed(args.seed)
 
 
@@ -134,7 +150,7 @@ def cmd_npt(args):
     }))
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="nmc_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -188,7 +204,19 @@ def main(argv=None):
     p.add_argument("--resume", action="store_true")
     p.set_defaults(fn=cmd_npt)
 
-    args = ap.parse_args(argv)
+    p = sub.add_parser(
+        "campaign",
+        help="batched solution-quality campaign over a benchmark family "
+             "(pt and nmc arms; per-instance time-to-solution vs shipped "
+             "ground truths)")
+    from .campaign import add_campaign_args, run_campaign
+    add_campaign_args(p)
+    p.set_defaults(fn=run_campaign)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

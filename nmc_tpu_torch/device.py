@@ -1,7 +1,10 @@
 """Device and dtype policy of the port.
 
-On CUDA everything runs in float32 (the dtype the colored sweep kernel
-takes); on the CPU float64 is allowed too, which the parity tests use.
+Entry points run on the first CUDA card unless the caller names another
+device: `default_device()` raises when there is no card and never picks
+the CPU. On CUDA everything runs in float32 (the dtype the kernels take);
+on the CPU, which only a caller that names it gets, float64 is allowed
+too, which the parity tests use.
 """
 
 from __future__ import annotations
@@ -21,8 +24,14 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
 def default_device() -> torch.device:
-    """The first CUDA card when there is one, else the CPU."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The first CUDA card; raises when torch sees none (the CPU is used
+    only when a caller names it)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: torch.cuda.is_available() is false. The port "
+            "runs on a CUDA card by default; pass device='cpu' (or "
+            "--device cpu on the command line) to run on the CPU")
+    return torch.device("cuda")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:

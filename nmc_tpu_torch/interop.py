@@ -50,3 +50,27 @@ def states_from_numpy(m, *, dtype: Union[str, torch.dtype] = torch.float32,
     device = resolve_device(device)
     return torch.as_tensor(np.asarray(m), dtype=resolve_dtype(dtype, device),
                            device=device)
+
+
+def ensemble_nmc_state_from_numpy(s, generator: torch.Generator, *,
+                                  dtype: Union[str, torch.dtype] = torch.float32,
+                                  device=None):
+    """The port's `EnsembleNMCState` from an EnsembleNMCState of the JAX
+    package (or any object or mapping with its fields as numpy arrays: m,
+    beta_to_slot, slot_to_beta, round_index, m_best, e_best, cl,
+    do_nmc_slot). The JAX key has no counterpart: the draws of the port's
+    rounds come from `generator`."""
+    from .parallel.ensemble_nmc import EnsembleNMCState
+    get = s.__getitem__ if isinstance(s, Mapping) else (lambda f: getattr(s, f))
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
+
+    def t(f, dt):
+        return torch.as_tensor(np.array(get(f)), dtype=dt, device=device)
+
+    return EnsembleNMCState(
+        m=t("m", dtype), beta_to_slot=t("beta_to_slot", torch.int64),
+        slot_to_beta=t("slot_to_beta", torch.int64), generator=generator,
+        round_index=int(np.asarray(get("round_index"))),
+        m_best=t("m_best", dtype), e_best=t("e_best", dtype),
+        cl=t("cl", torch.bool), do_nmc_slot=t("do_nmc_slot", torch.bool))

@@ -1,17 +1,23 @@
-"""Instance loaders for the reference's edge-list dialects (host side).
+"""Instance loaders for the reference's edge-list dialects and its
+ground-truth files (host side).
 
-Copies of the edge-list loaders of ``nmc_tpu/io/loaders.py``:
+Copies of the edge-list loaders and ground-truth readers of
+``nmc_tpu/io/loaders.py``:
   * wishart / DCL: 0-indexed `i j J_ij`, no fields, diagonal lines skipped;
   * chimera droplet: 1-indexed, diagonal lines carry h_i;
   * contrived tree: 0-indexed, diagonal lines carry h_i.
 The reference negates (J = -J, h = -h) to match the Hamiltonian sign;
 `negate=True` does that here so loaders return ready-to-solve problems.
+Ground truths: gs_energies.txt (`file<TAB>energy`),
+groundstates_otn2d.txt (`name : energy <0/1 spins>`) and the DCL
+`NN_sol.txt` metadata (`key value` lines).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+import re
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -82,3 +88,47 @@ def load_contrived_tree(path: str, negate: bool = True) -> IsingProblem:
     """0-indexed dialect with diagonal h lines (contrived wishart-backbone)."""
     return load_edgelist(path, index_base=0, diagonal_is_field=True,
                          negate=negate)
+
+
+def read_gs_energies(path: str) -> Dict[str, float]:
+    """`gs_energies.txt`: lines of `instance-file<TAB>gs_energy`."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) >= 2:
+                out[parts[0]] = float(parts[1])
+    return out
+
+
+def read_otn2d_groundstates(path: str) -> Dict[str, Tuple[float, np.ndarray]]:
+    """`groundstates_otn2d.txt`: `name : energy <0/1 spins...>` per line.
+
+    Returns name -> (energy, bipolar state).
+    """
+    out = {}
+    with open(path) as f:
+        for line in f:
+            m = re.match(r"\s*(\S+)\s*:\s*(-?\d+\.?\d*)\s*(.*)", line)
+            if not m:
+                continue
+            name, e, rest = m.group(1), float(m.group(2)), m.group(3).split()
+            spins = np.array([int(s) for s in rest], dtype=np.int8)
+            out[name] = (e, (2 * spins - 1).astype(np.int8))
+    return out
+
+
+def read_dcl_solution(path: str) -> Dict[str, float]:
+    """`NN_sol.txt` metadata for DCL instances: whitespace-separated
+    key/value lines; `min_energy` is the planted ground-state energy (raw
+    units of the NN.txt edge list)."""
+    out: Dict[str, float] = {}
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) == 2:
+                try:
+                    out[parts[0]] = float(parts[1])
+                except ValueError:
+                    out[parts[0]] = parts[1]
+    return out

@@ -1,7 +1,8 @@
-"""Backbone cluster extraction (host side, numpy).
+"""Backbone cluster extraction.
 
 Copies of ``find_clusters``, ``flatten_clusters`` and ``cluster_mask`` from
-``nmc_tpu/ops/clusters.py``. Seeds are spins with |marginal| >=
+``nmc_tpu/ops/clusters.py`` (host side, numpy), and its device-side
+`backbone_mask_device` in torch. Seeds are spins with |marginal| >=
 threshold_initial; each unclaimed seed starts a cluster together with its
 direct J-neighbors that are also seeds; then the threshold decays by
 threshold_step down to threshold_cutoff, each pass absorbing yet-unclaimed
@@ -12,9 +13,11 @@ follows from the same arithmetic.)
 
 from __future__ import annotations
 
-from typing import List
+import math
+from typing import List, Optional
 
 import numpy as np
+import torch
 
 
 def find_clusters(
@@ -73,4 +76,48 @@ def cluster_mask(n: int, clusters: List[np.ndarray] | np.ndarray) -> np.ndarray:
     mask = np.zeros(n, dtype=bool)
     flat = clusters if isinstance(clusters, np.ndarray) else flatten_clusters(clusters)
     mask[flat.astype(np.int64)] = True
+    return mask
+
+
+def backbone_mask_device(
+    marginal: torch.Tensor,   # [..., N] LBP marginals (or logits, see below)
+    J_abs: torch.Tensor,      # [..., N, N] |J| (any nonneg matrix with J's sparsity)
+    threshold_initial: float,
+    threshold_cutoff: float,
+    threshold_step: float = 0.01,
+    active: Optional[torch.Tensor] = None,
+    *,
+    logits: bool = False,
+) -> torch.Tensor:
+    """Flat backbone mask with the reference's threshold-decay growth,
+    batched over leading axes: seeds are |marginal| >= threshold_initial,
+    then one masked adjacency propagation per static threshold rung
+    (initial - step, ... > cutoff): mask |= neighbor(mask) & (|m| >= t).
+    With the shipped defaults the rung ladder is empty and the mask is pure
+    thresholding, as in `find_clusters`.
+
+    `logits=True`: `marginal` carries the belief logit beta * (h + sum u)
+    and each threshold t is mapped to atanh(t) in float64 on the host, so
+    thresholds such as 0.9999999 keep their float64 meaning on float32
+    beliefs (|m| >= t <=> |logit| >= atanh(t)).
+    """
+    if logits:
+        def _thr(t):
+            # t may sit at 1.0 in user-specified ladders: stay inside atanh
+            return math.atanh(min(float(t), 1.0 - 1e-16))
+    else:
+        def _thr(t):
+            return t
+    mag = torch.abs(marginal)
+    mask = mag >= _thr(threshold_initial)
+    if active is not None:
+        mask = mask & active
+    thr = threshold_initial - threshold_step
+    while thr > threshold_cutoff:
+        cand = mag >= _thr(thr)
+        if active is not None:
+            cand = cand & active
+        nbr = torch.matmul(mask.to(J_abs.dtype), J_abs) > 0
+        mask = mask | (nbr & cand)
+        thr -= threshold_step
     return mask

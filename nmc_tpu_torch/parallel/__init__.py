@@ -1,0 +1,19 @@
+"""Replica exchange and instance ensembles on the device (torch).
+
+The counterpart of ``nmc_tpu/parallel``, with the names ported so far:
+  * label swaps batched over instances: `parallel/swaps.py`;
+  * the campaign engine `EnsembleNMC` (many instances x a replica ladder x
+    full NMC/PT rounds through the whole-round kernels K4/K5):
+    `parallel/ensemble_nmc.py`;
+  * its configuration `ShardedNPTConfig`: `parallel/sharded_pt.py`.
+"""
+
+from .ensemble_nmc import EnsembleNMC, EnsembleNMCState, RoundDraws
+from .sharded_pt import ShardedNPTConfig
+from .swaps import SwapResult, metropolis_label_swap, select_pairs_device
+
+__all__ = [
+    "ShardedNPTConfig",
+    "EnsembleNMC", "EnsembleNMCState", "RoundDraws",
+    "SwapResult", "metropolis_label_swap", "select_pairs_device",
+]

@@ -206,7 +206,7 @@ def test_cli_apt_and_npt_print_the_jax_cli_keys(tmp_path, capsys):
     prob = ea_2d(4, seed=1)
     np.save(tmp_path / "J.npy", prob.J)
     problem = ["--J", str(tmp_path / "J.npy"), "--coloring",
-               "--block-size", "8"]
+               "--block-size", "8", "--device", "cpu"]
     out = _cli(capsys, ["apt", *problem, "--sweeps", "20", "--sweeps-read",
                         "10", "--chains", "4", "--beta-max", "3",
                         "--out-dir", str(tmp_path / "apt")])

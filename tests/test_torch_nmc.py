@@ -182,7 +182,7 @@ def test_cli_nmc_prints_the_jax_cli_keys(tmp_path, capsys):
               str(tmp_path / "h.npy"), "--coloring", "--chains", "4",
               "--sweeps-initial", "100", "--sweeps-per-phase", "20",
               "--cycles", "1", "--block-size", "8", "--metrics",
-              str(metrics)])
+              str(metrics), "--device", "cpu"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(out) == {"min_energy", "min_energy_unnormalized", "num_chains"}
     assert out["num_chains"] == 4 and np.isfinite(out["min_energy"])

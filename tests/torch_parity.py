@@ -83,3 +83,67 @@ def npt_replay(key, engine, cfg, doNMC, dtype=np.float64):
                if doNMC.any() else None)
         rounds.append((mcmc, nmc))
     return m_init, host_rng, rounds
+
+
+def swap_replay(key, round_index, num_instances, num_replicas, num_pairs):
+    """The label-swap draws of nmc_tpu.parallel.EnsembleNMC's round
+    `round_index`, per instance i: fold_in(key, i), fold_in(., round_index),
+    fold_in(., 0xD00D), then split into a selection key (split again into
+    one key per pair, each drawing Gumbels over the R - 1 pairs) and an
+    acceptance key (one uniform per pair). Returns (gumbels
+    [I, num_pairs, R - 1], uniforms [I, num_pairs]), f64 under x64."""
+    gumbels, uniforms = [], []
+    for i in range(num_instances):
+        k_swap = jax.random.fold_in(jax.random.fold_in(
+            jax.random.fold_in(key, i), round_index), np.uint32(0xD00D))
+        k_sel, k_acc = jax.random.split(k_swap)
+        gumbels.append(np.stack([
+            np.asarray(jax.random.gumbel(k, (num_replicas - 1,)))
+            for k in jax.random.split(k_sel, num_pairs)]))
+        uniforms.append(np.array(jax.random.uniform(k_acc, (num_pairs,))))
+    return torch.as_tensor(np.stack(gumbels)), torch.as_tensor(
+        np.stack(uniforms))
+
+
+def ensemble_phase_uniforms(key, round_index, num_instances, cfg, R, n_pad,
+                            dtype=np.float64):
+    """The per-phase sweep uniforms of the plain (XLA) round of
+    nmc_tpu.parallel.EnsembleNMC (`one_instance`), as [P, T, I, R, n_pad]:
+    per instance k_dev = fold_in(fold_in(key, i), round_index), then per
+    cycle split(k_dev, 4) -> (k_dev, kc, knc, kall) and the phases C, NC
+    and, every full_update_frequency cycles, ALL draw from kc, knc, kall."""
+    per_inst = []
+    for i in range(num_instances):
+        k_dev = jax.random.fold_in(jax.random.fold_in(key, i), round_index)
+        phases = []
+        for cycle in range(cfg.num_cycles):
+            k_dev, kc, knc, kall = jax.random.split(k_dev, 4)
+            subs = [kc, knc] + ([kall] if cycle % cfg.full_update_frequency
+                                == 0 else [])
+            phases += [jax_sweep_uniforms(k, cfg.sweeps_per_phase, R, n_pad,
+                                          dtype) for k in subs]
+        per_inst.append(np.stack(phases))          # [P, T, R, n_pad]
+    return torch.as_tensor(np.stack(per_inst, axis=2))
+
+
+def ensemble_replay(key, cfg, num_instances, R, n_pad, *, plain):
+    """`draws(round_index)` for nmc_tpu_torch's EnsembleNMC.run_scanned that
+    replays the JAX engine's draws from its state key: the plain route's
+    per-phase uniforms (or, for the kernel route, zeros, which is what the
+    Pallas interpreter's PRNG gives), and the label-swap draws."""
+    from nmc_tpu_torch.ops.round_cuda import phase_list
+    from nmc_tpu_torch.parallel import RoundDraws
+    P = len(phase_list(cfg.num_cycles, cfg.full_update_frequency))
+
+    def draws(round_index):
+        g, u = swap_replay(key, round_index, num_instances, R,
+                           cfg.num_swapping_pairs)
+        if plain:
+            sweeps = ensemble_phase_uniforms(key, round_index, num_instances,
+                                             cfg, R, n_pad)
+        else:
+            sweeps = torch.zeros((P, cfg.sweeps_per_phase, num_instances, R,
+                                  n_pad), dtype=torch.float32)
+        return RoundDraws(sweep_uniforms=sweeps, gumbels=g, swap_uniforms=u)
+
+    return draws
