@@ -48,17 +48,43 @@ non-zero without printing a result:
                  a small chimera family written in the reference's format
                  with ground states by enumeration: through K4, every
                  instance a hit, the records parse;
- 13. throughput — spin-flip attempts/s of each kernel and its plain version
-                 in turns (K1 at bench.py's configuration, R = 2048, 1024
-                 sweeps; K3 and K2 at R = 2048, 256 sweeps; K4 and K5 at the
-                 ensemble configurations, one 576-sweep round per launch),
-                 CUDA events; each kernel's flips per attempt, and the least
-                 time the card could take for the same work.
-Phases 5-8 and 10-12 are the main paths: each sets the launch counts to 0
-just before it and reads them just after. Then one line {"kernels": [...]},
+ 13. exact_kernels — K6 (mitm_min) and K7 (mitm_min_i8) against their plain
+                 versions at N = 32 (a = 16, TA = 2^15, TB = 2^16) on
+                 integer-coupled instances, min and argmin equal element for
+                 element, pad rows included (a block_a = 384 call pads TA):
+                 a planted integer wishart, a tie-heavy +-1/0 instance, and
+                 K7 with 3 digit planes on an instance whose bound lies in
+                 (2^24, 2^29) (where planes="off" must raise); K6 = K7 bit
+                 for bit where the bound is below 2^24;
+ 14. exact_40  — `python -m nmc_tpu_torch exact <file> --backend pallas` (in
+                 process) at N = 40 on two planted wisharts written in the
+                 reference's format with gs_energies.txt, each planted at a
+                 random state: float couplings through K6, integer
+                 couplings through K7 and again with --planes off through
+                 K6 (equal energy); each matches its planted ground state,
+                 state and energy, and prints its split (host tables,
+                 upload, kernel, verification); the torch-tile tier
+                 (--backend device) on the integer one for comparison;
+ 15. exact_tiers — the `exact` command through each tier (host, torch tiles
+                 at two tilings, fused kernels, auto) on integer planted
+                 wisharts at N = 28-40: the crossover `auto` follows;
+ 16. throughput — spin-flip attempts/s of each sweep and round kernel and its
+                 plain version in turns (K1 at bench.py's configuration,
+                 R = 2048, 1024 sweeps; K3 and K2 at R = 2048, 256 sweeps; K4
+                 and K5 at the ensemble configurations, one 576-sweep round
+                 per launch), CUDA events; each kernel's flips per attempt,
+                 and the least time the card could take for the same work;
+                 K6 and K7 per call at N = 40 (2^39 table entries) on the
+                 main path's integer instance, with their plain versions
+                 (each output held against the kernel's, element for
+                 element) and bounds; K6 on the float instance against its
+                 plain version with a stated tolerance.
+Phases 5-8, 10-12 and 14 are the main paths: each sets the launch counts to
+0 just before it and reads them just after. Then one line {"kernels": [...]},
 the card's name and power limit, and last {"ok": true, "device": {...}}.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -77,6 +103,7 @@ HOT_BETA = 0.25
 # all of it is held against the f32 rate outside the tensor cores.
 OPS_PER_ATTEMPT = 110
 PEAK_F32_OPS = 67e12        # H100 SXM, FP32 outside the tensor cores
+PEAK_INT8_OPS = 1979e12     # H100 SXM, int8 tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM, HBM3
 DEVICE = "cuda"
 
@@ -91,13 +118,15 @@ def check(cond, msg):
 
 
 def _wrappers():
+    from nmc_tpu_torch.ops import exact_cuda as ec
     from nmc_tpu_torch.ops import round_cuda as rc
     from nmc_tpu_torch.ops import sweeps_cuda as sc
     return {"colored_sweeps": sc.colored_sweeps,
             "colored_sweeps_streamed": sc.colored_sweeps_streamed,
             "colored_sweeps_sparse": sc.colored_sweeps_sparse,
             "ensemble_round": rc.ensemble_round,
-            "ensemble_round_sparse": rc.ensemble_round_sparse}
+            "ensemble_round_sparse": rc.ensemble_round_sparse,
+            "mitm_min": ec.mitm_min, "mitm_min_i8": ec.mitm_min_i8}
 
 
 def reset_counts():
@@ -1070,6 +1099,433 @@ def _round_probes(torch, ens, kernel, args):
     return out
 
 
+# ---- the exact solver: table kernels K6 / K7 ---------------------------------
+
+def _planted_signs(n, seed):
+    """A random +-1 state with t_0 = +1 (the solvers pin s_0 = +1), so
+    that the planted ground state is not table entry (0, 0)."""
+    t = np.random.default_rng(seed).choice([-1.0, 1.0], n)
+    t[0] = 1.0
+    return t
+
+
+def _planted_integer(n, seed):
+    """An integer planted wishart (test data): W [n, n/2] with entries in
+    [-3, 3] and every column summing to 0, its rows multiplied by a random
+    t, J = -W W^T with a zero diagonal. Then E(m) = 1/2 (|W^T m|^2 -
+    sum_i |W_i|^2) and W^T t = 0, so t is a ground state with E(t) = -1/2
+    sum_i |W_i|^2. Returns (J, t, E(t))."""
+    rng = np.random.default_rng(seed)
+    W = rng.integers(-3, 4, (n, n // 2))
+    for c in range(W.shape[1]):
+        while (total := int(W[:, c].sum())) != 0:
+            step = -1 if total > 0 else 1
+            movable = np.nonzero(np.abs(W[:, c] + step) <= 3)[0]
+            W[rng.choice(movable), c] += step
+    t = _planted_signs(n, seed + 1000)
+    W = W * t[:, None].astype(np.int64)
+    J = -(W @ W.T).astype(np.float64)
+    np.fill_diagonal(J, 0.0)
+    return J, t, -0.5 * float((W.astype(np.float64) ** 2).sum())
+
+
+@functools.lru_cache(maxsize=None)
+def _exact40():
+    """The two N = 40 planted wisharts of the exact phases: "float"
+    (`wishart_planted(40, 0.5, seed=0)` planted at a random t, -> K6) and
+    "int" (`_planted_integer`, -> K7), each (J, t, E(t))."""
+    from nmc_tpu_torch.io.generators import wishart_planted
+    prob, t, e = wishart_planted(40, 0.5, seed=0,
+                                 planted=_planted_signs(40, 2000))
+    return {"float": (prob.J, t, e), "int": _planted_integer(40, 0)}
+
+
+def _exact_args(torch, J, planes, block_a=512, block_b=4096):
+    """The fused tier's kernel inputs for J (h = 0) on the card: (K7?,
+    (SA, C, EA, EB), layout (a, b, symmetry, block_a, block_b) with the
+    blocks clamped)."""
+    from nmc_tpu_torch.core.problem import IsingProblem
+    from nmc_tpu_torch.exact import fused_inputs
+    n = J.shape[0]
+    use_i8, arrays, layout = fused_inputs(
+        IsingProblem(J, np.zeros(n)), block_a=block_a, block_b=block_b,
+        planes=planes)
+    args = tuple(torch.as_tensor(x, device=DEVICE) for x in arrays)
+    return use_i8, args, layout
+
+
+def _exact_fns(use_i8):
+    from nmc_tpu_torch.ops import exact_cuda as ec
+    if use_i8:
+        return "mitm_min_i8", ec.mitm_min_i8, ec.mitm_min_i8_reference
+    return "mitm_min", ec.mitm_min, ec.mitm_min_reference
+
+
+def phase_exact_kernels():
+    """K6 and K7 against their plain versions at N = 32 on integer-coupled
+    instances, min and argmin element for element, pad rows included; K6 =
+    K7 on the rows both reduce; K7 with 3 digit planes past K6's window."""
+    import torch
+    from nmc_tpu_torch.exact import exact_energy_bound
+    n = 32
+    rng = np.random.default_rng(7)
+    ties = np.triu(rng.choice([-1.0, 0.0, 1.0], size=(n, n)), 1)
+    big = np.triu(rng.integers(-80_000, 80_001, (n, n)).astype(np.float64), 1)
+    Js = {"planted_int": _planted_integer(n, 1)[0], "ties": ties + ties.T,
+          "three_planes": big + big.T}
+    bound = exact_energy_bound(Js["three_planes"])
+    check(float(1 << 24) < bound < float(1 << 29),
+          f"three_planes bound {bound} outside (2^24, 2^29)")
+    out = {"phase": "exact_kernels", "N": n, "a": n // 2}
+    errs = {"mitm_min": 0.0, "mitm_min_i8": 0.0}
+    kept = {}
+    for name, planes, block_a in (("planted_int", "on", 512),
+                                  ("planted_int", "off", 512),
+                                  ("ties", "on", 384), ("ties", "off", 384),
+                                  ("three_planes", "on", 512)):
+        use_i8, args, (a, _, _, *blocks) = _exact_args(torch, Js[name],
+                                                       planes, block_a)
+        total_a = 1 << (a - 1)
+        kname, kernel, plain = _exact_fns(use_i8)
+        check(use_i8 == (planes == "on"), f"{name}: planes={planes} took "
+              f"{kname}")
+        k = kernel(*args, block_a=blocks[0], block_b=blocks[1])
+        p = plain(*args, block_a=blocks[0], block_b=blocks[1])
+        torch.cuda.synchronize()
+        n_e = int((k[0] != p[0]).sum())
+        n_b = int((k[1] != p[1]).sum())
+        check(n_e == 0 and n_b == 0, f"{kname} on {name}: {n_e} minima and "
+              f"{n_b} argmins differ from the plain version")
+        live = torch.isfinite(p[0].float()) if not use_i8 else slice(None)
+        errs[kname] = max(errs[kname], float(
+            (k[0][live].double() - p[0][live].double()).abs().max()))
+        SA, C, EA, EB = args
+        TA, TB = SA.shape[0], EB.shape[0]
+        res = {"kernel": kname, "TA": TA, "TB": TB, "block_a": blocks[0],
+               "pad_rows": TA - total_a, "min_and_argmin_equal": True}
+        if use_i8:
+            res["digit_planes"] = C.shape[0]
+        else:
+            # rows of the first 1024 whose minimum several columns attain:
+            # the lowest-index tie-break decides them
+            T = EA[:1024, None] + EB[None, :] - SA[:1024] @ C
+            res["tied_rows_of_1024"] = int(
+                ((T == T.min(dim=1, keepdim=True).values).sum(dim=1) > 1)
+                .sum())
+        out[f"{name}_{planes}"] = res
+        kept[(name, planes)] = (k[0][:total_a].cpu().numpy(),
+                                k[1][:total_a].cpu().numpy())
+    check(out["ties_off"]["tied_rows_of_1024"] > 0, "no tied rows")
+    check(out["ties_on"]["pad_rows"] > 0, "block_a = 384 did not pad TA")
+    check(out["three_planes_on"]["digit_planes"] == 3,
+          f"{out['three_planes_on']['digit_planes']} digit planes, not 3")
+    for name in ("planted_int", "ties"):
+        (e7, b7), (e6, b6) = kept[(name, "on")], kept[(name, "off")]
+        check(np.array_equal(e7.astype(np.float64), e6.astype(np.float64))
+              and np.array_equal(b7, b6), f"K6 != K7 on {name}")
+        out[f"{name}_k6_equals_k7"] = True
+    try:
+        _exact_args(torch, Js["three_planes"], "off")
+        raise AssertionError("planes='off' accepted a bound above 2^24")
+    except ValueError as e:
+        check("2^24" in str(e), f"unexpected refusal: {e}")
+    out["three_planes_off_refused"] = True
+    emit(out)
+    return errs
+
+
+def _write_wishart(path, J):
+    """J in the reference's wishart dialect: 0-indexed `i j w` lines, w the
+    negated coupling (the loader negates), by repr so it loads back
+    exactly."""
+    iu, ju = np.nonzero(np.triu(J, 1))
+    with open(path, "w") as f:
+        f.write("".join(f"{i} {j} {float(-J[i, j])!r}\n"
+                        for i, j in zip(iu, ju)))
+
+
+def _write_wishart_folder(folder, n, insts):
+    """Planted instances {key: (J, t, E(t))} as one wishart folder of size
+    n with its gs_energies.txt; returns {key: path}."""
+    import os
+    from nmc_tpu_torch.io.loaders import load_wishart
+    os.makedirs(folder)
+    paths, lines = {}, []
+    for i, (key, (J, t, e)) in enumerate(insts.items()):
+        name = f"wishart_planting_N_{n}_alpha_0.50_inst_{i + 1}.txt"
+        paths[key] = os.path.join(folder, name)
+        _write_wishart(paths[key], J)
+        prob = load_wishart(paths[key])
+        check(np.array_equal(prob.J, J), f"{key} does not load back")
+        check(float(prob.energy(t)) == e, f"{key}: planted energy")
+        lines.append(f"{name}\t{e!r}\n")
+    with open(os.path.join(folder, "gs_energies.txt"), "w") as f:
+        f.write("".join(lines))
+    return paths
+
+
+def _exact_cli(tmp, path, backend, planes="auto", blocks=None):
+    """One `exact` command in process, the launch counts set to 0 just
+    before it; the fused tier records its split (`timings`). Returns (JSON
+    record, saved state, seconds of the command, launches, split)."""
+    import contextlib
+    import io
+    import os
+    import torch
+    from nmc_tpu_torch import cli
+    from nmc_tpu_torch import exact as exact_mod
+    state = os.path.join(tmp, "state.txt")
+    argv = ["exact", path, "--backend", backend, "--planes", planes, "--out",
+            os.path.join(tmp, "out.jsonl"), "--save-state", state,
+            "--device", DEVICE]
+    if blocks:
+        argv += ["--block-a", str(blocks[0]), "--block-b", str(blocks[1])]
+    buf, split = io.StringIO(), {}
+    solve = exact_mod.solve_exact_fused
+    exact_mod.solve_exact_fused = functools.partial(solve, timings=split)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        exact_mod.solve_exact_fused = solve
+    check(rc == 0, f"exact {argv}: exit {rc}")
+    rec = json.loads(buf.getvalue().splitlines()[-1])
+    return rec, np.loadtxt(state), seconds, counts, split
+
+
+def phase_exact_40():
+    """The `exact` command at N = 40 on two planted wisharts, in process:
+    float couplings through K6, integer couplings through K7 and, with
+    --planes off, through K6; then the torch-tile tier on the integer one.
+    Each run must return its planted state t (t_0 = +1, t random) and
+    E(t); the fused runs print their split: host tables, upload, kernel
+    (launch to results on the host), verification."""
+    import os
+    import tempfile
+    n = 40
+    insts = _exact40()
+    launches = {"mitm_min": 0, "mitm_min_i8": 0}
+    out = {"phase": "exact_40", "N": n, "table_entries": 2 ** (n - 1)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_exact_") as tmp:
+        paths = _write_wishart_folder(
+            os.path.join(tmp, "wishart_planting_N_40_alpha_0.50"), n, insts)
+        for key, backend, planes, kernel in (
+                ("float", "pallas", "auto", "mitm_min"),
+                ("int", "pallas", "auto", "mitm_min_i8"),
+                ("int", "pallas", "off", "mitm_min"),
+                ("int", "device", "auto", None)):
+            rec, s, seconds, counts, split = _exact_cli(
+                tmp, paths[key], backend, planes,
+                (8192, 65536) if backend == "device" else None)
+            _, t, e = insts[key]
+            tag = f"{key} {backend} planes={planes}"
+            check(rec["matches_shipped"] is True and rec["energy_raw"] == e,
+                  f"{tag}: {rec} against {e}")
+            check(np.array_equal(s, t), f"{tag}: not the planted state")
+            others = {k: v for k, v in counts.items() if k != kernel}
+            check((kernel is None or counts[kernel] >= 1)
+                  and not any(others.values()), f"{tag}: launches {counts}")
+            if kernel:
+                launches[kernel] += counts[kernel]
+            out[f"{key}_{backend}_{planes}"] = {
+                "kernel": kernel, "launches": counts.get(kernel, 0),
+                "energy_raw": rec["energy_raw"],
+                "matches_shipped": rec["matches_shipped"],
+                "planted_state": True, "wall_seconds": rec["wall_seconds"],
+                "seconds": seconds, "split_seconds": split or None}
+    check(out["int_pallas_auto"]["energy_raw"]
+          == out["int_pallas_off"]["energy_raw"], "K6 and K7 energies differ")
+    out["launches"] = launches
+    emit(out)
+    return launches
+
+
+def phase_exact_tiers():
+    """Not a main path: the `exact` command through each tier on integer
+    planted wisharts at N = 28-40, the crossover `--backend auto` follows:
+    host (N = 28 only), the torch tiles at the command's default blocks
+    (512 x 4096, what `auto` ran there before) and at 8192 x 65536, the
+    fused kernels, and `auto` itself (which must take the fused tier from
+    N = 29). Every run must return the planted state."""
+    import os
+    import tempfile
+    out = {"phase": "exact_tiers", "wall_seconds": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiers_") as tmp:
+        for n in (28, 30, 34, 38, 40):
+            inst = (_exact40()["int"] if n == 40
+                    else _planted_integer(n, 10 + n))
+            path = _write_wishart_folder(
+                os.path.join(tmp, f"wishart_planting_N_{n}_alpha_0.50"), n,
+                {"int": inst})["int"]
+            runs = {"device_512x4096": ("device", None),
+                    "device_8192x65536": ("device", (8192, 65536)),
+                    "pallas": ("pallas", None), "auto": ("auto", None)}
+            if n == 28:
+                runs["host"] = ("host", None)
+            walls = {}
+            for label, (backend, blocks) in runs.items():
+                rec, s, seconds, counts, _ = _exact_cli(tmp, path, backend,
+                                                        blocks=blocks)
+                check(rec["matches_shipped"] is True
+                      and np.array_equal(s, inst[1]),
+                      f"N = {n} {label}: {rec}")
+                walls[label] = {"wall_seconds": rec["wall_seconds"],
+                                "seconds_with_load": seconds}
+                if label == "auto":
+                    want = "host" if n <= 28 else "pallas"
+                    check(rec["backend"] == want and (
+                        n <= 28 or counts["mitm_min_i8"] == 1),
+                        f"N = {n}: auto took {rec['backend']}, {counts}")
+            out["wall_seconds"][n] = walls
+    emit(out)
+
+
+def _event_ms(torch, fn):
+    """(ms of one call of fn by CUDA events, its result)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), res
+
+
+def _state_of(out, layout):
+    """The state of the table's least row (first on ties) and its argmin,
+    as `solve_exact_fused` reads it."""
+    from nmc_tpu_torch.exact import _state
+    a, b, symmetry = layout[:3]
+    min_e = out[0].cpu().numpy()
+    ra = int(np.argmin(min_e))
+    return _state(a, b, symmetry, ra, int(out[1][ra]))
+
+
+def _entries64(args, rows, cols):
+    """K6's table entries T[rows, cols] in f64 from its f32 inputs."""
+    SA, C, EA, EB = args
+    return (EA[rows].double() + EB[cols].double()
+            - (SA[rows].double() * C[:, cols].T.double()).sum(1))
+
+
+def _compare_exact40(torch, tag, k, p, args, layout, inst, tol):
+    """K6/K7's (min_e, arg_b) `k` against its plain version's `p` at
+    N = 40. tol = 0 (integer couplings): both equal element for element,
+    pad rows included. tol > 0 (float couplings, K6): the same rows
+    finite; min_e within tol; the kernel's min within tol of the f64 entry
+    at its own argmin; where the argmins differ, the two columns' f64
+    entries within 2 tol (a near-tie). Then both give the planted state
+    with its f64 energy. Returns max |min_e difference| over live rows."""
+    from nmc_tpu_torch.core.problem import IsingProblem
+    J, t, e = inst
+    live = torch.isfinite(p[0].double())
+    if tol == 0:
+        n_e = int((k[0] != p[0]).sum())
+        n_b = int((k[1] != p[1]).sum())
+        check(n_e == 0 and n_b == 0, f"{tag}: {n_e} minima and {n_b} "
+              "argmins differ from the plain version")
+        res = {"min_and_argmin_equal": True}
+    else:
+        check(torch.equal(live, torch.isfinite(k[0])), f"{tag}: pad rows")
+        rows = torch.nonzero(live).squeeze(1)
+        err = float((k[0][rows].double() - p[0][rows].double()).abs().max())
+        own = float((_entries64(args, rows, k[1][rows].long())
+                     - k[0][rows].double()).abs().max())
+        moved = rows[k[1][rows] != p[1][rows]]
+        gap = (float((_entries64(args, moved, k[1][moved].long())
+                      - _entries64(args, moved, p[1][moved].long()))
+                     .abs().max()) if moved.numel() else 0.0)
+        check(err <= tol and own <= tol and gap <= 2 * tol,
+              f"{tag}: min_e off by {err}, own entry by {own}, argmin "
+              f"near-tie gap {gap} (tol {tol})")
+        res = {"tol": tol, "max_min_e_diff": err, "max_own_entry_diff": own,
+               "argmin_rows_differ": int(moved.numel()),
+               "max_argmin_gap": gap}
+    prob = IsingProblem(J, np.zeros(J.shape[0]))
+    for who, out in (("kernel", k), ("plain", p)):
+        s = _state_of(out, layout)
+        check(np.array_equal(s, t) and float(prob.energy(s)) == e,
+              f"{tag}: the {who} version misses the planted state")
+    res["planted_state_and_f64_energy"] = True
+    err = float((k[0][live].double() - p[0][live].double()).abs().max())
+    return res, err
+
+
+def _throughput_exact(torch, name):
+    """K6 (planes off) or K7 at N = 40 on the integer planted wishart of
+    the main path, one call per timing, in turns with the plain version
+    (plain, kernel, kernel, plain; the plain version tiles by 4096 x
+    65536), each kernel call's output held against each plain call's
+    (`_compare_exact40`). K6 then once more on the float planted wishart,
+    against its plain version with tol = 128 * 2^-24 * the energy bound
+    (each f32 entry sums 22 terms of at most the bound, rounded in
+    different orders). The bound: per table entry 2a operations for the
+    product (K7: 2aK on the int8 tensor cores) and 3 for the epilogue (K7:
+    2(K-1) more to recombine the planes), f32 rate for all but the int8
+    products; bytes: each input once, the two outputs once."""
+    from nmc_tpu_torch.exact import exact_energy_bound
+    planes = "on" if name == "mitm_min_i8" else "off"
+    inst = _exact40()["int"]
+    use_i8, args, layout = _exact_args(torch, inst[0], planes)
+    _, kernel, plain = _exact_fns(use_i8)
+    SA, C, EA, EB = args
+    TA, a = SA.shape
+    TB = EB.shape[0]
+    total_a = 1 << (layout[0] - 1)
+    blocks = dict(block_a=4096, block_b=65536)
+    kernel(*args)                                        # warm-up
+    times = {"kernel": [], "plain": []}
+    outs = {"kernel": [], "plain": []}
+    for turn in ("plain", "kernel", "kernel", "plain"):
+        fn = (lambda: kernel(*args)) if turn == "kernel" else (
+            lambda: plain(*args, **blocks))
+        ms, res = _event_ms(torch, fn)
+        times[turn].append(ms)
+        outs[turn].append(res)
+    max_err = 0.0
+    for k in outs["kernel"]:
+        for p in outs["plain"]:
+            res, err = _compare_exact40(torch, f"{name} N = 40 int", k, p,
+                                        args, layout, inst, 0)
+            max_err = max(max_err, err)
+    checks = {"int": res}
+    float_run = None
+    if not use_i8:
+        finst = _exact40()["float"]
+        _, fargs, flayout = _exact_args(torch, finst[0], "off")
+        tol = 128 * 2.0 ** -24 * exact_energy_bound(finst[0])
+        fk_ms, fk = _event_ms(torch, lambda: kernel(*fargs))
+        fp_ms, fp = _event_ms(torch, lambda: plain(*fargs, **blocks))
+        checks["float"], err = _compare_exact40(
+            torch, f"{name} N = 40 float", fk, fp, fargs, flayout, finst, tol)
+        max_err = max(max_err, err)
+        float_run = {"kernel_ms": fk_ms, "plain_ms": fp_ms}
+    entries = total_a * TB
+    if use_i8:
+        K = C.shape[0]
+        t_ops = max(2 * a * K * entries / PEAK_INT8_OPS,
+                    (2 * (K - 1) + 3) * entries / PEAK_F32_OPS)
+        nbytes = SA.numel() + C.numel() + 4 * (TA + TB) + 8 * TA
+    else:
+        K = None
+        t_ops = (2 * a + 3) * entries / PEAK_F32_OPS
+        nbytes = 4 * (SA.numel() + C.numel() + TA + TB) + 8 * TA
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    k_ms, p_ms = min(times["kernel"]), min(times["plain"])
+    return {"name": name, "N": 40, "a": a, "TA": TA, "TB": TB,
+            "digit_planes": K, "table_entries": entries, "ms": times,
+            "kernel_ms_per_call": k_ms, "plain_ms_per_call": p_ms,
+            "checks": checks, "max_abs_err": max_err, "float": float_run,
+            "kernel_entries_per_s": entries / (k_ms * 1e-3),
+            "bound_bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 # ---- throughput and bounds ---------------------------------------------------
 
 def _timed_ms(torch, step, m, iters):
@@ -1182,6 +1638,8 @@ def phase_throughput(card, c2048, r4096, ens512, ens2048):
                                               ens512)
     out["ensemble_round_sparse"] = _throughput_round(
         torch, "ensemble_round_sparse", ens2048, plain_sweeps=4)
+    for name in ("mitm_min", "mitm_min_i8"):
+        out[name] = _throughput_exact(torch, name)
     emit(out)
     return out
 
@@ -1207,7 +1665,12 @@ def main():
     launches["ensemble_round"], ens512 = phase_ensemble_512()
     launches["ensemble_round_sparse"], ens2048 = phase_ensemble_2048()
     launches["ensemble_round"] += phase_campaign()
+    errs.update(phase_exact_kernels())
+    launches.update(phase_exact_40())
+    phase_exact_tiers()
     tp = phase_throughput(card, c2048, r4096, ens512, ens2048)
+    for name in ("mitm_min", "mitm_min_i8"):
+        errs[name] = max(errs[name], tp[name]["max_abs_err"])
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     sources = {"colored_sweeps": ("nmc_tpu_torch/csrc/colored_sweeps.cu",
                                   "nmc_tpu/ops/sweeps_pallas.py:128"),
@@ -1221,7 +1684,11 @@ def main():
                                   "nmc_tpu/ops/round_pallas.py:458"),
                "ensemble_round_sparse": (
                    "nmc_tpu_torch/csrc/ensemble_round.cu",
-                   "nmc_tpu/ops/round_pallas.py:340")}
+                   "nmc_tpu/ops/round_pallas.py:340"),
+               "mitm_min": ("nmc_tpu_torch/csrc/exact_mitm.cu",
+                            "nmc_tpu/ops/exact_pallas.py:85"),
+               "mitm_min_i8": ("nmc_tpu_torch/csrc/exact_mitm.cu",
+                               "nmc_tpu/ops/exact_pallas.py:166")}
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[name], "max_abs_err": errs[name],

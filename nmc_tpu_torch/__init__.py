@@ -13,12 +13,18 @@ APT beta schedule, NPT replica exchange and checkpoints, and the campaign
 engine: `EnsembleNMC` (many instances x a replica ladder, whole rounds
 through the round kernels K4 dense and K5 block-sparse, each with a plain
 torch twin; in-round slotted-edge, edge-message or dense LBP; device label
-swaps), with the `nmc`/`apt`/`npt`/`campaign` CLI.
+swaps), the exact meet-in-the-middle solver (host, torch-tile and fused
+tiers; the fused tier through the table kernels K6 f32 and K7 int8 digit
+planes, each with a plain torch twin) with the chimera tropical DP, and the
+`nmc`/`apt`/`npt`/`campaign`/`exact` CLI.
 """
 
 from . import device  # noqa: F401  (sets the full-f32 matmul policy)
 from .core.energy import energy, energy_from_fields, local_fields
 from .core.problem import BlockedProblem, IsingProblem, block_problem
+from .exact import (exact_energy_bound, solve_exact_device, solve_exact_enum,
+                    solve_exact_fused, solve_exact_host)
+from .exact_chimera import solve_exact_chimera
 from .models.apt import APTConfig, APTResult, apt_preprocess
 from .models.nmc import NMCConfig, NMCResult, nmc_run, nmc_subroutine
 from .models.npt import NPTConfig, NPTResult, npt_run
@@ -26,6 +32,8 @@ from .ops.clusters import (backbone_mask_device, cluster_mask,
                            find_clusters, flatten_clusters)
 from .ops.coloring import color_groups, greedy_coloring, num_colors
 from .ops.engine import SweepEngine
+from .ops.exact_cuda import (mitm_min, mitm_min_i8, mitm_min_i8_reference,
+                             mitm_min_reference)
 from .ops.lbp import (atanh_saturated, convexification_epsilon,
                       lbp_convexified, lbp_convexified_batch,
                       loopy_belief_propagation)
@@ -70,4 +78,8 @@ __all__ = [
     "atanh_saturated", "convexification_epsilon",
     "find_clusters", "flatten_clusters", "cluster_mask",
     "greedy_coloring", "color_groups", "num_colors",
+    "solve_exact_host", "solve_exact_device", "solve_exact_fused",
+    "solve_exact_enum", "exact_energy_bound", "solve_exact_chimera",
+    "mitm_min", "mitm_min_reference", "mitm_min_i8",
+    "mitm_min_i8_reference",
 ]

@@ -1,4 +1,5 @@
-"""Command-line entry points of the port: `nmc`, `apt`, `npt` and `campaign`.
+"""Command-line entry points of the port: `nmc`, `apt`, `npt`, `campaign` and
+`exact`.
 
     python -m nmc_tpu_torch nmc --J J.npy --h h.npy --coloring --chains 256
     python -m nmc_tpu_torch nmc --instance path.txt --format chimera --coloring
@@ -6,11 +7,13 @@
     python -m nmc_tpu_torch npt --J J.npy --coloring \
         --beta-list Results/data/beta_list_python.npy --nmc-coldest 2
     python -m nmc_tpu_torch campaign --kind chimera --folder DIR --arm nmc
+    python -m nmc_tpu_torch exact DIR/wishart_..._inst_1.txt --backend pallas
 
 Same flags and the same JSON output keys as ``python -m nmc_tpu``'s
-subcommands of those names (`campaign` for its `pt` and `nmc` arms). Every
-subcommand takes `--device` (default `cuda`): without a card it fails
-unless `--device cpu` is given.
+subcommands of those names (`campaign` for its `pt` and `nmc` arms; `exact`
+with `--device` in place of `--cpu` and `--interpret`). Every subcommand
+takes `--device` (default `cuda`): without a card it fails unless
+`--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -150,6 +153,118 @@ def cmd_npt(args):
     }))
 
 
+def _detect_instance(path, kind, target):
+    """(prob, target, kind, base): dialect inferred from sibling
+    ground-truth files, target pulled through the evaluation generators
+    so normalization bookkeeping matches the campaign's exactly."""
+    import os
+
+    from . import evaluation as ev
+    from .io import loaders
+
+    path = os.path.abspath(path)
+    folder, base = os.path.split(path)
+    if kind == "auto":
+        if os.path.exists(os.path.join(folder, "gs_energies.txt")):
+            kind = "wishart"
+        elif os.path.exists(os.path.join(folder, "groundstates_otn2d.txt")):
+            kind = "chimera"
+        elif os.path.exists(path.replace(".txt", "_sol.txt")):
+            kind = "dcl"
+        else:
+            kind = "wishart"
+    prob = None
+    if target is None:
+        gens = {"wishart": ev.wishart_folder_instances,
+                "chimera": ev.chimera_folder_instances,
+                "dcl": ev.dcl_folder_instances,
+                "contrived": ev.contrived_folder_instances}
+        try:
+            for nm, p_, gs in gens[kind](folder):
+                if nm == base:
+                    prob, target = p_, gs
+                    break
+        except (FileNotFoundError, OSError):
+            pass
+    if prob is None:
+        fn = {"wishart": loaders.load_wishart, "dcl": loaders.load_dcl,
+              "chimera": loaders.load_chimera,
+              "contrived": loaders.load_contrived_tree}[kind]
+        prob = fn(path)
+    return prob, target, kind, base
+
+
+def auto_exact_backend(prob, device) -> str:
+    """The tier `exact --backend auto` takes: host (numpy) to n = 28; to
+    n = 40 the fused kernels on a CUDA card and the torch tiles elsewhere,
+    as the JAX command does; above 40 the tropical DP for a chimera layout,
+    else the fused tier. On an H100 (`chip_smoke.py`'s exact_tiers phase)
+    the fused tier beats the torch tiles at the command's default tiles at
+    every n from 30 to 40 (3.5 s against 37.5 s at n = 40); with 8192 x
+    65536 tiles the torch tiles are up to 0.07 s faster to n = 34 and
+    slower from n = 38 (6.6 s at n = 40)."""
+    if prob.n <= 28:
+        return "host"
+    if prob.n <= 40:
+        return "pallas" if device.type == "cuda" else "device"
+    # beyond the MITM tiers' reach a chimera layout is the only exact
+    # route (tropical DP, host-side)
+    from .exact_chimera import chimera_layout
+    try:
+        chimera_layout(np.asarray(prob.J))
+        return "chimera"
+    except ValueError:
+        return "pallas"
+
+
+def cmd_exact(args):
+    """Exact ground state by meet-in-the-middle enumeration: host (numpy,
+    n <= ~30), device (torch tiles), pallas (the fused table kernels
+    K6/K7), chimera (tropical DP for chimera layouts above 40); `auto`
+    picks one by `auto_exact_backend`."""
+    import time
+
+    from .exact import solve_exact_device, solve_exact_fused, solve_exact_host
+
+    device = resolve_cli_device(args.device)
+    prob, target, kind, base = _detect_instance(args.path, args.kind, None)
+    backend = args.backend
+    if backend == "auto":
+        backend = auto_exact_backend(prob, device)
+    t0 = time.perf_counter()
+    if backend == "chimera":
+        from .exact_chimera import solve_exact_chimera
+        e, s = solve_exact_chimera(prob)
+    elif backend == "host":
+        e, s = solve_exact_host(prob)
+    elif backend == "device":
+        e, s = solve_exact_device(prob, block_a=args.block_a,
+                                  block_b=args.block_b, device=device)
+    else:
+        e, s = solve_exact_fused(prob, block_a=args.block_a,
+                                 block_b=args.block_b, planes=args.planes,
+                                 device=device)
+    wall = time.perf_counter() - t0
+    rec = dict(name=base, n=prob.n, kind=kind, backend=backend,
+               planes=(args.planes if backend == "pallas" else None),
+               energy_raw=e, wall_seconds=round(wall, 3),
+               shipped_target=target if (target is None
+                                         or np.isfinite(target)) else None,
+               matches_shipped=(None if target is None
+                                or not np.isfinite(target)
+                                else bool(abs(e - target)
+                                          <= max(1e-6 * abs(target),
+                                                 1e-9))))
+    line = json.dumps(rec)
+    print(line)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    if args.save_state:
+        np.savetxt(args.save_state, s, fmt="%+d")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="nmc_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -212,6 +327,41 @@ def build_parser() -> argparse.ArgumentParser:
     from .campaign import add_campaign_args, run_campaign
     add_campaign_args(p)
     p.set_defaults(fn=run_campaign)
+
+    p = sub.add_parser(
+        "exact",
+        help="EXACT ground state by meet-in-the-middle enumeration "
+             "(n <= ~50 on one card) — independently verifies shipped "
+             "ground truths")
+    p.add_argument("path", help="instance file (edge-list dialects)")
+    p.add_argument("--kind", default="auto",
+                   choices=["auto", "wishart", "chimera", "dcl",
+                            "contrived"])
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "host", "device", "pallas", "chimera"],
+                   help="host: numpy; device: torch tiles; pallas: the "
+                        "fused table kernels K6 (f32) / K7 (int8 digit "
+                        "planes), the JAX package's Pallas tier; chimera: "
+                        "tropical DP (auto: host <= 28, then pallas on a "
+                        "CUDA card and device elsewhere to 40, then "
+                        "chimera or pallas)")
+    tile = ("the table tile of the device tier and of the pallas tier's "
+            "plain versions (--device cpu); the pallas kernels on the card "
+            "walk all of B in one thread per A row")
+    p.add_argument("--block-a", type=int, default=512,
+                   help=f"A rows of {tile}, and pad the A table to a "
+                        "multiple of it")
+    p.add_argument("--block-b", type=int, default=4096,
+                   help=f"B columns of {tile} (it must divide the B table)")
+    p.add_argument("--planes", default="auto",
+                   choices=["auto", "on", "off"],
+                   help="int8 digit-plane kernel K7 (pallas tier; "
+                        "integer-coupled instances, bound < 2^29); off "
+                        "forces the f32 kernel K6")
+    p.add_argument("--save-state", help="write the ground state here")
+    p.add_argument("--out", help="append the JSON record here")
+    add_device_arg(p)
+    p.set_defaults(fn=cmd_exact)
     return ap
 
 

@@ -1,13 +1,13 @@
 """Benchmark-instance generators (host side, numpy).
 
-Copies of ``random_sk``, ``ea_2d`` and ``chimera_graph`` from
-``nmc_tpu/io/generators.py``: the same seed gives a bit-equal J, which the
-tests check.
+Copies of ``random_sk``, ``ea_2d``, ``wishart_planted`` and
+``chimera_graph`` from ``nmc_tpu/io/generators.py``: the same seed gives a
+bit-equal J, which the tests check.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -47,6 +47,31 @@ def ea_2d(L: int, seed: int = 0, pm: bool = True,
                 w = float(rng.choice([-1.0, 1.0])) if pm else float(rng.normal())
                 J[a, b] = J[b, a] = w
     return IsingProblem(J, np.zeros(n), name=f"ea2d_{L}_seed{seed}")
+
+
+def wishart_planted(n: int, alpha: float, seed: int = 0,
+                    planted: Optional[np.ndarray] = None
+                    ) -> Tuple[IsingProblem, np.ndarray, float]:
+    """Wishart planted ensemble (Hamze et al.): t is a ground state of
+    E(m) = -(m^T J m)/2 by construction.
+
+    Draw W [n, M] Gaussian with columns projected orthogonal to the planted
+    state t (M = round(alpha * n)); set J~ = -W W^T / n with zero diagonal.
+    Then m^T J~ m = -|W^T m|^2 / n + const, maximized (energy minimized)
+    exactly at m = +-t. Returns (problem, t, gs_energy).
+    """
+    rng = np.random.default_rng(seed)
+    if planted is None:
+        t = np.ones(n)
+    else:
+        t = np.asarray(planted, dtype=np.float64).reshape(n)
+    M = max(int(round(alpha * n)), 1)
+    W = rng.normal(size=(n, M))
+    W -= np.outer(t, t @ W) / (t @ t)   # columns orthogonal to t
+    Jt = -(W @ W.T) / n
+    np.fill_diagonal(Jt, 0.0)
+    prob = IsingProblem(Jt, np.zeros(n), name=f"wishart_{n}_a{alpha}_s{seed}")
+    return prob, t, float(prob.energy(t))
 
 
 def chimera_graph(m: int, n: Optional[int] = None, t: int = 4,

@@ -26,6 +26,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# ctypes type of each argument kind of the C entry points: 'p' pointer
+# (c_void_p: a c_int would cut a 64-bit pointer), 'i' int, 'f' float
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
 def find_nvcc() -> str:
@@ -88,3 +91,14 @@ def load_library(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(str(build(name)))
     return _LIBS[name]
+
+
+def bind(lib, fn: str, kinds: str):
+    """Give `lib.<fn>` its ctypes signature, one argument per letter of
+    `kinds` and the CUDA stream as one more pointer, unless it has one;
+    returns `lib`. Every entry point returns its cudaError_t as an int."""
+    f = getattr(lib, fn)
+    if getattr(f, "argtypes", None) is None:
+        f.argtypes = [_CTYPES[k] for k in kinds] + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+    return lib

@@ -36,13 +36,12 @@ slot's number of spin flips over the round.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ._build import load_library
+from ._build import bind, load_library
 from .sweeps import heat_bath_update
 from .sweeps_cuda import (_broadcast, _check, _check_shared, _ptr, _raise_on,
                           _require_cuda, _seed)
@@ -52,7 +51,6 @@ _LIB = "ensemble_round"
 # 'f' float); the CUDA stream follows as one more pointer
 _SIGNATURES = {"ensemble_round_f32": "p" * 14 + "i" * 7 + "f",
                "ensemble_round_sparse_f32": "p" * 15 + "i" * 8 + "f"}
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
 class EnsembleRoundResult(NamedTuple):
@@ -77,11 +75,7 @@ def heated_factor(temp_x_inv: float) -> float:
 
 
 def _bind(lib, fn: str):
-    f = getattr(lib, fn)
-    if getattr(f, "argtypes", None) is None:
-        f.argtypes = [_CTYPES[k] for k in _SIGNATURES[fn]] + [ctypes.c_void_p]
-        f.restype = ctypes.c_int
-    return lib
+    return bind(lib, fn, _SIGNATURES[fn])
 
 
 def _round_reference(phi_of, phi_add, B, h, act, m0, cl, do_nmc, beta_row,

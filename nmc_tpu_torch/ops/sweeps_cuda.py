@@ -25,13 +25,12 @@ raises. Each wrapper counts its kernel launches in `<wrapper>.launches`.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
 from ..core.energy import energy_from_fields
-from ._build import load_library
+from ._build import bind, load_library
 from .sweeps import _uniforms, heat_bath_update, run_sweeps
 
 _LIB = "colored_sweeps"
@@ -151,23 +150,15 @@ def colored_sweeps_sparse_reference(
                             beta_row, mask, beta_spin, num_sweeps, uniforms)
 
 
-# (pointer arguments, int arguments) of each C entry point, in order; the
+# argument kinds of each C entry point, in order ('p' pointer, 'i' int); the
 # CUDA stream follows as one more pointer
-_SIGNATURES = {"colored_sweeps_f32": (14, 4),
-               "colored_sweeps_streamed_f32": (15, 5),
-               "colored_sweeps_sparse_f32": (16, 6)}
+_SIGNATURES = {"colored_sweeps_f32": "p" * 14 + "i" * 4,
+               "colored_sweeps_streamed_f32": "p" * 15 + "i" * 5,
+               "colored_sweeps_sparse_f32": "p" * 16 + "i" * 6}
 
 
-def _bind(lib: ctypes.CDLL, fn: str = "colored_sweeps_f32") -> ctypes.CDLL:
-    """Give `fn` its ctypes signature (pointers as c_void_p: a c_int would
-    cut a 64-bit pointer) unless it has one."""
-    f = getattr(lib, fn)
-    if getattr(f, "argtypes", None) is None:
-        n_ptr, n_int = _SIGNATURES[fn]
-        p, i = ctypes.c_void_p, ctypes.c_int
-        f.argtypes = [p] * n_ptr + [i] * n_int + [p]
-        f.restype = i
-    return lib
+def _bind(lib, fn: str = "colored_sweeps_f32"):
+    return bind(lib, fn, _SIGNATURES[fn])
 
 
 def _check(name, x, shape, dtype, device):

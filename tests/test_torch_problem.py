@@ -1,5 +1,6 @@
 """The port's copies of the host-side modules against nmc_tpu's originals:
-problem layout, coloring, generators and loaders must be array-equal, and
+problem layout, coloring, generators (wishart_planted included) and loaders
+must be array-equal, and
 interop must carry a JAX-package layout across unchanged."""
 
 import numpy as np
@@ -61,6 +62,19 @@ def test_coloring_and_layout_equal(name):
             _assert_blocked_equal(bj, bt)
     for a, b in zip(jp.block_sparse_tiles(bj), tp.block_sparse_tiles(bt)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("n,alpha,seed,planted", [
+    (12, 0.5, 3, False), (40, 0.5, 1, False), (9, 0.25, 0, True)])
+def test_wishart_planted_equal(n, alpha, seed, planted):
+    t = (np.where(np.random.default_rng(seed).random(n) < 0.5, -1.0, 1.0)
+         if planted else None)
+    (pa, ta, ga), (pb, tb, gb) = (jg.wishart_planted(n, alpha, seed, t),
+                                  tg.wishart_planted(n, alpha, seed, t))
+    np.testing.assert_array_equal(pa.J, pb.J)
+    np.testing.assert_array_equal(pa.h, pb.h)
+    np.testing.assert_array_equal(ta, tb)
+    assert ga == gb and pa.name == pb.name
 
 
 def test_chimera512_layout():
