@@ -33,9 +33,13 @@ non-zero without printing a result:
   9. round_kernels — K4 (ensemble_round) on 4 chimera 8x8 instances and K5
                  (ensemble_round_sparse) on 2 chimera 16x16 instances, R = 32,
                  6 NMC slots with ~50% backbones, a geometric beta_row, 3
-                 cycles of 8 sweeps, each against its plain version with
-                 identical injected uniforms; K4 = K5 bit for bit with their
-                 own Philox draws on the 8x8 family; the Boltzmann TV of
+                 cycles of 8 sweeps, each against its plain version and
+                 against the plain round over its neighbour layout (the
+                 kernels' association) with identical injected uniforms;
+                 K4 = K5 bit for bit with their own Philox draws on the +-1
+                 8x8 family and on a Gaussian-coupled one; the kernel's
+                 registers, shared memory and resident CTAs per SM at both
+                 shapes (ptxas and the CUDA runtime); the Boltzmann TV of
                  each, chaining rounds on an enumerable 4-cycle;
  10. ensemble_512 — EnsembleNMC at the campaign defaults on 20 chimera 8x8
                  instances (32 replicas, 6 NMC slots, planes LBP every 8
@@ -653,15 +657,16 @@ ENS_R, ENS_NMC = 32, 6           # the campaign's replicas and NMC slots
 GLOBAL_BETA = 13.63              # the campaign's --global-beta
 
 
-def _ensemble(size, count, rounds_cfg=None, seed0=0):
-    """EnsembleNMC on `count` chimera size x size instances (seeds seed0..),
-    normalized, as the campaign builds it at its defaults: the geometric
-    32-replica ladder over beta 0.25-32, the 6 coldest replicas NMC,
-    global beta 13.63, 3 cycles of 64 sweeps, planes LBP every 8 rounds."""
+def _ensemble(size, count, rounds_cfg=None, seed0=0, pm=True):
+    """EnsembleNMC on `count` chimera size x size instances (seeds seed0..,
+    +-1 couplings, or Gaussian with pm=False), normalized, as the campaign
+    builds it at its defaults: the geometric 32-replica ladder over beta
+    0.25-32, the 6 coldest replicas NMC, global beta 13.63, 3 cycles of 64
+    sweeps, planes LBP every 8 rounds."""
     from nmc_tpu_torch.campaign import build_ladder
     from nmc_tpu_torch.io.generators import chimera_graph
     from nmc_tpu_torch.parallel import EnsembleNMC, ShardedNPTConfig
-    probs = [chimera_graph(size, size, seed=s).normalized()[0]
+    probs = [chimera_graph(size, size, seed=s, pm=pm).normalized()[0]
              for s in range(seed0, seed0 + count)]
     beta = build_ladder(0.25, 32.0, ENS_R)
     kw = dict(sweeps_per_phase=64, num_cycles=3, num_swapping_pairs=ENS_R // 4,
@@ -689,19 +694,20 @@ def _round_inputs(torch, ens, seed):
 
 
 def _round_fns(ens):
-    """(kernel, plain version) of the engine's round kernel, both taking
-    (m0, cl, do_nmc, beta_row, generator, *, num_cycles, sweeps_per_phase,
-    uniforms, flips)."""
+    """(kernel over the engine's neighbour layout, plain version) of the
+    engine's round kernel, both taking (m0, cl, do_nmc, beta_row,
+    generator, *, num_cycles, sweeps_per_phase, uniforms, flips)."""
     import functools
     from nmc_tpu_torch.ops import round_cuda as rc
+    nbrs = dict(nbrs=ens.round_nbrs)
     if ens.round_path == "K5":
         col_idx, J_tiles = ens._stream_tiles
         pre = (col_idx, J_tiles, ens.h, ens.active)
-        return (functools.partial(rc.ensemble_round_sparse, *pre),
+        return (functools.partial(rc.ensemble_round_sparse, *pre, **nbrs),
                 functools.partial(rc.ensemble_round_sparse_reference, *pre))
     pre = (ens.J_full, ens.h, ens.active)
     bs = dict(block_size=ens.blocked0.block_size)
-    return (functools.partial(rc.ensemble_round, *pre, **bs),
+    return (functools.partial(rc.ensemble_round, *pre, **bs, **nbrs),
             functools.partial(rc.ensemble_round_reference, *pre, **bs))
 
 
@@ -754,9 +760,56 @@ def _compare_round(torch, name, probs, ens, k, p, m0):
             "vs_f64_max_abs_err": f64}, max(eb_err, ec_err)
 
 
+def _k4_equals_k5(torch, ens, inputs):
+    """K4 over the engine's dense J and K5 over the same layout's union
+    tiles, each building its neighbour layout from its own input, with one
+    Philox seed: every output and the flip counts equal bit for bit (one
+    kernel body over equal layouts)."""
+    from nmc_tpu_torch.ops import round_cuda as rc
+    m0, cl, dn, beta = inputs
+    kw = dict(num_cycles=3, sweeps_per_phase=8)
+    col_idx, J_tiles = _tiles_of(torch, ens)
+    f4 = torch.zeros(tuple(dn.shape), dtype=torch.int32, device=DEVICE)
+    f5 = torch.zeros_like(f4)
+    k4 = rc.ensemble_round(
+        ens.J_full, ens.h, ens.active, m0, cl, dn, beta,
+        torch.Generator(device=DEVICE).manual_seed(7), block_size=128,
+        flips=f4, **kw)
+    k5 = rc.ensemble_round_sparse(
+        col_idx, J_tiles, ens.h, ens.active, m0, cl, dn, beta,
+        torch.Generator(device=DEVICE).manual_seed(7), flips=f5, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(k4, k5))
+    check(same and torch.equal(f4, f5), "K5 differs from K4 with one seed")
+    check(bool((k4.m != m0).any()), "K4 moved no spin")
+    return same, float(f4.float().mean())
+
+
+def _occupancy(torch, shapes):
+    """ptxas's report for the round kernel's library, and per shape the
+    dynamic shared memory per CTA, the registers and the CTAs per SM the
+    CUDA runtime allows for them; at least 5 (one wave of 640 CTAs on 132
+    SMs)."""
+    from nmc_tpu_torch.ops import _build
+    from nmc_tpu_torch.ops import round_cuda as rc
+    log = _build.library_path("ensemble_round").with_suffix(".log")
+    ptxas = ([ln.strip() for ln in log.read_text().splitlines()
+              if "registers" in ln or "spill" in ln] if log.exists() else [])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"ptxas": ptxas, "sm_count": sms}
+    for n_pad in shapes:
+        regs, ctas = rc.kernel_occupancy(n_pad, 128)
+        out[f"n_pad_{n_pad}"] = {
+            "dynamic_smem_bytes": rc._shared_bytes(n_pad, 128),
+            "registers": regs, "ctas_per_sm": ctas}
+        check(ctas >= 5, f"round kernel: {ctas} CTAs per SM at n_pad {n_pad}")
+    return out
+
+
 def phase_round_kernels():
-    """K4 and K5 against their plain versions at full width with identical
-    uniforms; K4 = K5 with Philox; the Boltzmann TV of each."""
+    """K4 and K5 against their plain versions and the plain round over
+    their neighbour layout at full width with identical uniforms; K4 = K5
+    with Philox on +-1 and on Gaussian couplings; the kernel's occupancy;
+    the Boltzmann TV of each."""
     import torch
     from nmc_tpu_torch.core.problem import block_sparse_tiles
     from nmc_tpu_torch.ops import round_cuda as rc
@@ -777,32 +830,35 @@ def phase_round_kernels():
         k = kernel(m0, cl, dn, beta, None, uniforms=u, **kw)
         p = plain(m0, cl, dn, beta, None, uniforms=u, **kw)
         res, errs[name] = _compare_round(torch, name, probs, ens, k, p, m0)
+        # the plain round over the kernel's own layout and association
+        q = rc.ensemble_round_neighbors_reference(
+            ens.round_nbrs, ens.h, ens.active, m0, cl, dn, beta, None,
+            uniforms=u, **kw)
+        res["vs_neighbor_plain"], err = _compare_round(
+            torch, f"{name} vs neighbour plain", probs, ens, k, q, m0)
+        errs[name] = max(errs[name], err)
+        res["vs_neighbor_plain"]["states_bit_equal"] = bool(
+            torch.equal(k.m, q.m) and torch.equal(k.m_best, q.m_best))
         res.update(instances=count, n_pad=ens.n_pad,
-                   num_blocks=ens.blocked0.num_blocks)
+                   num_blocks=ens.blocked0.num_blocks,
+                   layout_entries=int(ens.round_nbrs.src.shape[0]),
+                   layout_targets=int(ens.round_nbrs.tgt.shape[0]))
         if want == "K5":
             res["tiles_per_row_block"] = int(ens._stream_tiles[0].shape[1])
         out[name] = res
         if want == "K4":
             k4_ens, k4_inputs = ens, (m0, cl, dn, beta)
 
-    # K4 = K5 with their own Philox draws on the 8x8 family's layout: the
-    # couplings are +-1, so phi is integer-valued and the two agree exactly
-    m0, cl, dn, beta = k4_inputs
-    col_idx, J_tiles = _tiles_of(torch, k4_ens)
-    f4 = torch.zeros(tuple(dn.shape), dtype=torch.int32, device=DEVICE)
-    f5 = torch.zeros_like(f4)
-    k4 = rc.ensemble_round(
-        k4_ens.J_full, k4_ens.h, k4_ens.active, m0, cl, dn, beta,
-        torch.Generator(device=DEVICE).manual_seed(7), block_size=128,
-        flips=f4, **kw)
-    k5 = rc.ensemble_round_sparse(
-        col_idx, J_tiles, k4_ens.h, k4_ens.active, m0, cl, dn, beta,
-        torch.Generator(device=DEVICE).manual_seed(7), flips=f5, **kw)
-    same = all(torch.equal(a, b) for a, b in zip(k4, k5))
-    check(same and torch.equal(f4, f5), "K5 differs from K4 with one seed")
-    check(bool((k4.m != m0).any()), "K4 moved no spin")
-    out["k4_k5_bit_equal_philox"] = same
-    out["k4_flips_per_slot_mean"] = float(f4.float().mean())
+    # K4 = K5 with their own Philox draws on the 8x8 family (+-1), then on
+    # a Gaussian-coupled 8x8 family, where the two used to sum in
+    # different orders
+    out["k4_k5_bit_equal_philox"], out["k4_flips_per_slot_mean"] = (
+        _k4_equals_k5(torch, k4_ens, k4_inputs))
+    _, g_ens, _ = _ensemble(8, 4, pm=False)
+    m0, cl, dn, beta, _ = _round_inputs(torch, g_ens, 22)
+    out["k4_k5_bit_equal_philox_gaussian"], _ = _k4_equals_k5(
+        torch, g_ens, (m0, cl, dn, beta))
+    out["occupancy"] = _occupancy(torch, (640, 2048))
 
     for name in ("ensemble_round", "ensemble_round_sparse"):
         def run(eng, m, gen, beta, sweeps, name=name):
@@ -972,7 +1028,8 @@ def _round_work(torch, ens, state, cfg_kw, flips, sweeps_per_round):
     update (the phase masks of the NMC slots counted) 110 operations, per
     flip one FMA per nonzero coupling of the row, per sweep 3 per spin for
     the energy, per phase and at the end a phi rebuild over the nonzero
-    couplings; each input read once and each output written once."""
+    couplings; each input (the couplings as the kernel's neighbour layout)
+    read once and each output written once."""
     from nmc_tpu_torch.ops.round_cuda import phase_list
     act = ens.active
     dn = state.do_nmc_slot[..., None]
@@ -993,10 +1050,7 @@ def _round_work(torch, ens, state, cfg_kw, flips, sweeps_per_round):
     P = len(phase_list(cfg_kw["num_cycles"], 1))
     ops = (attempts * OPS_PER_ATTEMPT + flips * 2 * degree
            + 3 * I * R * n_pad * sweeps_per_round + 2 * R * nnz * (P + 1))
-    if ens.round_path == "K5":
-        j_bytes = sum(t.numel() * t.element_size() for t in ens._stream_tiles)
-    else:
-        j_bytes = ens.J_full.numel() * 4
+    j_bytes = sum(t.numel() * t.element_size() for t in ens.round_nbrs[:5])
     nbytes = (j_bytes + 4 * I * n_pad + n_pad              # J, h, act
               + 4 * I * R * n_pad + I * R * n_pad          # m0, cl
               + I * R + 4 * I * R + 8                      # do_nmc, beta, seed
@@ -1056,6 +1110,7 @@ def _throughput_round(torch, name, keep, iters=3, plain_sweeps=8):
             "bound_ops": ops, "bound_bytes": nbytes,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "share_of_bound": 1e3 * max(t_ops, t_bytes) / k_ms,
             "probes": probes}
 
 
@@ -1063,8 +1118,9 @@ def _round_probes(torch, ens, kernel, args):
     """Single launches that split a round kernel's time: the same launch
     (`base`); 8 instead of 64 sweeps per phase (the phi rebuilds and fixed
     costs stay: t = a + b * sweeps); every slot at the coldest rung, 32
-    (few flips); and the first instance's J for all 640 slots (one J
-    instead of 20 in the caches). ms and flips per attempt of each."""
+    (few flips); and the first instance's couplings for all 640 slots
+    (one instance's layout weights instead of 20 in the caches). ms and
+    flips per attempt of each."""
     m, cl, dn, beta, gen = args
     I, R, n_pad = m.shape
 
@@ -1086,16 +1142,22 @@ def _round_probes(torch, ens, kernel, args):
            "sweeps_per_phase_8": once(kernel, *args, sweeps=8),
            "cold_beta_32": once(kernel, m, cl, dn, torch.full_like(beta, 32.0),
                                 gen)}
+    out["base_over_cold"] = out["base"]["ms"] / out["cold_beta_32"]["ms"]
+    from nmc_tpu_torch.ops import round_cuda as rc
+    nbrs = ens.round_nbrs._replace(w=ens.round_nbrs.w[:1].contiguous())
+    h1 = ens.h[:1].contiguous()
     if ens.round_path == "K4":
-        from nmc_tpu_torch.ops.round_cuda import ensemble_round
-        one = (ens.J_full[:1].contiguous(), ens.h[:1].contiguous(),
-               ens.active)
-        flat = (m.reshape(1, I * R, n_pad), cl.reshape(1, I * R, n_pad),
-                dn.reshape(1, I * R), beta.reshape(1, I * R), gen)
-        out["one_instance_640_slots"] = once(
-            lambda *a, **k: ensemble_round(*one, *a,
-                                           block_size=ens.blocked0.block_size,
-                                           **k), *flat)
+        fn = functools.partial(rc.ensemble_round, ens.J_full[:1].contiguous(),
+                               h1, ens.active,
+                               block_size=ens.blocked0.block_size, nbrs=nbrs)
+    else:
+        col_idx, J_tiles = ens._stream_tiles
+        fn = functools.partial(rc.ensemble_round_sparse, col_idx,
+                               J_tiles[:1].contiguous(), h1, ens.active,
+                               nbrs=nbrs)
+    flat = (m.reshape(1, I * R, n_pad), cl.reshape(1, I * R, n_pad),
+            dn.reshape(1, I * R), beta.reshape(1, I * R), gen)
+    out["one_instance_640_slots"] = once(fn, *flat)
     return out
 
 
@@ -1644,6 +1706,157 @@ def phase_throughput(card, c2048, r4096, ens512, ens2048):
     return out
 
 
+# ---- the round kernels' ablation (python3 chip_smoke.py --round-ablation) ----
+
+# Timing variants of csrc/ensemble_round.cu, each a list of (text, its
+# replacement) applied to a copy of the source: "no_*" drop one piece of a
+# block step or sweep (their results are wrong; they only split the time);
+# the others keep the arithmetic and are held bit for bit against the
+# kernel. A patch that no longer applies fails the run.
+_NO_ENERGY = ("        if (tid < 32) {\n          const float e = warp0_energy",
+              "        if (false) {\n          const float e = warp0_energy")
+_NO_GATHER = ("          nmc::gather_block(a.nb, w, b, dm, phi);",
+              "          if (false) nmc::gather_block(a.nb, w, b, dm, phi);")
+_NO_PHILOX = ("nmc::philox4x32_10_word0(\n                      (uint32_t)col, "
+              "(uint32_t)r, tg, (uint32_t)inst, seed0,\n                      "
+              "seed1);",
+              "(uint32_t)col * 0x9E3779B9u ^ tg * 0x85EBCA6Bu ^ (uint32_t)r "
+              "^ seed0;")
+_NO_TANHF = ("0.5f * (1.0f + tanhf(betab * phi[col]))",
+             "0.5f + 0.25f * betab * phi[col]")
+# each target's source loads issued four at a time before its FMAs
+_GATHER_4 = [("__device__ void rebuild_phi(", """template <typename X>
+__device__ __forceinline__ void gather_4(const nmc::Neighbors& nb,
+                                         const float* w, int b, const X* x,
+                                         float* phi) {
+  const int t1 = __ldg(nb.tgt_ptr + b + 1);
+  for (int t = __ldg(nb.tgt_ptr + b) + threadIdx.x; t < t1; t += blockDim.x) {
+    const int j = __ldg(nb.tgt + t);
+    const int e1 = __ldg(nb.src_ptr + t + 1);
+    float acc = 0.f;
+    for (int e = __ldg(nb.src_ptr + t); e < e1; e += 4) {
+      int k[4];
+      float wv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        k[q] = e + q < e1 ? (int)__ldg(nb.src + e + q) : 0;
+        wv[q] = e + q < e1 ? __ldg(w + e + q) : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (e + q < e1) acc = fmaf((float)x[k[q]], wv[q], acc);
+    }
+    phi[j] += acc;
+  }
+}
+
+__device__ void rebuild_phi("""),
+             ("    nmc::gather_block(a.nb, w, b, m + b * a.B, phi);",
+              "    gather_4(a.nb, w, b, m + b * a.B, phi);"),
+             ("          nmc::gather_block(a.nb, w, b, dm, phi);",
+              "          gather_4(a.nb, w, b, dm, phi);")]
+# the shared-memory carveout set to what 5 CTAs need, the rest left to L1
+_CARVEOUT = [("  if (I == 0 || R == 0) return (int)cudaSuccess;",
+              "  err = cudaFuncSetAttribute(ensemble_round_kernel, "
+              "cudaFuncAttributePreferredSharedMemoryCarveout, (int)((5 * "
+              "(smem + 1024) * 100 + 233471) / 233472));\n"
+              "  if (err != cudaSuccess) return (int)err;\n"
+              "  if (I == 0 || R == 0) return (int)cudaSuccess;")]
+# CTA c takes slot c % R of instance c / R, whatever its SM
+_NO_CLAIMS = [("  const int r = claim[0], inst = claim[1];",
+               "  const int r = blockIdx.x % a.R, inst = blockIdx.x / a.R;")]
+# 128 threads per CTA (one per spin of a block in the draws), 10 CTAs per SM
+_THREADS_128 = [("__launch_bounds__(kThreads, kMinCtasPerSm)",
+                 "__launch_bounds__(128, 10)"),
+                ("ensemble_round_kernel<<<I * R, kThreads,",
+                 "ensemble_round_kernel<<<I * R, 128,"),
+                ("ctas_per_sm, ensemble_round_kernel, kThreads,",
+                 "ctas_per_sm, ensemble_round_kernel, 128,")]
+ROUND_ABLATIONS = {
+    "as_is": [], "no_sweep_energy": [_NO_ENERGY], "no_gather": [_NO_GATHER],
+    "no_philox": [_NO_PHILOX], "no_tanhf": [_NO_TANHF],
+    "no_energy_gather_philox_tanhf": [_NO_ENERGY, _NO_GATHER, _NO_PHILOX,
+                                      _NO_TANHF],
+    "gather_4_loads_at_once": _GATHER_4, "l1_carveout": _CARVEOUT,
+    "no_slot_claims": _NO_CLAIMS, "threads_128": _THREADS_128}
+_SAME_ARITHMETIC = ("gather_4_loads_at_once", "l1_carveout",
+                    "no_slot_claims", "threads_128")
+
+
+def round_ablation(turns=9):
+    """Each variant of ROUND_ABLATIONS built from a patched copy of the
+    round kernel's source (under the ignored build directory), checked, and
+    then timed in turns (each turn one launch of every variant, so drift
+    falls on all alike) as the throughput phase times K4 and K5: one
+    576-sweep round at the ensemble configurations (20 instances x 32
+    slots, random states), CUDA events; min and median of `turns`."""
+    import shutil
+    import statistics
+    import torch
+    from nmc_tpu_torch.ops import _build
+    from nmc_tpu_torch.ops import round_cuda as rc
+    card = phase_device()
+    source = (_build.CSRC / "ensemble_round.cu").read_text()
+    cases = {}
+    for name, size in (("ensemble_round", 8), ("ensemble_round_sparse", 16)):
+        _, ens, _ = _ensemble(size, 20)
+        m0, cl, dn, beta, gen = _round_inputs(torch, ens, 21)
+        u = torch.rand((9, 4) + tuple(m0.shape), generator=gen, device=DEVICE)
+        cases[name] = (_round_fns(ens)[0], (m0, cl, dn, beta), gen, u,
+                       ens.n_pad)
+    full = dict(num_cycles=3, sweeps_per_phase=64)
+    out = {"phase": "round_ablation", "card": card, "turns": turns}
+    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
+    libs, reference = {}, {}
+    try:
+        for variant, patches in ROUND_ABLATIONS.items():
+            text = source
+            for old, new in patches:
+                check(text.count(old) == 1,
+                      f"{variant}: a patch does not apply to the source")
+                text = text.replace(old, new)
+            vdir = build_dir / "ablation" / variant
+            vdir.mkdir(parents=True, exist_ok=True)
+            (vdir / "ensemble_round.cu").write_text(text)
+            shutil.copy(csrc / "sweep_common.cuh", vdir)
+            _build.CSRC, _build.BUILD_DIR = vdir, vdir / "_build"
+            _build._LIBS.clear()
+            libs[variant] = _build.load_library("ensemble_round")
+            out[variant] = {}
+            for name, (kernel, args, gen, u, n_pad) in cases.items():
+                # a short round on injected uniforms, held against as_is
+                short = kernel(*args, None, uniforms=u, num_cycles=3,
+                               sweeps_per_phase=4)
+                if variant == "as_is":
+                    reference[name] = short
+                elif variant in _SAME_ARITHMETIC:
+                    check(all(torch.equal(a, b) for a, b in
+                              zip(short, reference[name])),
+                          f"{variant}: {name} differs from the kernel")
+                kernel(*args, gen, **full)                    # warm-up
+                regs, ctas = rc.kernel_occupancy(n_pad, 128)
+                out[variant][name] = {"registers": regs, "ctas_per_sm": ctas,
+                                      "ms": []}
+        for _ in range(turns):
+            for variant in ROUND_ABLATIONS:
+                _build._LIBS["ensemble_round"] = libs[variant]
+                for name, (kernel, args, gen, _, _) in cases.items():
+                    out[variant][name]["ms"].append(_event_ms(
+                        torch, lambda: kernel(*args, gen, **full))[0])
+    finally:
+        _build.CSRC, _build.BUILD_DIR = csrc, build_dir
+        _build._LIBS.clear()
+    for variant in ROUND_ABLATIONS:
+        for name in cases:
+            res = out[variant][name]
+            res["min_ms"] = min(res["ms"])
+            res["median_ms"] = statistics.median(res["ms"])
+            res["median_vs_as_is"] = (res["median_ms"]
+                                      / out["as_is"][name]["median_ms"])
+        emit({"variant": variant, **out[variant]})
+    emit(out)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1651,6 +1864,9 @@ def main():
               "test runs on a CUDA card only", file=sys.stderr)
         sys.exit(1)
     import nmc_tpu_torch  # noqa: F401  (fails here outside a checkout)
+    if sys.argv[1:] == ["--round-ablation"]:
+        round_ablation()
+        return
     t_start = time.perf_counter()
     card = phase_device()
     phase_build()

@@ -3,7 +3,9 @@
 // sweeps, with its phi (f32) and m (int8) in shared memory; these helpers are
 // the per-block heat-bath draw, the flip list and the end-of-sweep energy
 // that all three run the same way, so that on one layout and one seed the
-// three kernels compute the same function draw for draw.
+// three kernels compute the same function draw for draw. The neighbour-list
+// phi update (`gather_block`) is the whole-round kernels' (ensemble_round.cu);
+// K1-K3 do not use it.
 //
 // Random numbers: Philox-4x32-10 with key = seed and counter = (spin column,
 // replica, sweep, 0); the uniform is (bits >> 8) * 2^-24 as on the TPU. The
@@ -107,6 +109,37 @@ __device__ __forceinline__ void list_flips(const float* dm, int* flips,
     count += __popc(ballot);
   }
   if (lane == 0) *num_flips = count;
+}
+
+// The whole-round kernels' coupling layout (ops/round_cuda.py,
+// RoundNeighbors), per row block b of B spins: the targets j with a coupling
+// from a spin of b, and for each target its sources k in b in ascending k.
+// The weights w[e] of an instance follow the source entries.
+struct Neighbors {
+  const int32_t* tgt_ptr;  // [nB + 1] block b's targets: [tgt_ptr[b], tgt_ptr[b+1])
+  const int16_t* tgt;      // [n_tgt] target spin j
+  const int32_t* src_ptr;  // [n_tgt + 1] target t's sources: [src_ptr[t], src_ptr[t+1])
+  const int16_t* src;      // [nnz] source offset k - b * B within the block
+};
+
+// phi[j] += sum_k x[k - b * B] * w[k, j] for every target j of row block b:
+// one thread owns a target, sums from 0 over its sources in ascending k
+// with fmaf and adds the sum into phi once, so no atomics are needed and
+// the work is the block's couplings, whatever x holds. x is the block's
+// [B] values (dm, or m of the block). The caller synchronises before and
+// after.
+template <typename X>
+__device__ __forceinline__ void gather_block(const Neighbors& nb,
+                                             const float* w, int b,
+                                             const X* x, float* phi) {
+  const int t1 = __ldg(nb.tgt_ptr + b + 1);
+  for (int t = __ldg(nb.tgt_ptr + b) + threadIdx.x; t < t1; t += blockDim.x) {
+    const int e1 = __ldg(nb.src_ptr + t + 1);
+    float acc = 0.f;
+    for (int e = __ldg(nb.src_ptr + t); e < e1; ++e)
+      acc = fmaf((float)x[__ldg(nb.src + e)], __ldg(w + e), acc);
+    phi[__ldg(nb.tgt + t)] += acc;
+  }
 }
 
 // Warp 0: E = -0.5 * m.(phi + h) into energies[t, r] and the running best

@@ -17,8 +17,19 @@ state, which the replica-exchange test reads.
   * `ensemble_round_sparse` (K5, ``pallas_ensemble_round_streamed``): the
     family's union block-sparse tiles J_tiles [I, nB, K, B, B] over one
     col_idx [nB, K] (`ensemble_round_sparse_f32`). The TPU's `resident`
-    variant only changes how the tiles reach VMEM; on the card they come
-    from L2 or HBM either way, so there is one kernel.
+    variant only changes how the tiles reach VMEM, so there is one K5.
+
+Both kernels read the couplings only through a `RoundNeighbors` layout:
+per row block, each target spin with a coupling from the block and its
+sources in ascending order, with per-instance weights. It is built once
+from dense J (`neighbors_from_dense`) or from the union tiles
+(`neighbors_from_tiles`), which give the same layout for the same
+couplings; `EnsembleNMC` builds it at setup and passes it as `nbrs=`,
+and a wrapper called without it builds it. The two entry points launch
+one kernel body, so on one layout and one seed K4 and K5 agree bit for
+bit. `ensemble_round_neighbors_reference` runs the round in plain torch
+over the layout with the kernel's association (for the tests and
+chip_smoke.py; no route calls it).
 
 The heated beta is beta_row * (1 + f32(temp_x_inv - 1)), computed in f32
 as the Pallas kernels compute it (the plain XLA round of the JAX engine
@@ -36,6 +47,7 @@ slot's number of spin flips over the round.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -48,9 +60,11 @@ from .sweeps_cuda import (_broadcast, _check, _check_shared, _ptr, _raise_on,
 
 _LIB = "ensemble_round"
 # argument kinds of each C entry point, in order ('p' pointer, 'i' int,
-# 'f' float); the CUDA stream follows as one more pointer
-_SIGNATURES = {"ensemble_round_f32": "p" * 14 + "i" * 7 + "f",
-               "ensemble_round_sparse_f32": "p" * 15 + "i" * 8 + "f"}
+# 'f' float); the CUDA stream follows as one more pointer. Both take the
+# neighbour layout (5 pointers) and the same round arguments.
+_SIGNATURES = {"ensemble_round_f32": "p" * 19 + "i" * 8 + "f",
+               "ensemble_round_sparse_f32": "p" * 19 + "i" * 8 + "f"}
+_INT16_MAX = 32767
 
 
 class EnsembleRoundResult(NamedTuple):
@@ -58,6 +72,137 @@ class EnsembleRoundResult(NamedTuple):
     m_best: torch.Tensor     # [I, R, n_pad] best state per slot over the round
     e_best: torch.Tensor     # [I, R] best sweep-end energy per slot
     e_carried: torch.Tensor  # [I, R] energy of the carried state
+
+
+class RoundNeighbors(NamedTuple):
+    """The round kernels' coupling layout over a family's union graph. Per
+    row block b of `block_size` spins: the targets j with a coupling from a
+    spin of b (longest source list first, then ascending j), and per target
+    its sources k in b (ascending k); the weights follow the source
+    entries."""
+    tgt_ptr: torch.Tensor  # [nB + 1] int32: block b's targets tgt_ptr[b]:tgt_ptr[b+1]
+    tgt: torch.Tensor      # [n_tgt] int16 target spin j
+    src_ptr: torch.Tensor  # [n_tgt + 1] int32: target t's sources
+    src: torch.Tensor      # [nnz] int16 source offset k - b * block_size
+    w: torch.Tensor        # [I, nnz] float32 J[i, k, j]; exactly 0 where
+                           # instance i lacks the union edge
+    block_size: int
+
+
+def _pack_neighbors(b, j, kk, w, nB, B):
+    """The layout from union entries (row block b, target j, source offset
+    kk) sorted by (b, j, kk), with their weights w [I, nnz]. Within a block
+    the targets go by source count, longest first (then by j), so that the
+    kernel's warps, one target per lane, run lists of about equal length;
+    the order of targets changes no sum."""
+    device = b.device
+    nnz = b.numel()
+    n_pad = nB * B
+    if n_pad > _INT16_MAX + 1:
+        raise ValueError(f"n_pad {n_pad} does not fit the int16 layout")
+    starts = torch.ones(nnz, dtype=torch.bool, device=device)
+    starts[1:] = (b[1:] != b[:-1]) | (j[1:] != j[:-1])
+    first = torch.nonzero(starts).squeeze(1)       # first entry of each target
+    count = torch.diff(first, append=torch.tensor([nnz], device=device))
+    order = torch.argsort((b[first] * (B + 1) + B - count) * n_pad + j[first])
+    first, count = first[order], count[order]
+    src_ptr = torch.zeros(first.numel() + 1, dtype=torch.int64, device=device)
+    src_ptr[1:] = torch.cumsum(count, 0)
+    # the entries of the reordered targets, each target's run kept in order
+    entry = (torch.repeat_interleave(first - src_ptr[:-1], count)
+             + torch.arange(nnz, device=device))
+    tgt_ptr = torch.zeros(nB + 1, dtype=torch.int32, device=device)
+    tgt_ptr[1:] = torch.cumsum(torch.bincount(b[first], minlength=nB), 0)
+    return RoundNeighbors(
+        tgt_ptr=tgt_ptr, tgt=j[first].to(torch.int16),
+        src_ptr=src_ptr.to(torch.int32), src=kk[entry].to(torch.int16),
+        w=w[:, entry].to(torch.float32).contiguous(), block_size=B)
+
+
+def neighbors_from_dense(J, block_size: int) -> RoundNeighbors:
+    """The layout of dense J [I, n_pad, n_pad] (rows are sources) over its
+    union nonzero pattern, blocked by `block_size`."""
+    I, n_pad, _ = J.shape
+    B = block_size
+    if n_pad % B:
+        raise ValueError("n_pad must be a multiple of block_size")
+    nB = n_pad // B
+    union = (J != 0).any(0).reshape(nB, B, n_pad).transpose(1, 2)
+    b, j, kk = torch.nonzero(union.contiguous(), as_tuple=True)  # (b, j, kk)
+    return _pack_neighbors(b, j, kk, J[:, b * B + kk, j], nB, B)
+
+
+def neighbors_from_tiles(col_idx, J_tiles) -> RoundNeighbors:
+    """The layout of union block-sparse tiles J_tiles [I, nB, K, B, B] over
+    col_idx [nB, K]; padding tiles (zero in every instance, aliasing column
+    block 0) give no entries."""
+    I, nB, K, B, _ = J_tiles.shape
+    n_pad = nB * B
+    b, k, kk, jj = torch.nonzero((J_tiles != 0).any(0), as_tuple=True)
+    j = col_idx.to(b.device).long()[b, k] * B + jj
+    order = torch.argsort((b * n_pad + j) * B + kk, stable=True)
+    b, k, kk, jj, j = (x[order] for x in (b, k, kk, jj, j))
+    return _pack_neighbors(b, j, kk, J_tiles[:, b, k, kk, jj], nB, B)
+
+
+def _check_neighbors(nbrs, I, n_pad, B, device):
+    if not isinstance(nbrs, RoundNeighbors):
+        raise TypeError("nbrs must be a RoundNeighbors")
+    if nbrs.block_size != B:
+        raise ValueError(f"nbrs has block_size {nbrs.block_size}, expected {B}")
+    n_tgt, nnz = nbrs.tgt.shape[0], nbrs.src.shape[0]
+    _check("nbrs.tgt_ptr", nbrs.tgt_ptr, (n_pad // B + 1,), torch.int32,
+           device)
+    _check("nbrs.tgt", nbrs.tgt, (n_tgt,), torch.int16, device)
+    _check("nbrs.src_ptr", nbrs.src_ptr, (n_tgt + 1,), torch.int32, device)
+    _check("nbrs.src", nbrs.src, (nnz,), torch.int16, device)
+    _check("nbrs.w", nbrs.w, (I, nnz), torch.float32, device)
+
+
+def neighbor_phi_fns(nbrs: RoundNeighbors, h):
+    """(phi_of, phi_add) for `_round_reference` over the layout, with the
+    kernel's association: per target acc = 0, acc += x_k * w_kj over its
+    sources in ascending k (x_k in {0, +-1, +-2}, so each product is exact
+    and the kernel's fmaf rounds as this sum does), then phi[j] += acc;
+    phi_of starts from h and adds row block after row block."""
+    B = nbrs.block_size
+    I = nbrs.w.shape[0]
+    n_pad = h.shape[-1]
+    dtype = h.dtype
+    tgt_ptr = nbrs.tgt_ptr.tolist()
+    src_ptr = nbrs.src_ptr.long()
+    counts = src_ptr[1:] - src_ptr[:-1]
+    blocks = []
+    for b in range(n_pad // B):
+        t0, t1 = tgt_ptr[b], tgt_ptr[b + 1]
+        D = int(counts[t0:t1].max()) if t1 > t0 else 0
+        # the sources of block b's targets padded to D with weight 0
+        d = torch.arange(D, device=h.device)
+        e = src_ptr[t0:t1, None] + d
+        live = d < counts[t0:t1, None]
+        e = torch.where(live, e, 0)
+        idx = torch.where(live, nbrs.src.long()[e], 0)
+        wt = torch.where(live, nbrs.w.to(dtype)[:, e], 0)[:, None]
+        blocks.append((nbrs.tgt.long()[t0:t1], idx, wt))
+    h3 = h[:, None, :]
+
+    def phi_add(phi, x, b):
+        tgt, idx, wt = blocks[b]
+        acc = torch.zeros(x.shape[:-1] + (tgt.numel(),), dtype=dtype,
+                          device=x.device)
+        for d in range(idx.shape[1]):
+            acc = acc + x[..., idx[:, d]] * wt[..., d]
+        phi = phi.clone()
+        phi[..., tgt] += acc
+        return phi
+
+    def phi_of(m):
+        phi = h3.expand(I, m.shape[1], n_pad)
+        for b in range(n_pad // B):
+            phi = phi_add(phi, m[..., b * B:(b + 1) * B], b)
+        return phi
+
+    return phi_of, phi_add
 
 
 def phase_list(num_cycles: int, full_update_frequency: int) -> Tuple[str, ...]:
@@ -218,6 +363,23 @@ def ensemble_round_sparse_reference(
         uniforms=uniforms, flips=flips)
 
 
+def ensemble_round_neighbors_reference(
+    nbrs, h, act, m0, cl, do_nmc, beta_row, generator, *, num_cycles: int,
+    sweeps_per_phase: int, full_update_frequency: int = 1,
+    temp_x_inv: float = 1.0 / 20.0, uniforms: Optional[torch.Tensor] = None,
+    flips: Optional[torch.Tensor] = None,
+) -> EnsembleRoundResult:
+    """Plain-torch round over a `RoundNeighbors` layout with the kernels'
+    phi association (`neighbor_phi_fns`); for the tests and chip_smoke.py,
+    no route calls it."""
+    phi_of, phi_add = neighbor_phi_fns(nbrs, h.to(m0.dtype))
+    return _round_reference(
+        phi_of, phi_add, nbrs.block_size, h, act, m0, cl, do_nmc, beta_row,
+        generator, num_cycles=num_cycles, sweeps_per_phase=sweeps_per_phase,
+        full_update_frequency=full_update_frequency, temp_x_inv=temp_x_inv,
+        uniforms=uniforms, flips=flips)
+
+
 def _round_args(h, act, m0, cl, do_nmc, beta_row, generator, uniforms, flips,
                 num_cycles, sweeps_per_phase, full_update_frequency):
     """Checked and materialised inputs shared by K4 and K5."""
@@ -245,8 +407,39 @@ def _round_args(h, act, m0, cl, do_nmc, beta_row, generator, uniforms, flips,
     return act, cl, do_nmc, beta_row, seed, out
 
 
-def _shared_bytes(n_pad, K, B):
-    return 7 * n_pad + 4 * K * B + 8 * B + 4 * K
+def _shared_bytes(n_pad, B):
+    """Dynamic shared memory per CTA: phi (f32), dm [B] (f32), m, the
+    phase-best m and the phase flags (1 byte each per spin)."""
+    return 7 * n_pad + 4 * B
+
+
+def _launch(fn, nbrs, h, act, m0, cl, do_nmc, beta_row, generator, *,
+            num_cycles, sweeps_per_phase, full_update_frequency, temp_x_inv,
+            uniforms, flips):
+    """Check the arguments and launch entry point `fn` over the layout."""
+    device = m0.device
+    I, R, n_pad = m0.shape
+    B = nbrs.block_size
+    _check_neighbors(nbrs, I, n_pad, B, device)
+    act, cl, do_nmc, beta_row, seed, out = _round_args(
+        h, act, m0, cl, do_nmc, beta_row, generator, uniforms, flips,
+        num_cycles, sweeps_per_phase, full_update_frequency)
+    _check_shared(fn, _shared_bytes(n_pad, B))
+    # the kernel's per-instance slot counters (CTAs claim slots by SM id)
+    claims = torch.zeros(I, dtype=torch.int32, device=device)
+    lib = _bind(load_library(_LIB), fn)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, fn)(
+        nbrs.tgt_ptr.data_ptr(), nbrs.tgt.data_ptr(), nbrs.src_ptr.data_ptr(),
+        nbrs.src.data_ptr(), nbrs.w.data_ptr(), h.data_ptr(), act.data_ptr(),
+        m0.data_ptr(), cl.data_ptr(), do_nmc.data_ptr(), beta_row.data_ptr(),
+        _ptr(uniforms), _ptr(seed), out.m.data_ptr(), out.m_best.data_ptr(),
+        out.e_best.data_ptr(), out.e_carried.data_ptr(), _ptr(flips),
+        claims.data_ptr(), I, R, n_pad, B, nbrs.src.shape[0], num_cycles,
+        sweeps_per_phase, full_update_frequency, heated_factor(temp_x_inv),
+        stream)
+    _raise_on(err, fn)
+    return out
 
 
 def ensemble_round(
@@ -266,9 +459,11 @@ def ensemble_round(
     block_size: int = 128,
     uniforms: Optional[torch.Tensor] = None,  # [P, T, I, R, n_pad]
     flips: Optional[torch.Tensor] = None,     # [I, R] int32 out
+    nbrs: Optional[RoundNeighbors] = None,    # J's layout (built if None)
 ) -> EnsembleRoundResult:
     """One whole round for every instance (K4); the CUDA kernel on CUDA
-    tensors, the plain torch version on CPU tensors."""
+    tensors, the plain torch version on CPU tensors (which ignores
+    `nbrs`)."""
     kw = dict(num_cycles=num_cycles, sweeps_per_phase=sweeps_per_phase,
               full_update_frequency=full_update_frequency,
               temp_x_inv=temp_x_inv, uniforms=uniforms, flips=flips)
@@ -277,25 +472,14 @@ def ensemble_round(
                                         generator, block_size=block_size,
                                         **kw)
     _require_cuda(m0, "ensemble_round")
-    device = m0.device
     I, R, n_pad = m0.shape
     if n_pad % block_size:
         raise ValueError("n_pad must be a multiple of block_size")
-    _check("J", J, (I, n_pad, n_pad), torch.float32, device)
-    act, cl, do_nmc, beta_row, seed, out = _round_args(
-        h, act, m0, cl, do_nmc, beta_row, generator, uniforms, flips,
-        num_cycles, sweeps_per_phase, full_update_frequency)
-    _check_shared("ensemble_round", _shared_bytes(n_pad, 0, block_size))
-    lib = _bind(load_library(_LIB), "ensemble_round_f32")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.ensemble_round_f32(
-        J.data_ptr(), h.data_ptr(), act.data_ptr(), m0.data_ptr(),
-        cl.data_ptr(), do_nmc.data_ptr(), beta_row.data_ptr(),
-        _ptr(uniforms), _ptr(seed), out.m.data_ptr(), out.m_best.data_ptr(),
-        out.e_best.data_ptr(), out.e_carried.data_ptr(), _ptr(flips), I, R,
-        n_pad, block_size, num_cycles, sweeps_per_phase,
-        full_update_frequency, heated_factor(temp_x_inv), stream)
-    _raise_on(err, "ensemble_round")
+    _check("J", J, (I, n_pad, n_pad), torch.float32, m0.device)
+    if nbrs is None:
+        nbrs = neighbors_from_dense(J, block_size)
+    out = _launch("ensemble_round_f32", nbrs, h, act, m0, cl, do_nmc,
+                  beta_row, generator, **kw)
     ensemble_round.launches += 1
     return out
 
@@ -311,10 +495,11 @@ def ensemble_round_sparse(
     temp_x_inv: float = 1.0 / 20.0,
     uniforms: Optional[torch.Tensor] = None,  # [P, T, I, R, n_pad]
     flips: Optional[torch.Tensor] = None,     # [I, R] int32 out
+    nbrs: Optional[RoundNeighbors] = None,    # the tiles' layout (built if None)
 ) -> EnsembleRoundResult:
     """One whole round for every instance over block-sparse tiles (K5);
     the CUDA kernel on CUDA tensors, the plain torch version on CPU
-    tensors."""
+    tensors (which ignores `nbrs`)."""
     kw = dict(num_cycles=num_cycles, sweeps_per_phase=sweeps_per_phase,
               full_update_frequency=full_update_frequency,
               temp_x_inv=temp_x_inv, uniforms=uniforms, flips=flips)
@@ -330,22 +515,27 @@ def ensemble_round_sparse(
         raise ValueError("tile layout does not match n_pad")
     _check("col_idx", col_idx, (nB, K), torch.int32, device)
     _check("J_tiles", J_tiles, (I, nB, K, B, B), torch.float32, device)
-    act, cl, do_nmc, beta_row, seed, out = _round_args(
-        h, act, m0, cl, do_nmc, beta_row, generator, uniforms, flips,
-        num_cycles, sweeps_per_phase, full_update_frequency)
-    _check_shared("ensemble_round_sparse", _shared_bytes(n_pad, K, B))
-    lib = _bind(load_library(_LIB), "ensemble_round_sparse_f32")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.ensemble_round_sparse_f32(
-        col_idx.data_ptr(), J_tiles.data_ptr(), h.data_ptr(), act.data_ptr(),
-        m0.data_ptr(), cl.data_ptr(), do_nmc.data_ptr(), beta_row.data_ptr(),
-        _ptr(uniforms), _ptr(seed), out.m.data_ptr(), out.m_best.data_ptr(),
-        out.e_best.data_ptr(), out.e_carried.data_ptr(), _ptr(flips), I, R,
-        n_pad, B, K, num_cycles, sweeps_per_phase, full_update_frequency,
-        heated_factor(temp_x_inv), stream)
-    _raise_on(err, "ensemble_round_sparse")
+    if nbrs is None:
+        nbrs = neighbors_from_tiles(col_idx, J_tiles)
+    out = _launch("ensemble_round_sparse_f32", nbrs, h, act, m0, cl, do_nmc,
+                  beta_row, generator, **kw)
     ensemble_round_sparse.launches += 1
     return out
+
+
+def kernel_occupancy(n_pad: int, block_size: int = 128):
+    """(registers per thread, CTAs per SM) of the round kernel with its
+    dynamic shared memory at this shape, from the CUDA runtime (builds the
+    library)."""
+    lib = load_library(_LIB)
+    f = lib.ensemble_round_occupancy
+    f.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                  ctypes.POINTER(ctypes.c_int)]
+    f.restype = ctypes.c_int
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    _raise_on(f(_shared_bytes(n_pad, block_size), ctypes.byref(regs),
+                ctypes.byref(ctas)), "ensemble_round_occupancy")
+    return regs.value, ctas.value
 
 
 ensemble_round.launches = 0

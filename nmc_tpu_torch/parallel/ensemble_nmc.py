@@ -21,7 +21,9 @@ Two round bodies, the route fixed at setup (`round_path`):
     per-instance best, then batched label swaps. K4 (dense J) serves
     colored float32 layouts with n_pad <= 1536, the same limit as K1 in
     `SweepEngine`; above it K5 (the union block-sparse tiles) when the
-    union tile count K <= max(nB - 1, 1), the JAX engine's condition;
+    union tile count K <= max(nB - 1, 1), the JAX engine's condition.
+    Both kernels read the couplings through the union graph's neighbour
+    layout (`round_nbrs`), built here once and passed to every launch;
   * "plain": the JAX engine's XLA round, one instance after another, each
     phase a call of `ops/sweeps.run_sweeps`. It serves `round_kernel="off"`
     and uncoloured (wishart) or float64 layouts.
@@ -55,7 +57,9 @@ from ..ops.engine import K1_MAX_N_PAD
 from ..ops.lbp import lambda_ladder
 from ..ops.lbp_jit import (convexified_marginal_dense,
                            convexified_marginal_sparse)
-from ..ops.round_cuda import ensemble_round, ensemble_round_sparse, phase_list
+from ..ops.round_cuda import (ensemble_round, ensemble_round_sparse,
+                              neighbors_from_dense, neighbors_from_tiles,
+                              phase_list)
 from ..ops.sweeps import run_sweeps
 from .sharded_pt import ShardedNPTConfig
 from .swaps import metropolis_label_swap
@@ -187,10 +191,12 @@ class EnsembleNMC:
         if dtype != torch.float32:
             fails.append(f"dtype must be float32, got {dtype}")
         self.round_path = "plain"
-        self._stream_tiles = None
+        self._stream_tiles = self.round_nbrs = None
         if cfg.round_kernel != "off" and not fails:
             if n_pad <= K1_MAX_N_PAD:
                 self.round_path = "K4"
+                self.round_nbrs = neighbors_from_dense(
+                    self.J_full, blocked[0].block_size)
             else:
                 col_idx, J_tiles = union or _union_tiles(blocked)
                 K, nB = col_idx.shape[1], blocked[0].num_blocks
@@ -198,6 +204,8 @@ class EnsembleNMC:
                     self.round_path = "K5"
                     self._stream_tiles = (put(col_idx, torch.int32),
                                           put(J_tiles))
+                    self.round_nbrs = neighbors_from_tiles(
+                        *self._stream_tiles)
                 else:
                     fails.append(
                         f"n_pad {n_pad} > {K1_MAX_N_PAD} (K4) and the union "
@@ -292,7 +300,8 @@ class EnsembleNMC:
         kw = dict(num_cycles=cfg.num_cycles,
                   sweeps_per_phase=cfg.sweeps_per_phase,
                   full_update_frequency=cfg.full_update_frequency,
-                  temp_x_inv=1.0 / cfg.temp_x, uniforms=uniforms)
+                  temp_x_inv=1.0 / cfg.temp_x, uniforms=uniforms,
+                  nbrs=self.round_nbrs)
         if self.round_path == "K5":
             col_idx, J_tiles = self._stream_tiles
             return ensemble_round_sparse(
