@@ -8,7 +8,10 @@ non-zero without printing a result:
   1. device    — a CUDA card must be present (else exit 1); prints
                  `nvidia-smi --query-gpu=name,power.limit` for it;
   2. build     — builds every csrc/*.cu with nvcc, one process per source,
-                 all at once (first use), and reports seconds;
+                 all at once (first use), and reports seconds; the
+                 tensor-core SASS lines of each K6 / K7 kernel
+                 (`cuobjdump -sass`: HMMA, IMMA, HGMMA, IGMMA, which must
+                 be there) with its ptxas registers and spills;
   3. kernel    — K1 (colored_sweeps) against its plain torch version on
                  chimera 8x8 (N = 512, n_pad = 640), R = 256, T = 16, with
                  identical injected uniforms; then K1's own Philox draws
@@ -52,6 +55,11 @@ non-zero without printing a result:
                  a small chimera family written in the reference's format
                  with ground states by enumeration: through K4, every
                  instance a hit, the records parse;
+ 12b. round_routing — not a main path: EnsembleNMC(round_kernel="auto") on
+                 4 random 3-regular N = 2048 instances (colored, n_pad
+                 2560) takes K5, and with a tile layout that has no empty
+                 column tile K4 over dense J; 2 rounds through each, the
+                 launches counted, bests against their f64 energies;
  13. exact_kernels — K6 (mitm_min) and K7 (mitm_min_i8) against their plain
                  versions at N = 32 (a = 16, TA = 2^15, TB = 2^16) on
                  integer-coupled instances, min and argmin equal element for
@@ -79,13 +87,25 @@ non-zero without printing a result:
                  per launch), CUDA events; each kernel's flips per attempt,
                  and the least time the card could take for the same work;
                  K6 and K7 per call at N = 40 (2^39 table entries) on the
-                 main path's integer instance, with their plain versions
-                 (each output held against the kernel's, element for
-                 element) and bounds; K6 on the float instance against its
-                 plain version with a stated tolerance.
+                 main path's integer instance, on operands packed once,
+                 with their plain versions (each output held against the
+                 kernel's, element for element), bounds on the tensor
+                 cores and the CUDA cores, registers, shared memory and
+                 CTAs per SM; K6 on the float instance against its plain
+                 version with a stated tolerance; and K1, K2 and K3 alone
+                 at the shapes they launch at on the main paths
+                 (LAUNCH_SHAPES: K3 at R = 256, 64, 24 and 2), beside
+                 their bounds.
 Phases 5-8, 10-12 and 14 are the main paths: each sets the launch counts to
 0 just before it and reads them just after. Then one line {"kernels": [...]},
 the card's name and power limit, and last {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --round-ablation
+    python3 chip_smoke.py --exact-ablation
+
+time patched copies of the round kernels' and the exact kernels' sources
+against the kernels as they are, in turns (ROUND_ABLATIONS,
+EXACT_ABLATIONS).
 """
 
 import functools
@@ -107,6 +127,7 @@ HOT_BETA = 0.25
 # all of it is held against the f32 rate outside the tensor cores.
 OPS_PER_ATTEMPT = 110
 PEAK_F32_OPS = 67e12        # H100 SXM, FP32 outside the tensor cores
+PEAK_BF16_OPS = 989e12      # H100 SXM, bf16 tensor cores, dense
 PEAK_INT8_OPS = 1979e12     # H100 SXM, int8 tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12    # H100 SXM, HBM3
 DEVICE = "cuda"
@@ -168,8 +189,60 @@ def phase_build():
         ptxas[name] = ([ln.strip() for ln in log.read_text().splitlines()
                         if "registers" in ln or "spill" in ln or "smem" in ln]
                        if log.exists() else [])
+    sass = _tensor_core_sass(paths["exact_mitm"])
+    for kind, ops in (("K6", ("HMMA", "HGMMA")), ("K7", ("IMMA", "IGMMA"))):
+        kernels = {k: v for k, v in sass.items() if k.startswith(kind)}
+        check(kernels and all(sum(v.get(op, 0) for op in ops) > 0
+                              for v in kernels.values()),
+              f"{kind}: no tensor-core instructions in {kernels}")
     emit({"phase": "build", "libraries": sorted(p.name for p in paths.values()),
-          "cached": cached, "seconds": seconds, "ptxas": ptxas})
+          "cached": cached, "seconds": seconds, "ptxas": ptxas,
+          "exact_mitm_tensor_core_sass": sass})
+
+
+def _tensor_core_sass(lib):
+    """Per kernel of a built library, its count of tensor-core SASS lines
+    (HMMA, IMMA, HGMMA, IGMMA) from `cuobjdump -sass`, with the registers,
+    spills and shared memory of its ptxas report. Kernels are keyed K6 /
+    K7 and their template argument (K6's k-steps, K7's digit planes)."""
+    import os
+    import re
+    from nmc_tpu_torch.ops import _build
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()),
+                             "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    log = lib.with_suffix(".log").read_text()
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = _kernel_key(line.split("Function :")[1].strip())
+            counts[name] = {}
+        elif name:
+            for op in ("HGMMA", "IGMMA", "HMMA", "IMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[name][op] = counts[name].get(op, 0) + 1
+                    break
+    # ptxas reports each entry function, then its stack / spills and its
+    # registers and shared memory
+    mangled = None
+    for line in log.splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            mangled = _kernel_key(m.group(1))
+        elif mangled in counts and ("spill" in line or "registers" in line):
+            counts[mangled].setdefault("ptxas", []).append(
+                line.replace("ptxas info    :", "").strip())
+    return counts
+
+
+def _kernel_key(mangled):
+    for op, kind in (("F32OpILi", "K6_ksteps_"), ("I8OpILi", "K7_planes_")):
+        if op in mangled:
+            i = mangled.index(op) + len(op)
+            return kind + mangled[i:mangled.index("E", i)]
+    return mangled
+
 
 
 # ---- instances -------------------------------------------------------------
@@ -196,20 +269,27 @@ def _chimera2048():
     return prob, eng
 
 
-def _regular3(N=4096):
-    """The union of three random perfect matchings with +-1 weights, from
-    np.random.default_rng(0): the K2 layout (dense J row blocks)."""
-    from nmc_tpu_torch.core.problem import IsingProblem, block_sparse_tiles
-    from nmc_tpu_torch.ops.engine import SweepEngine
-    rng = np.random.default_rng(0)
+def _matchings(N, degree, seed, name):
+    """The union of `degree` random perfect matchings with +-1 weights, from
+    np.random.default_rng(seed)."""
+    from nmc_tpu_torch.core.problem import IsingProblem
+    rng = np.random.default_rng(seed)
     J = np.zeros((N, N))
-    for _ in range(3):
+    for _ in range(degree):
         p = rng.permutation(N)
         a, c = p[:N // 2], p[N // 2:]
         w = rng.choice([-1.0, 1.0], size=N // 2)
         J[a, c] = w
         J[c, a] = w
-    prob = IsingProblem(J, np.zeros(N), name="regular3_4096")
+    return IsingProblem(J, np.zeros(N), name=name)
+
+
+def _regular3(N=4096):
+    """The union of three random perfect matchings with +-1 weights, from
+    np.random.default_rng(0): the K2 layout (dense J row blocks)."""
+    from nmc_tpu_torch.core.problem import block_sparse_tiles
+    from nmc_tpu_torch.ops.engine import SweepEngine
+    prob = _matchings(N, 3, 0, "regular3_4096")
     eng = SweepEngine(prob, use_coloring=True, device=DEVICE)
     K = block_sparse_tiles(eng.blocked)[0].shape[1]
     nB = eng.blocked.num_blocks
@@ -951,6 +1031,42 @@ def phase_ensemble_2048():
     return launches, keep
 
 
+def phase_round_routing():
+    """Not a main path: EnsembleNMC(round_kernel="auto") on a colored
+    layout above n_pad 1536 that is not chimera, 4 random 3-regular
+    N = 2048 instances (8 PT replicas): it takes K5 over the union tiles
+    (a colored layout's diagonal tiles are zero, so some column tile of
+    every row block is empty) and runs 2 rounds through it, its launch
+    count read, the bests equal to their f64 energies."""
+    import torch
+    from nmc_tpu_torch.parallel import EnsembleNMC, ShardedNPTConfig
+    probs = [_matchings(2048, 3, 100 + s, f"regular3_2048_{s}")
+             for s in range(4)]
+    cfg = ShardedNPTConfig(use_coloring=True, sweeps_per_phase=16,
+                           num_cycles=1, round_kernel="auto")
+    ens = EnsembleNMC(probs, np.geomspace(0.3, 3.0, 8), [False] * 8, cfg,
+                      device=DEVICE)
+    kernel = "ensemble_round_sparse"
+    check(ens.round_path == "K5" and ens.n_pad > 1536,
+          f"round_path {ens.round_path} at n_pad {ens.n_pad}, not K5")
+    state = ens.init_state(torch.Generator(device=DEVICE).manual_seed(1))
+    torch.cuda.synchronize()
+    reset_counts()
+    state = ens.run_scanned(state, 2)
+    eb, mb = ens.best(state)
+    counts = read_counts()
+    check(counts[kernel] == 2
+          and not any(v for k, v in counts.items() if k != kernel),
+          f"K5: launches {counts}")
+    e64 = np.array([p.energy(mb[i]) for i, p in enumerate(probs)])
+    err = float(np.abs(e64 - eb).max())
+    check(np.isfinite(eb).all() and err <= 1e-3,
+          f"K5: bests off their f64 energies by {err}")
+    emit({"phase": "round_routing", "instances": len(probs), "N": 2048,
+          "K5": {"n_pad": ens.n_pad, "launches": counts[kernel],
+                 "bests_vs_f64_max_abs_err": err}})
+
+
 def _write_chimera_family(folder, count=3, seed=0):
     """`count` chimera 1x2 instances (16 spins, +-1 couplings, a few
     fields) in the reference's chimera dialect (1-indexed, diagonal lines
@@ -1523,28 +1639,42 @@ def _throughput_exact(torch, name):
     the main path, one call per timing, in turns with the plain version
     (plain, kernel, kernel, plain; the plain version tiles by 4096 x
     65536), each kernel call's output held against each plain call's
-    (`_compare_exact40`). K6 then once more on the float planted wishart,
-    against its plain version with tol = 128 * 2^-24 * the energy bound
-    (each f32 entry sums 22 terms of at most the bound, rounded in
-    different orders). The bound: per table entry 2a operations for the
-    product (K7: 2aK on the int8 tensor cores) and 3 for the epilogue (K7:
-    2(K-1) more to recombine the planes), f32 rate for all but the int8
-    products; bytes: each input once, the two outputs once."""
+    (`_compare_exact40`). The kernel runs on operands packed once before
+    (`_pack_f32` / `_pack_i8`, timed apart as `pack_ms`: the fused solver
+    packs them with the upload). K6 then once more on the float planted
+    wishart, against its plain version with tol = 128 * 2^-24 * the energy
+    bound (each f32 entry sums 22 terms of at most the bound, rounded in
+    different orders). The bound counts the work the function needs in
+    this design, per table entry: on the tensor cores 2 * 3a bf16
+    operations for K6 (the three bf16 parts of C, depth 3a, not the padded
+    depth) and 2 * a int8 operations per digit plane for K7; on the CUDA
+    cores at the f32 rate one min for K6, and for K7 one min plus one
+    shift-and-add per plane past the first (EB starts the accumulator and
+    EA is added once per row, after the min); the larger of the two. K6's
+    bound on the CUDA cores alone (2a + 3 operations per entry, the PR 4
+    design without the tensor cores) is kept beside it. Bytes: each input
+    once, the two outputs once. Registers, shared memory and CTAs per SM
+    from the CUDA runtime."""
     from nmc_tpu_torch.exact import exact_energy_bound
+    from nmc_tpu_torch.ops import exact_cuda as ec
     planes = "on" if name == "mitm_min_i8" else "off"
     inst = _exact40()["int"]
     use_i8, args, layout = _exact_args(torch, inst[0], planes)
     _, kernel, plain = _exact_fns(use_i8)
+    pack, launch = ((ec._pack_i8, ec._launch_i8) if use_i8
+                    else (ec._pack_f32, ec._launch_f32))
     SA, C, EA, EB = args
     TA, a = SA.shape
     TB = EB.shape[0]
     total_a = 1 << (layout[0] - 1)
     blocks = dict(block_a=4096, block_b=65536)
-    kernel(*args)                                        # warm-up
+    pack_ms, packed = _event_ms(torch, lambda: pack(
+        *args, block_a=layout[3], block_b=layout[4]))
+    launch(*packed)                                      # warm-up
     times = {"kernel": [], "plain": []}
     outs = {"kernel": [], "plain": []}
     for turn in ("plain", "kernel", "kernel", "plain"):
-        fn = (lambda: kernel(*args)) if turn == "kernel" else (
+        fn = (lambda: launch(*packed)) if turn == "kernel" else (
             lambda: plain(*args, **blocks))
         ms, res = _event_ms(torch, fn)
         times[turn].append(ms)
@@ -1566,26 +1696,42 @@ def _throughput_exact(torch, name):
         checks["float"], err = _compare_exact40(
             torch, f"{name} N = 40 float", fk, fp, fargs, flayout, finst, tol)
         max_err = max(max_err, err)
-        float_run = {"kernel_ms": fk_ms, "plain_ms": fp_ms}
+        float_run = {"kernel_ms_with_packing": fk_ms, "plain_ms": fp_ms}
     entries = total_a * TB
+    kd = packed[0].shape[1]
     if use_i8:
         K = C.shape[0]
-        t_ops = max(2 * a * K * entries / PEAK_INT8_OPS,
-                    (2 * (K - 1) + 3) * entries / PEAK_F32_OPS)
+        depth = a * K
+        t_tc = 2 * depth * entries / PEAK_INT8_OPS
+        t_epi = K * entries / PEAK_F32_OPS
         nbytes = SA.numel() + C.numel() + 4 * (TA + TB) + 8 * TA
+        t_cuda_cores = None
     else:
         K = None
-        t_ops = (2 * a + 3) * entries / PEAK_F32_OPS
+        depth = 3 * a
+        t_tc = 2 * depth * entries / PEAK_BF16_OPS
+        t_epi = entries / PEAK_F32_OPS
         nbytes = 4 * (SA.numel() + C.numel() + TA + TB) + 8 * TA
+        t_cuda_cores = (2 * a + 3) * entries / PEAK_F32_OPS
+    t_ops = max(t_tc, t_epi)
     t_bytes = nbytes / PEAK_HBM_BYTES
     k_ms, p_ms = min(times["kernel"]), min(times["plain"])
+    regs, smem, ctas = ec.kernel_occupancy(use_i8, K if use_i8 else kd)
     return {"name": name, "N": 40, "a": a, "TA": TA, "TB": TB,
-            "digit_planes": K, "table_entries": entries, "ms": times,
+            "digit_planes": K, "packed_depth": kd, "bound_depth": depth,
+            "table_entries": entries,
+            "ms": times, "pack_ms": pack_ms,
             "kernel_ms_per_call": k_ms, "plain_ms_per_call": p_ms,
             "checks": checks, "max_abs_err": max_err, "float": float_run,
             "kernel_entries_per_s": entries / (k_ms * 1e-3),
+            "registers": regs, "shared_bytes": smem, "ctas_per_sm": ctas,
+            "bound_tensor_core_ms": 1e3 * t_tc,
+            "bound_epilogue_ms": 1e3 * t_epi,
+            "bound_cuda_cores_only_ms": (1e3 * t_cuda_cores
+                                         if t_cuda_cores else None),
             "bound_bytes": nbytes, "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "share_of_bound": max(t_ops, t_bytes) / (k_ms * 1e-3)}
 
 
 # ---- throughput and bounds ---------------------------------------------------
@@ -1603,10 +1749,12 @@ def _timed_ms(torch, step, m, iters):
     return start.elapsed_time(end) / iters, m
 
 
-def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0):
+def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0,
+                    with_plain=True):
     """Kernel and plain version in turns (plain, kernel, kernel, plain) on
     one layout; flips per attempt from single-sweep kernel calls; the
-    least time the card could take for one call's work."""
+    least time the card could take for one call's work. with_plain=False:
+    the kernel alone (two timed turns, no hot-beta probe)."""
     from nmc_tpu_torch.ops import sweeps_cuda as sc
     from nmc_tpu_torch.ops.sweeps_cuda import ColoredSweepResult
     n_pad = eng.n_pad
@@ -1637,9 +1785,12 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0):
     state = ColoredSweepResult(m0, eng.fields(m0), None, None, None)
     kernel, plain = fns
     state = call(kernel, state, sweeps)        # burn-in (and warm-up)
-    state = call(plain, state, sweeps)
+    if with_plain:
+        state = call(plain, state, sweeps)
     times = {"kernel": [], "plain": []}
-    for turn in ("plain", "kernel", "kernel", "plain"):
+    turns = (("plain", "kernel", "kernel", "plain") if with_plain
+             else ("kernel", "kernel"))
+    for turn in turns:
         fn = kernel if turn == "kernel" else plain
         ms, state = _timed_ms(torch, lambda s: call(fn, s, sweeps), state,
                               iters)
@@ -1656,13 +1807,15 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0):
         return flips / (calls * R * N), state
 
     rate, state = measure_flips(state)
-    # the same kernel at a hot beta, where far more spins flip: if the time
-    # per call grows much less than the J-row traffic of the flips, the
-    # phi update's L2 (or HBM) bytes are not what bounds it at beta
-    betas.fill_(HOT_BETA)
-    hot_ms, state = _timed_ms(torch, lambda s: call(kernel, s, sweeps), state,
-                              1)
-    hot_rate, state = measure_flips(state)
+    hot_ms = hot_rate = None
+    if with_plain:
+        # the same kernel at a hot beta, where far more spins flip: if the
+        # time per call grows much less than the J-row traffic of the flips,
+        # the phi update's L2 (or HBM) bytes are not what bounds it at beta
+        betas.fill_(HOT_BETA)
+        hot_ms, state = _timed_ms(torch, lambda s: call(kernel, s, sweeps),
+                                  state, 1)
+        hot_rate, state = measure_flips(state)
     attempts = R * sweeps * N
     degree = np.count_nonzero(prob.J) / N
     ops = (attempts * OPS_PER_ATTEMPT + attempts * rate * 2 * degree
@@ -1671,12 +1824,13 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0):
               + 2 * 4 * R * n_pad                             # m0, phi0
               + 3 * 4 * R * n_pad + 4 * R + 4 * sweeps * R)   # outputs
     t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_HBM_BYTES
-    k_ms, p_ms = min(times["kernel"]), min(times["plain"])
+    k_ms = min(times["kernel"])
+    p_ms = min(times["plain"]) if with_plain else None
     return {"name": name, "R": R, "sweeps": sweeps, "iters": iters, "N": N,
             "n_pad": n_pad, "beta": beta, "ms": times,
             "kernel_ms_per_call": k_ms, "plain_ms_per_call": p_ms,
             "kernel_attempts_per_s": attempts / (k_ms * 1e-3),
-            "plain_attempts_per_s": attempts / (p_ms * 1e-3),
+            "plain_attempts_per_s": attempts / (p_ms * 1e-3) if p_ms else None,
             "flips_per_attempt": rate,
             "flips_per_sweep_per_replica": rate * N,
             "hot": {"beta": HOT_BETA, "kernel_ms_per_call": hot_ms,
@@ -1686,10 +1840,48 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+# The shapes the sweep kernels launch at on the main paths (phases 5-8):
+# (replicas R, sweeps per timed call, launches, sweeps over all launches).
+# K1: nmc_512's nmc_run, 1 x 2000 + 9 x 500 sweeps at R = 256; K2:
+# nmc_4096's, 1 x 500 + 3 x 100 at R = 64; K3: nmc_2048's nmc_run at R = 256
+# (1 x 2000 + 9 x 500), APT at R = 64 (26 x 200), NPT's PT replicas at
+# R = 24 (4 x 300) and its NMC replicas at R = 2 (12 x 100).
+LAUNCH_SHAPES = {
+    "colored_sweeps": [(256, 500, 10, 6500)],
+    "colored_sweeps_streamed": [(64, 100, 4, 800)],
+    "colored_sweeps_sparse": [(256, 500, 10, 6500), (64, 200, 26, 5200),
+                              (24, 300, 4, 1200), (2, 100, 12, 1200)],
+}
+
+
+def _launch_shapes(torch, name, prob, eng):
+    """The kernel alone at each of its main-path launch shapes (CUDA
+    events, beta 2, two timed calls each), beside the bound of each call;
+    `gap_ms`: the main path's launches at that shape times (ms - bound),
+    scaled by the sweeps they run against the timed call's."""
+    out = []
+    for R, sweeps, launches, total in LAUNCH_SHAPES[name]:
+        r = _throughput_one(torch, name, prob, eng, R, sweeps, 1,
+                            with_plain=False)
+        out.append({"R": R, "sweeps": sweeps, "launches": launches,
+                    "main_path_sweeps": total,
+                    "ms": r["kernel_ms_per_call"], "bound_ms": r["bound_ms"],
+                    "flips_per_attempt": r["flips_per_attempt"],
+                    "gap_ms": total / sweeps * (r["kernel_ms_per_call"]
+                                                - r["bound_ms"])})
+    return out
+
+
 def phase_throughput(card, c2048, r4096, ens512, ens2048):
     import torch
     out = {"phase": "throughput", "card": card}
     prob, eng = _flagship()
+    out["launch_shapes"] = {
+        "colored_sweeps": _launch_shapes(torch, "colored_sweeps", prob, eng),
+        "colored_sweeps_streamed": _launch_shapes(
+            torch, "colored_sweeps_streamed", r4096[0], r4096[1]),
+        "colored_sweeps_sparse": _launch_shapes(
+            torch, "colored_sweeps_sparse", c2048[0], c2048[1])}
     out["colored_sweeps"] = _throughput_one(torch, "colored_sweeps", prob,
                                             eng, 2048, 1024, 4)
     out["colored_sweeps_sparse"] = _throughput_one(
@@ -1783,70 +1975,50 @@ _SAME_ARITHMETIC = ("gather_4_loads_at_once", "l1_carveout",
                     "no_slot_claims", "threads_128")
 
 
-def round_ablation(turns=9):
-    """Each variant of ROUND_ABLATIONS built from a patched copy of the
-    round kernel's source (under the ignored build directory), checked, and
-    then timed in turns (each turn one launch of every variant, so drift
-    falls on all alike) as the throughput phase times K4 and K5: one
-    576-sweep round at the ensemble configurations (20 instances x 32
-    slots, random states), CUDA events; min and median of `turns`."""
+def _ablate(phase, lib, headers, variants, cases, turns):
+    """Each variant of `variants` ({name: [(text, its replacement), ...]},
+    "as_is" first) built from a patched copy of csrc/<lib>.cu and its
+    `headers` under the ignored build directory (a patch that does not
+    apply exactly once fails), then timed in turns: each turn one call of
+    every case on every variant, so drift falls on all alike; min and
+    median of `turns`. `cases` maps a name to (probe, timed): probe(variant)
+    runs once on the freshly built variant, checks it and returns what to
+    report beside its times; timed() is the call timed by CUDA events."""
     import shutil
     import statistics
     import torch
     from nmc_tpu_torch.ops import _build
-    from nmc_tpu_torch.ops import round_cuda as rc
-    card = phase_device()
-    source = (_build.CSRC / "ensemble_round.cu").read_text()
-    cases = {}
-    for name, size in (("ensemble_round", 8), ("ensemble_round_sparse", 16)):
-        _, ens, _ = _ensemble(size, 20)
-        m0, cl, dn, beta, gen = _round_inputs(torch, ens, 21)
-        u = torch.rand((9, 4) + tuple(m0.shape), generator=gen, device=DEVICE)
-        cases[name] = (_round_fns(ens)[0], (m0, cl, dn, beta), gen, u,
-                       ens.n_pad)
-    full = dict(num_cycles=3, sweeps_per_phase=64)
-    out = {"phase": "round_ablation", "card": card, "turns": turns}
+    out = {"phase": phase, "card": phase_device(), "turns": turns}
+    source = (_build.CSRC / f"{lib}.cu").read_text()
     csrc, build_dir = _build.CSRC, _build.BUILD_DIR
-    libs, reference = {}, {}
+    libs = {}
     try:
-        for variant, patches in ROUND_ABLATIONS.items():
+        for variant, patches in variants.items():
             text = source
             for old, new in patches:
                 check(text.count(old) == 1,
                       f"{variant}: a patch does not apply to the source")
                 text = text.replace(old, new)
-            vdir = build_dir / "ablation" / variant
+            vdir = build_dir / phase / variant
             vdir.mkdir(parents=True, exist_ok=True)
-            (vdir / "ensemble_round.cu").write_text(text)
-            shutil.copy(csrc / "sweep_common.cuh", vdir)
+            (vdir / f"{lib}.cu").write_text(text)
+            for header in headers:
+                shutil.copy(csrc / header, vdir)
             _build.CSRC, _build.BUILD_DIR = vdir, vdir / "_build"
             _build._LIBS.clear()
-            libs[variant] = _build.load_library("ensemble_round")
-            out[variant] = {}
-            for name, (kernel, args, gen, u, n_pad) in cases.items():
-                # a short round on injected uniforms, held against as_is
-                short = kernel(*args, None, uniforms=u, num_cycles=3,
-                               sweeps_per_phase=4)
-                if variant == "as_is":
-                    reference[name] = short
-                elif variant in _SAME_ARITHMETIC:
-                    check(all(torch.equal(a, b) for a, b in
-                              zip(short, reference[name])),
-                          f"{variant}: {name} differs from the kernel")
-                kernel(*args, gen, **full)                    # warm-up
-                regs, ctas = rc.kernel_occupancy(n_pad, 128)
-                out[variant][name] = {"registers": regs, "ctas_per_sm": ctas,
-                                      "ms": []}
+            libs[variant] = _build.load_library(lib)
+            out[variant] = {name: {**probe(variant), "ms": []}
+                            for name, (probe, _) in cases.items()}
         for _ in range(turns):
-            for variant in ROUND_ABLATIONS:
-                _build._LIBS["ensemble_round"] = libs[variant]
-                for name, (kernel, args, gen, _, _) in cases.items():
-                    out[variant][name]["ms"].append(_event_ms(
-                        torch, lambda: kernel(*args, gen, **full))[0])
+            for variant in variants:
+                _build._LIBS[lib] = libs[variant]
+                for name, (_, timed) in cases.items():
+                    out[variant][name]["ms"].append(
+                        _event_ms(torch, timed)[0])
     finally:
         _build.CSRC, _build.BUILD_DIR = csrc, build_dir
         _build._LIBS.clear()
-    for variant in ROUND_ABLATIONS:
+    for variant in variants:
         for name in cases:
             res = out[variant][name]
             res["min_ms"] = min(res["ms"])
@@ -1855,6 +2027,107 @@ def round_ablation(turns=9):
                                       / out["as_is"][name]["median_ms"])
         emit({"variant": variant, **out[variant]})
     emit(out)
+
+
+def round_ablation(turns=9):
+    """`_ablate` over ROUND_ABLATIONS, timed as the throughput phase times
+    K4 and K5: one 576-sweep round at the ensemble configurations (20
+    instances x 32 slots, random states). Each variant first runs a short
+    round on injected uniforms, held bit for bit against the kernel as is
+    where the variant keeps its arithmetic (_SAME_ARITHMETIC)."""
+    import torch
+    from nmc_tpu_torch.ops import round_cuda as rc
+    full = dict(num_cycles=3, sweeps_per_phase=64)
+    reference = {}
+
+    def case(name, size):
+        _, ens, _ = _ensemble(size, 20)
+        m0, cl, dn, beta, gen = _round_inputs(torch, ens, 21)
+        u = torch.rand((9, 4) + tuple(m0.shape), generator=gen, device=DEVICE)
+        kernel, args = _round_fns(ens)[0], (m0, cl, dn, beta)
+
+        def probe(variant):
+            short = kernel(*args, None, uniforms=u, num_cycles=3,
+                           sweeps_per_phase=4)
+            if variant == "as_is":
+                reference[name] = short
+            elif variant in _SAME_ARITHMETIC:
+                check(all(torch.equal(a, b) for a, b in
+                          zip(short, reference[name])),
+                      f"{variant}: {name} differs from the kernel")
+            kernel(*args, gen, **full)                    # warm-up
+            regs, ctas = rc.kernel_occupancy(ens.n_pad, 128)
+            return {"registers": regs, "ctas_per_sm": ctas}
+
+        return probe, lambda: kernel(*args, gen, **full)
+
+    _ablate("round_ablation", "ensemble_round", ["sweep_common.cuh"],
+            ROUND_ABLATIONS, {name: case(name, size) for name, size in (
+                ("ensemble_round", 8), ("ensemble_round_sparse", 16))},
+            turns)
+
+
+# ---- the exact kernels' ablation (chip_smoke.py --exact-ablation) ----
+
+# Variants of csrc/exact_mitm.cu's shape, each a list of (text, its
+# replacement) applied to a copy of the source; every one keeps the
+# arithmetic on integer data and is held bit for bit against the kernel.
+_EXACT_LB = "__launch_bounds__(kThreads, 3)"
+_K7_TILE = "static constexpr int kTileB = {};\n  static constexpr int kRowBytes = 32 * K;"
+EXACT_ABLATIONS = {
+    "as_is": [],
+    # the first shape built: 8 warps (512 A rows) per CTA, one CTA per SM
+    "warps_8_ctas_1": [("constexpr int kWarps = 4;",
+                        "constexpr int kWarps = 8;"),
+                       (_EXACT_LB, "__launch_bounds__(kThreads, 1)")],
+    "ctas_2": [(_EXACT_LB, "__launch_bounds__(kThreads, 2)")],
+    "warps_2_ctas_4": [("constexpr int kWarps = 4;",
+                        "constexpr int kWarps = 2;"),
+                       (_EXACT_LB, "__launch_bounds__(kThreads, 4)")],
+    "m_blocks_2": [("constexpr int kMB = 4;", "constexpr int kMB = 2;")],
+    "m_blocks_8_ctas_2": [("constexpr int kMB = 4;", "constexpr int kMB = 8;"),
+                          (_EXACT_LB, "__launch_bounds__(kThreads, 2)")],
+    "stages_3": [("constexpr int kStages = 4;", "constexpr int kStages = 3;")],
+    "stages_6": [("constexpr int kStages = 4;", "constexpr int kStages = 6;")],
+    "columns_per_stage_x2": [("static constexpr int kTileB = 64;",
+                              "static constexpr int kTileB = 128;"),
+                             (_K7_TILE.format(128), _K7_TILE.format(256))],
+}
+
+
+def exact_ablation(turns=5):
+    """`_ablate` over EXACT_ABLATIONS, timed as the throughput phase times
+    K6 and K7: one call at N = 40 on the integer planted wishart, operands
+    packed once; each variant held bit for bit against the kernel as is,
+    with its registers, shared memory and CTAs per SM."""
+    import torch
+    from nmc_tpu_torch.ops import exact_cuda as ec
+    inst = _exact40()["int"]
+    reference = {}
+
+    def case(name, planes):
+        use_i8, args, layout = _exact_args(torch, inst[0], planes)
+        pack, launch = ((ec._pack_i8, ec._launch_i8) if use_i8
+                        else (ec._pack_f32, ec._launch_f32))
+        packed = pack(*args, block_a=layout[3], block_b=layout[4])
+        occ = args[1].shape[0] if use_i8 else packed[0].shape[1]
+
+        def probe(variant):
+            res = launch(*packed)
+            if variant == "as_is":
+                reference[name] = res
+            check(all(torch.equal(a, b) for a, b in
+                      zip(res, reference[name])),
+                  f"{variant}: {name} differs from the kernel")
+            regs, smem, ctas = ec.kernel_occupancy(use_i8, occ)
+            return {"registers": regs, "shared_bytes": smem,
+                    "ctas_per_sm": ctas}
+
+        return probe, lambda: launch(*packed)
+
+    _ablate("exact_ablation", "exact_mitm", [], EXACT_ABLATIONS,
+            {name: case(name, planes) for name, planes in (
+                ("mitm_min", "off"), ("mitm_min_i8", "on"))}, turns)
 
 
 def main():
@@ -1866,6 +2139,9 @@ def main():
     import nmc_tpu_torch  # noqa: F401  (fails here outside a checkout)
     if sys.argv[1:] == ["--round-ablation"]:
         round_ablation()
+        return
+    if sys.argv[1:] == ["--exact-ablation"]:
+        exact_ablation()
         return
     t_start = time.perf_counter()
     card = phase_device()
@@ -1881,6 +2157,7 @@ def main():
     launches["ensemble_round"], ens512 = phase_ensemble_512()
     launches["ensemble_round_sparse"], ens2048 = phase_ensemble_2048()
     launches["ensemble_round"] += phase_campaign()
+    phase_round_routing()
     errs.update(phase_exact_kernels())
     launches.update(phase_exact_40())
     phase_exact_tiers()

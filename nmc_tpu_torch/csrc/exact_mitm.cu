@@ -1,52 +1,80 @@
-// Fused meet-in-the-middle table kernels of the exact solver.
+// Fused meet-in-the-middle table kernels of the exact solver, on the tensor
+// cores.
 //
-// Replaces nmc_tpu/ops/exact_pallas.py::mitm_min_pallas (K6, the Pallas
-// kernel `_kernel`; entry point `mitm_min_f32`) and ::mitm_min_pallas_i8 (K7,
-// `_kernel_i8`; entry point `mitm_min_i8`). Both reduce the implicit energy
-// table of exact.py's meet-in-the-middle split
+// Replaces nmc_tpu/ops/exact_pallas.py::mitm_min_pallas (K6, the Pallas body
+// `_kernel` at exact_pallas.py:59; entry point `mitm_min_f32`) and
+// ::mitm_min_pallas_i8 (K7, `_kernel_i8` at exact_pallas.py:136; entry point
+// `mitm_min_i8`). Both reduce the implicit energy table of exact.py's
+// meet-in-the-middle split
 //
 //     T[ia, ib] = EA[ia] + EB[ib] - SA[ia, :] . C[:, ib]
 //
 // to one (min over ib, lowest ib attaining it) per A row, without writing T
-// anywhere: only the +-1 A table, the B-side cross-term table and the two
-// energy vectors are read, and two [TA] vectors are written.
-//   * K6: SA [TA, a] f32 +-1, C = CBT [a, TB] f32, EA [TA] f32 (+inf rows
-//     are padding), EB [TB] f32; T = (EA + EB) - dot in f32, the dot a chain
-//     of FMAs in k order. Products of +-1 are exact, so for integer values
-//     below 2^24 every order of summation gives the same bits; for float
-//     couplings the result differs from a matmul's in the last bits.
-//   * K7: SA [TA, a] int8 +-1, C as K signed base-256 digit planes
-//     planes [K, a, TB] int8 (C = sum_k 256^k planes[k]), EA, EB int32 (pad
-//     rows carry 2^30). Per plane one __dp4a chain over SA packed 4 per word;
-//     cross = sum_k 2^(8k) dot_k and T = EA + EB - cross are taken in
-//     uint32 and read back as int32, which is the wrapping int32 arithmetic
-//     of the Pallas kernel (a single partial of the top plane can pass 2^31;
-//     the true T stays below 2^31 under the caller's 2^29 guard).
+// anywhere. A table entry is one element of a rank-a matrix product, so each
+// kernel is a GEMM whose epilogue is a running min/argmin.
 //
-// Design: one thread owns one A row for the whole launch (grid = TA / 256).
-// Its SA row (a <= 32 values, padded with zeros to a multiple of 4: a
-// template parameter) and EA sit in registers; it walks all of B in
-// increasing ib and keeps its running (min, argmin) in registers, updated
-// with strict <, so the first ib attaining the row minimum wins -- the
-// lowest index, as the Pallas kernel's masked-iota min gives it. The result
-// is written once: no atomics, no second pass, and nothing revisited across
-// blocks (the TPU's sequential B axis becomes the loop inside the thread).
-// B is staged through shared memory in tiles of 256 columns, k-major
-// ([k][column], for K7 [plane][word][column] with 4 plane bytes packed per
-// word while staging), so a thread reads 4 neighbouring columns of one k
-// with one 16-byte load. All threads of a block read the same address, a
-// broadcast without bank conflicts, and each load feeds 4 independent
-// FMA / dp4a chains. Pad rows give (+inf, 0) in K6 and (2^30 + ..., lowest
-// index) in K7, as in JAX.
+// Operands (packed by ops/exact_cuda.py, `f32_operands` / `i8_operands`):
+//   * K6: C (f32) is split into three bf16 parts hi + mid + lo, each the
+//     remainder's f32 bits with the low 16 cleared, so the parts sum exactly
+//     to C, share its sign and |hi| + |mid| + |lo| = |C|. A = -[SA, SA, SA]
+//     [TA, kd] bf16 and B = [hi; mid; lo]^T [TB, kd] bf16 along the depth,
+//     zero padded to kd = 32 * ceil(3a / 32) (64 at a = 20). One bf16
+//     m16n8k16 product of depth kd, accumulated in f32 from EB as the
+//     accumulator's start, gives Y = EB + A . B = EB - SA . C. Products of
+//     +-1 and a bf16 part are exact; on integer couplings with the caller's
+//     bound below 2^24 every partial sum is an integer below 2^24, so Y is
+//     exact in any order of summation.
+//   * K7: A = -SA [TA, 32] s8 (zero padded), B = the digit planes [TB, K, 32]
+//     s8. Per plane one m16n8k32 s8 product into s32 (plane 0 starting from
+//     EB), recombined as Y = sum_k 2^(8k) acc_k in uint32 (wrapping, as the
+//     Pallas kernel's int32 arithmetic; one partial of the top plane can
+//     pass 2^31).
+//   EB is padded to a multiple of the column tile with +inf (K6) / INT32_MAX
+//   (K7), which no entry's strict < ever prefers.
+// EA is a per-row constant and is added after the row min: rounding is
+// monotone, so in f32 min_b fl(EA + Y_b) = fl(EA + min_b Y_b), and in int32
+// the sum does not wrap under the caller's 2^29 guard (|EA|, |Y| < 2^30).
+// A row with EA = +-inf (K6's padding) gives (EA + min, 0), the plain
+// version's (+inf, 0).
 //
-// Bound: operations. At N = 40 (a = 20, TA = 2^19, TB = 2^20) the table has
-// 2^39 entries; K6 spends 20 FMAs and ~5 epilogue operations on each, on the
-// f32 pipes (exact f32 keeps it off the TF32 tensor cores); K7 spends 2 x 5
-// dp4a and ~5 integer operations on each, on the integer pipes, which are
-// half as wide as the f32 pipes. Every byte of B is read once per block of
-// 256 rows (~160 GB at N = 40, from L2 or HBM), far below what the
-// arithmetic takes. A faster design (s8 tensor cores through mma.sync, 3xTF32
-// splitting for K6, a persistent TMA-fed kernel) is later work.
+// Design (mma.sync, not wgmma): a CTA of 4 warps keeps 256 A rows resident
+// for the whole launch, 64 per warp (4 m16 blocks) as mma.sync A fragments
+// in registers, and streams B in increasing column order through a 4-stage
+// cp.async ring in shared memory (64 columns a stage for K6, 128 for K7;
+// rows padded by 16 bytes so ldmatrix reads without bank conflicts); 3
+// CTAs share an SM, so a warp that is late at one stage's barrier holds up
+// only its own CTA. The depth is one or a few MMA k-steps, so there is no
+// k-loop to pipeline. Epilogue, on the accumulator fragments: each thread
+// keeps per fragment row a running min (one min per entry, on the CUDA
+// cores) and, at the end of each stage, compares it with the min at the
+// stage's start. Only when some row of a warp improved (rare after the
+// first stages: a new record in a row) does the warp recompute that
+// m-block's products for the stage and take the first column attaining
+// the new min; the products are deterministic, so the recomputed values
+// are the same bits. Each thread meets its own columns in increasing
+// order, so strict < keeps the lowest; the quad (the 4 lanes of a row)
+// merges by (value, column), and each row is written once: no atomics, no
+// second pass. mma.sync's fragment layout is fixed and documented, which
+// keeps that epilogue simple; wgmma would reach the card's full tensor rate
+// but its accumulator layout and asynchronous issue make the fused min a
+// larger step.
+//
+// Bounds at N = 40 (a = 20, TA = 2^19, TB = 2^20, 2^39 entries), counting
+// the depth the function needs, not the padded one: K6 runs 2 * 3a = 120
+// bf16 operations per entry on the tensor cores (6.6e13, 67 ms at 989
+// TFLOP/s; it issues 2 * 64, the padded depth) and one min per entry on the
+// CUDA cores (8 ms at the f32 rate); K7 2 * a = 40 int8 operations per plane
+// and entry (4.4e13 at K = 2, 22 ms at 1979 TOP/s; it issues 2 * 32 per
+// plane) and K integer operations per entry on the CUDA cores (the min and
+// one shift-and-add per plane past the first; 16 ms at the f32 rate for
+// K = 2). So both are bound by the tensor cores. B moves 128 MB (K6) / 64
+// MB (K7 at K = 2) per pass over B, 2048 passes at 256 rows a CTA: ~260 /
+// 130 GB from L2, where the CTAs that run together walk the same columns at
+// about the same pace; HBM sees B about once per wave of CTAs. On an H100
+// SXM (700 W) K6 takes ~169 ms and K7 ~120 ms, with the B stream from L2
+// and the epilogue's per-entry min beside the MMAs in each warp's issue.
+// The shape (warps and rows per CTA, CTAs per SM, stages, columns per
+// stage) sits on a plateau (`chip_smoke.py --exact-ablation`).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,214 +82,350 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // A rows per block, one per thread
-constexpr int kTileB = 256;    // B columns staged in shared memory per step
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMB = 4;                              // m16 blocks per warp
+constexpr int kRowsPerWarp = 16 * kMB;              // 64 A rows
+constexpr int kRowsPerCta = kWarps * kRowsPerWarp;  // 256 A rows
+constexpr int kSlots = 2 * kMB;                     // rows a thread holds
+constexpr int kStages = 4;                          // cp.async ring depth
+constexpr unsigned kFull = 0xffffffffu;
 
-// K6 on one staged tile: columns [b0, b0 + count) of B, count == kTileB
-// unless kGuard (the last, partial tile).
-template <int G, bool kGuard>
-__device__ __forceinline__ void f32_tile(const float* __restrict__ cbt_s,
-                                         const float* __restrict__ eb_s,
-                                         const float (&sa)[4 * G], float ea,
-                                         int b0, int count, float& best,
-                                         int& arg) {
-  for (int j = 0; j < count; j += 4) {
-    float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
-#pragma unroll
-    for (int k = 0; k < 4 * G; ++k) {
-      const float4 c = *reinterpret_cast<const float4*>(cbt_s + k * kTileB + j);
-      d0 = fmaf(sa[k], c.x, d0);
-      d1 = fmaf(sa[k], c.y, d1);
-      d2 = fmaf(sa[k], c.z, d2);
-      d3 = fmaf(sa[k], c.w, d3);
-    }
-    const float4 e = *reinterpret_cast<const float4*>(eb_s + j);
-    const float t[4] = {(ea + e.x) - d0, (ea + e.y) - d1, (ea + e.z) - d2,
-                        (ea + e.w) - d3};
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (t[c] < best && (!kGuard || j + c < count)) {
-        best = t[c];
-        arg = b0 + j + c;
-      }
-    }
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-template <int G>
-__global__ void __launch_bounds__(kThreads) mitm_f32_kernel(
-    const float* __restrict__ SA,   // [TA, a]
-    const float* __restrict__ CBT,  // [a, TB]
-    const float* __restrict__ EA,   // [TA]
-    const float* __restrict__ EB,   // [TB]
-    float* __restrict__ min_e,      // [TA]
-    int32_t* __restrict__ arg_b,    // [TA]
-    int TA, int a, int TB) {
-  constexpr int KA = 4 * G;
-  __shared__ __align__(16) float cbt_s[KA * kTileB];
-  __shared__ __align__(16) float eb_s[kTileB];
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x * kThreads + tid;
-  const bool live = row < TA;
-
-  float sa[KA];
-#pragma unroll
-  for (int k = 0; k < KA; ++k)
-    sa[k] = (live && k < a) ? SA[(size_t)row * a + k] : 0.f;
-  const float ea = live ? EA[row] : 0.f;
-  float best = INFINITY;
-  int arg = 0;
-
-  for (int b0 = 0; b0 < TB; b0 += kTileB) {
-    const int count = min(kTileB, TB - b0);
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = tid; i < KA * kTileB; i += kThreads) {
-      const int k = i / kTileB, j = i % kTileB;
-      cbt_s[i] = (k < a && j < count) ? CBT[(size_t)k * TB + b0 + j] : 0.f;
-    }
-    for (int j = tid; j < kTileB; j += kThreads)
-      eb_s[j] = j < count ? EB[b0 + j] : 0.f;
-    __syncthreads();
-    if (count == kTileB)
-      f32_tile<G, false>(cbt_s, eb_s, sa, ea, b0, kTileB, best, arg);
-    else
-      f32_tile<G, true>(cbt_s, eb_s, sa, ea, b0, count, best, arg);
-  }
-  if (live) {
-    min_e[row] = best;
-    arg_b[row] = arg;
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
 }
 
-// K7 on one staged tile: planes_s [K][G][kTileB] words of 4 plane bytes.
-template <int G, bool kGuard>
-__device__ __forceinline__ void i8_tile(const int32_t* __restrict__ planes_s,
-                                        const int32_t* __restrict__ eb_s,
-                                        const int (&sa)[G], int32_t ea,
-                                        int K, int b0, int count,
-                                        int32_t& best, int& arg) {
-  for (int j = 0; j < count; j += 4) {
-    uint32_t x0 = 0, x1 = 0, x2 = 0, x3 = 0;  // cross terms, mod 2^32
-    for (int k = 0; k < K; ++k) {
-      int d0 = 0, d1 = 0, d2 = 0, d3 = 0;
-#pragma unroll
-      for (int w = 0; w < G; ++w) {
-        const int4 p =
-            *reinterpret_cast<const int4*>(planes_s + (k * G + w) * kTileB + j);
-        d0 = __dp4a(sa[w], p.x, d0);
-        d1 = __dp4a(sa[w], p.y, d1);
-        d2 = __dp4a(sa[w], p.z, d2);
-        d3 = __dp4a(sa[w], p.w, d3);
-      }
-      const int shift = 8 * k;
-      x0 += (uint32_t)d0 << shift;
-      x1 += (uint32_t)d1 << shift;
-      x2 += (uint32_t)d2 << shift;
-      x3 += (uint32_t)d3 << shift;
-    }
-    const int4 e = *reinterpret_cast<const int4*>(eb_s + j);
-    const uint32_t u = (uint32_t)ea;
-    const int32_t t[4] = {(int32_t)(u + (uint32_t)e.x - x0),
-                          (int32_t)(u + (uint32_t)e.y - x1),
-                          (int32_t)(u + (uint32_t)e.z - x2),
-                          (int32_t)(u + (uint32_t)e.w - x3)};
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (t[c] < best && (!kGuard || j + c < count)) {
-        best = t[c];
-        arg = b0 + j + c;
-      }
-    }
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int G>
-__global__ void __launch_bounds__(kThreads) mitm_i8_kernel(
-    const int8_t* __restrict__ SA,      // [TA, a]
-    const int8_t* __restrict__ planes,  // [K, a, TB]
-    const int32_t* __restrict__ EA,     // [TA]
-    const int32_t* __restrict__ EB,     // [TB]
-    int32_t* __restrict__ min_e,        // [TA]
-    int32_t* __restrict__ arg_b,        // [TA]
-    int TA, int a, int TB, int K) {
-  extern __shared__ __align__(16) int32_t smem_i8[];
-  int32_t* planes_s = smem_i8;                  // [K][G][kTileB]
-  int32_t* eb_s = smem_i8 + K * G * kTileB;     // [kTileB]
-  const int tid = threadIdx.x;
-  const int row = blockIdx.x * kThreads + tid;
-  const bool live = row < TA;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-  int sa[G];  // the row's +-1 values, 4 bytes per word, zero padded
-#pragma unroll
-  for (int w = 0; w < G; ++w) {
-    uint32_t word = 0;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int k = 4 * w + q;
-      const uint8_t v = (live && k < a) ? (uint8_t)SA[(size_t)row * a + k] : 0;
-      word |= (uint32_t)v << (8 * q);
-    }
-    sa[w] = (int)word;
-  }
-  const int32_t ea = live ? EA[row] : 0;
-  int32_t best = INT32_MAX;
-  int arg = 0;
+__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1,
+                                        uint32_t& r2, uint32_t& r3,
+                                        const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(smem_u32(p)));
+}
 
-  for (int b0 = 0; b0 < TB; b0 += kTileB) {
-    const int count = min(kTileB, TB - b0);
-    __syncthreads();
-    for (int i = tid; i < K * G * kTileB; i += kThreads) {
-      const int kw = i / kTileB, j = i % kTileB;
-      const int k = kw / G, w = kw % G;
-      uint32_t word = 0;
-      if (j < count) {
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
+                                        const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_u32(p)));
+}
+
+// K6: bf16 operands of depth 16 * KS (KS even), f32 accumulator.
+template <int KS>
+struct F32Op {
+  using V = float;
+  static constexpr int kTileB = 64;            // B columns per stage
+  static constexpr int kRowBytes = 32 * KS;    // one packed B column
+  struct BFrag {
+    uint32_t r[KS][2];
+  };
+  uint32_t a[kMB][KS][4];
+
+  __device__ static V vmax() { return INFINITY; }
+  __device__ static V vmin(V x, V y) { return fminf(x, y); }
+
+  __device__ void load_a(const void* A, int TA, int row0, int lane) {
+    const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int r = 4 * w + q;
-          if (r < a)
-            word |= (uint32_t)(uint8_t)planes[((size_t)k * a + r) * TB + b0 + j]
-                    << (8 * q);
+    for (int mb = 0; mb < kMB; ++mb) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 16 * mb + g + 8 * h;
+        const uint32_t* p =
+            static_cast<const uint32_t*>(A) + (size_t)row * (8 * KS);
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          a[mb][ks][h] = row < TA ? p[8 * ks + q] : 0u;
+          a[mb][ks][2 + h] = row < TA ? p[8 * ks + 4 + q] : 0u;
         }
       }
-      planes_s[i] = (int32_t)word;
     }
-    for (int j = tid; j < kTileB; j += kThreads)
-      eb_s[j] = j < count ? EB[b0 + j] : 0;
-    __syncthreads();
-    if (count == kTileB)
-      i8_tile<G, false>(planes_s, eb_s, sa, ea, K, b0, kTileB, best, arg);
-    else
-      i8_tile<G, true>(planes_s, eb_s, sa, ea, K, b0, count, best, arg);
   }
-  if (live) {
-    min_e[row] = best;
-    arg_b[row] = arg;
+
+  // B fragments of n-block nb: 16-byte chunk c of a column holds depth
+  // 8c..8c+7; one ldmatrix.x4 gives two k-steps.
+  __device__ static void load_b(const char* cols, int pitch, int nb, int lane,
+                                BFrag& b) {
+    const char* row = cols + (8 * nb + (lane & 7)) * pitch + 16 * (lane >> 3);
+#pragma unroll
+    for (int p = 0; p < KS / 2; ++p)
+      ldsm_x4(b.r[2 * p][0], b.r[2 * p][1], b.r[2 * p + 1][0],
+              b.r[2 * p + 1][1], row + 64 * p);
+  }
+
+  // y = EB + A . B on m-block mb: rows (g, g, g+8, g+8), columns (c, c+1,
+  // c, c+1).
+  __device__ void tile(const BFrag& b, V eb0, V eb1, int mb, V (&y)[4]) const {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+        : "=f"(y[0]), "=f"(y[1]), "=f"(y[2]), "=f"(y[3])
+        : "r"(a[mb][0][0]), "r"(a[mb][0][1]), "r"(a[mb][0][2]),
+          "r"(a[mb][0][3]), "r"(b.r[0][0]), "r"(b.r[0][1]), "f"(eb0),
+          "f"(eb1), "f"(eb0), "f"(eb1));
+#pragma unroll
+    for (int ks = 1; ks < KS; ++ks)
+      asm volatile(
+          "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+          : "+f"(y[0]), "+f"(y[1]), "+f"(y[2]), "+f"(y[3])
+          : "r"(a[mb][ks][0]), "r"(a[mb][ks][1]), "r"(a[mb][ks][2]),
+            "r"(a[mb][ks][3]), "r"(b.r[ks][0]), "r"(b.r[ks][1]));
+  }
+
+  __device__ static void finish(V ea, V m, int arg, V* out_e, int32_t* out_b) {
+    *out_e = ea + m;
+    *out_b = isinf(ea) ? 0 : arg;
+  }
+};
+
+// K7: K s8 digit planes of depth 32, s32 accumulators.
+template <int K>
+struct I8Op {
+  using V = int32_t;
+  static constexpr int kTileB = 128;
+  static constexpr int kRowBytes = 32 * K;
+  struct BFrag {
+    uint32_t r[K][2];
+  };
+  uint32_t a[kMB][4];
+
+  __device__ static V vmax() { return INT32_MAX; }
+  __device__ static V vmin(V x, V y) { return min(x, y); }
+
+  __device__ void load_a(const void* A, int TA, int row0, int lane) {
+    const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int mb = 0; mb < kMB; ++mb) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 16 * mb + g + 8 * h;
+        const uint32_t* p =
+            static_cast<const uint32_t*>(A) + (size_t)row * 8;
+        a[mb][h] = row < TA ? p[q] : 0u;
+        a[mb][2 + h] = row < TA ? p[4 + q] : 0u;
+      }
+    }
+  }
+
+  // plane k's depth is chunks 2k, 2k + 1 of a column; one ldmatrix.x4 gives
+  // two planes, an .x2 the last of an odd count.
+  __device__ static void load_b(const char* cols, int pitch, int nb, int lane,
+                                BFrag& b) {
+    const char* row = cols + (8 * nb + (lane & 7)) * pitch;
+#pragma unroll
+    for (int p = 0; p < K / 2; ++p)
+      ldsm_x4(b.r[2 * p][0], b.r[2 * p][1], b.r[2 * p + 1][0],
+              b.r[2 * p + 1][1], row + 64 * p + 16 * (lane >> 3));
+    if (K % 2)
+      ldsm_x2(b.r[K - 1][0], b.r[K - 1][1],
+              row + 32 * (K - 1) + 16 * ((lane >> 3) & 1));
+  }
+
+  __device__ void tile(const BFrag& b, V eb0, V eb1, int mb, V (&y)[4]) const {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+        : "=r"(y[0]), "=r"(y[1]), "=r"(y[2]), "=r"(y[3])
+        : "r"(a[mb][0]), "r"(a[mb][1]), "r"(a[mb][2]), "r"(a[mb][3]),
+          "r"(b.r[0][0]), "r"(b.r[0][1]), "r"(eb0), "r"(eb1), "r"(eb0),
+          "r"(eb1));
+#pragma unroll
+    for (int k = 1; k < K; ++k) {
+      int32_t d[4];
+      asm volatile(
+          "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+          "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+          : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+          : "r"(a[mb][0]), "r"(a[mb][1]), "r"(a[mb][2]), "r"(a[mb][3]),
+            "r"(b.r[k][0]), "r"(b.r[k][1]), "r"(0), "r"(0), "r"(0), "r"(0));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        y[i] = (int32_t)((uint32_t)y[i] + ((uint32_t)d[i] << (8 * k)));
+    }
+  }
+
+  __device__ static void finish(V ea, V m, int arg, V* out_e, int32_t* out_b) {
+    *out_e = (int32_t)((uint32_t)ea + (uint32_t)m);
+    *out_b = arg;
+  }
+};
+
+template <class Op>
+__global__ void __launch_bounds__(kThreads, 3)
+    mitm_kernel(const void* __restrict__ A, const char* __restrict__ B,
+                const typename Op::V* __restrict__ EA,
+                const typename Op::V* __restrict__ EB,
+                typename Op::V* __restrict__ min_e,
+                int32_t* __restrict__ arg_b, int TA, int TB) {
+  using V = typename Op::V;
+  constexpr int kTileB = Op::kTileB;
+  constexpr int kPitch = Op::kRowBytes + 16;
+  constexpr int kColsBytes = kTileB * kPitch;
+  constexpr int kStageBytes = kColsBytes + kTileB * (int)sizeof(V);
+  constexpr int kChunksPerCol = Op::kRowBytes / 16;
+  extern __shared__ __align__(16) char smem[];
+
+  const int tid = threadIdx.x, lane = tid & 31, q = lane & 3;
+  const int row0 = blockIdx.x * kRowsPerCta + (tid >> 5) * kRowsPerWarp;
+  Op op;
+  op.load_a(A, TA, row0, lane);
+
+  const int n_tiles = TB / kTileB;
+  auto load_stage = [&](int t) {
+    char* st = smem + (t % kStages) * kStageBytes;
+    const char* src = B + (size_t)t * kTileB * Op::kRowBytes;
+    for (int i = tid; i < kTileB * kChunksPerCol; i += kThreads)
+      cp_async16(st + (i / kChunksPerCol) * kPitch + 16 * (i % kChunksPerCol),
+                 src + 16 * (size_t)i);
+    const char* eb = reinterpret_cast<const char*>(EB + (size_t)t * kTileB);
+    for (int i = tid; i < kTileB * (int)sizeof(V) / 16; i += kThreads)
+      cp_async16(st + kColsBytes + 16 * i, eb + 16 * i);
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_tiles) load_stage(s);
+    cp_async_commit();
+  }
+
+  // cmin: the running row min; best: the min at the current stage's start
+  V cmin[kSlots], best[kSlots];
+  int arg[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    cmin[s] = best[s] = Op::vmax();
+    arg[s] = 0;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage t landed; every warp is done with t - 1's
+    if (t + kStages - 1 < n_tiles) load_stage(t + kStages - 1);
+    cp_async_commit();
+    const char* st = smem + (t % kStages) * kStageBytes;
+    const V* eb = reinterpret_cast<const V*>(st + kColsBytes);
+#pragma unroll
+    for (int nb = 0; nb < kTileB / 8; ++nb) {
+      typename Op::BFrag b;
+      Op::load_b(st, kPitch, nb, lane, b);
+      const V eb0 = eb[8 * nb + 2 * q], eb1 = eb[8 * nb + 2 * q + 1];
+#pragma unroll
+      for (int mb = 0; mb < kMB; ++mb) {
+        V y[4];
+        op.tile(b, eb0, eb1, mb, y);
+        cmin[2 * mb] = Op::vmin(cmin[2 * mb], Op::vmin(y[0], y[1]));
+        cmin[2 * mb + 1] = Op::vmin(cmin[2 * mb + 1], Op::vmin(y[2], y[3]));
+      }
+    }
+    bool improved = false;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) improved |= cmin[s] < best[s];
+    if (__any_sync(kFull, improved)) {
+      // some row of this warp has a new min in this stage: recompute the
+      // m-blocks concerned and take the first column that attains it
+      const int c0 = t * kTileB + 2 * q;
+#pragma unroll
+      for (int mb = 0; mb < kMB; ++mb) {
+        bool w0 = cmin[2 * mb] < best[2 * mb];
+        bool w1 = cmin[2 * mb + 1] < best[2 * mb + 1];
+        if (!__any_sync(kFull, w0 || w1)) continue;
+#pragma unroll
+        for (int nb = 0; nb < kTileB / 8; ++nb) {
+          typename Op::BFrag b;
+          Op::load_b(st, kPitch, nb, lane, b);
+          V y[4];
+          op.tile(b, eb[8 * nb + 2 * q], eb[8 * nb + 2 * q + 1], mb, y);
+          const int c = c0 + 8 * nb;
+          if (w0 && y[0] == cmin[2 * mb]) {
+            arg[2 * mb] = c;
+            w0 = false;
+          } else if (w0 && y[1] == cmin[2 * mb]) {
+            arg[2 * mb] = c + 1;
+            w0 = false;
+          }
+          if (w1 && y[2] == cmin[2 * mb + 1]) {
+            arg[2 * mb + 1] = c;
+            w1 = false;
+          } else if (w1 && y[3] == cmin[2 * mb + 1]) {
+            arg[2 * mb + 1] = c + 1;
+            w1 = false;
+          }
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) best[s] = cmin[s];
+    }
+  }
+
+  // merge the quad by (value, column) and write each row once
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    V v = best[s];
+    int ix = arg[s];
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const V ov = __shfl_xor_sync(kFull, v, off);
+      const int oi = __shfl_xor_sync(kFull, ix, off);
+      if (ov < v || (ov == v && oi < ix)) {
+        v = ov;
+        ix = oi;
+      }
+    }
+    const int row = row0 + 16 * (s / 2) + (lane >> 2) + 8 * (s % 2);
+    if (q == 0 && row < TA)
+      Op::finish(EA[row], v, ix, min_e + row, arg_b + row);
   }
 }
 
-// Word groups (4 spins each) of SA's row; a = 0 still takes one group.
-inline int groups_of(int a) { return a <= 4 ? 1 : (a + 3) / 4; }
-
-template <int G>
-cudaError_t launch_f32(const float* SA, const float* CBT, const float* EA,
-                       const float* EB, float* min_e, int32_t* arg_b, int TA,
-                       int a, int TB, cudaStream_t stream) {
-  const int grid = (TA + kThreads - 1) / kThreads;
-  mitm_f32_kernel<G><<<grid, kThreads, 0, stream>>>(SA, CBT, EA, EB, min_e,
-                                                    arg_b, TA, a, TB);
-  return cudaGetLastError();
+template <class Op>
+constexpr int smem_bytes() {
+  return kStages * (Op::kTileB * (Op::kRowBytes + 16) +
+                    Op::kTileB * (int)sizeof(typename Op::V));
 }
 
-template <int G>
-cudaError_t launch_i8(const int8_t* SA, const int8_t* planes,
-                      const int32_t* EA, const int32_t* EB, int32_t* min_e,
-                      int32_t* arg_b, int TA, int a, int TB, int K,
-                      cudaStream_t stream) {
-  const int grid = (TA + kThreads - 1) / kThreads;
-  const size_t smem = (size_t)(K * G + 1) * kTileB * sizeof(int32_t);
-  mitm_i8_kernel<G><<<grid, kThreads, smem, stream>>>(SA, planes, EA, EB,
-                                                      min_e, arg_b, TA, a,
-                                                      TB, K);
+template <class Op>
+cudaError_t occupancy(int* regs, int* smem, int* ctas) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, mitm_kernel<Op>);
+  if (err != cudaSuccess) return err;
+  *regs = attr.numRegs;
+  *smem = smem_bytes<Op>();
+  err = cudaFuncSetAttribute(mitm_kernel<Op>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             *smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, mitm_kernel<Op>,
+                                                       kThreads, *smem);
+}
+
+template <class Op>
+cudaError_t launch(const void* A, const void* B, const typename Op::V* EA,
+                   const typename Op::V* EB, typename Op::V* min_e,
+                   int32_t* arg_b, int TA, int TB, cudaStream_t stream) {
+  if (TB % Op::kTileB) return cudaErrorInvalidValue;
+  const int smem = smem_bytes<Op>();
+  cudaError_t err = cudaFuncSetAttribute(
+      mitm_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (TA + kRowsPerCta - 1) / kRowsPerCta;
+  mitm_kernel<Op><<<grid, kThreads, smem, stream>>>(
+      A, static_cast<const char*>(B), EA, EB, min_e, arg_b, TA, TB);
   return cudaGetLastError();
 }
 
@@ -269,45 +433,60 @@ cudaError_t launch_i8(const int8_t* SA, const int8_t* planes,
 
 extern "C" {
 
-// K6. Launches on `stream`; returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a > 32).
-int mitm_min_f32(const float* SA, const float* CBT, const float* EA,
-                 const float* EB, float* min_e, int32_t* arg_b, int TA, int a,
-                 int TB, void* stream) {
+// K6 on packed operands: A [TA, kd] bf16, B [TB, kd] bf16 (TB a multiple of
+// 64), EA [TA] f32, EB [TB] f32; kd = 32, 64 or 96. Launches on `stream`;
+// returns the cudaError_t of the launch (cudaErrorInvalidValue for another
+// kd or TB).
+int mitm_min_f32(const void* A, const void* B, const float* EA,
+                 const float* EB, float* min_e, int32_t* arg_b, int TA, int TB,
+                 int kd, void* stream) {
   if (TA == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (groups_of(a)) {
-    case 1: return (int)launch_f32<1>(SA, CBT, EA, EB, min_e, arg_b, TA, a, TB, s);
-    case 2: return (int)launch_f32<2>(SA, CBT, EA, EB, min_e, arg_b, TA, a, TB, s);
-    case 3: return (int)launch_f32<3>(SA, CBT, EA, EB, min_e, arg_b, TA, a, TB, s);
-    case 4: return (int)launch_f32<4>(SA, CBT, EA, EB, min_e, arg_b, TA, a, TB, s);
-    case 5: return (int)launch_f32<5>(SA, CBT, EA, EB, min_e, arg_b, TA, a, TB, s);
-    case 6: return (int)launch_f32<6>(SA, CBT, EA, EB, min_e, arg_b, TA, a, TB, s);
-    case 7: return (int)launch_f32<7>(SA, CBT, EA, EB, min_e, arg_b, TA, a, TB, s);
-    case 8: return (int)launch_f32<8>(SA, CBT, EA, EB, min_e, arg_b, TA, a, TB, s);
+  switch (kd) {
+    case 32:
+      return (int)launch<F32Op<2>>(A, B, EA, EB, min_e, arg_b, TA, TB, s);
+    case 64:
+      return (int)launch<F32Op<4>>(A, B, EA, EB, min_e, arg_b, TA, TB, s);
+    case 96:
+      return (int)launch<F32Op<6>>(A, B, EA, EB, min_e, arg_b, TA, TB, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// K7. Launches on `stream`; returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a > 32 or K outside 1..4).
-int mitm_min_i8(const int8_t* SA, const int8_t* planes, const int32_t* EA,
+// K7 on packed operands: A [TA, 32] s8 (-SA), B [TB, K, 32] s8 (TB a
+// multiple of 128), EA [TA] i32, EB [TB] i32; K = 1..4 digit planes.
+// Launches on `stream`; returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for K outside 1..4 or another TB).
+int mitm_min_i8(const void* A, const void* B, const int32_t* EA,
                 const int32_t* EB, int32_t* min_e, int32_t* arg_b, int TA,
-                int a, int TB, int K, void* stream) {
-  if (K < 1 || K > 4) return (int)cudaErrorInvalidValue;
+                int TB, int K, void* stream) {
   if (TA == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (groups_of(a)) {
-    case 1: return (int)launch_i8<1>(SA, planes, EA, EB, min_e, arg_b, TA, a, TB, K, s);
-    case 2: return (int)launch_i8<2>(SA, planes, EA, EB, min_e, arg_b, TA, a, TB, K, s);
-    case 3: return (int)launch_i8<3>(SA, planes, EA, EB, min_e, arg_b, TA, a, TB, K, s);
-    case 4: return (int)launch_i8<4>(SA, planes, EA, EB, min_e, arg_b, TA, a, TB, K, s);
-    case 5: return (int)launch_i8<5>(SA, planes, EA, EB, min_e, arg_b, TA, a, TB, K, s);
-    case 6: return (int)launch_i8<6>(SA, planes, EA, EB, min_e, arg_b, TA, a, TB, K, s);
-    case 7: return (int)launch_i8<7>(SA, planes, EA, EB, min_e, arg_b, TA, a, TB, K, s);
-    case 8: return (int)launch_i8<8>(SA, planes, EA, EB, min_e, arg_b, TA, a, TB, K, s);
+  switch (K) {
+    case 1:
+      return (int)launch<I8Op<1>>(A, B, EA, EB, min_e, arg_b, TA, TB, s);
+    case 2:
+      return (int)launch<I8Op<2>>(A, B, EA, EB, min_e, arg_b, TA, TB, s);
+    case 3:
+      return (int)launch<I8Op<3>>(A, B, EA, EB, min_e, arg_b, TA, TB, s);
+    case 4:
+      return (int)launch<I8Op<4>>(A, B, EA, EB, min_e, arg_b, TA, TB, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Registers per thread, dynamic shared memory per CTA and resident CTAs
+// per SM of K6 (i8 = 0, arg = kd) or K7 (i8 = 1, arg = K), from the CUDA
+// runtime.
+int mitm_occupancy(int i8, int arg, int* regs, int* smem, int* ctas) {
+  if (!i8 && arg == 32) return (int)occupancy<F32Op<2>>(regs, smem, ctas);
+  if (!i8 && arg == 64) return (int)occupancy<F32Op<4>>(regs, smem, ctas);
+  if (!i8 && arg == 96) return (int)occupancy<F32Op<6>>(regs, smem, ctas);
+  if (i8 && arg == 1) return (int)occupancy<I8Op<1>>(regs, smem, ctas);
+  if (i8 && arg == 2) return (int)occupancy<I8Op<2>>(regs, smem, ctas);
+  if (i8 && arg == 3) return (int)occupancy<I8Op<3>>(regs, smem, ctas);
+  if (i8 && arg == 4) return (int)occupancy<I8Op<4>>(regs, smem, ctas);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -302,13 +302,15 @@ def solve_exact_fused(prob, *, symmetry: Optional[bool] = None,
     run; with device="cpu" their plain twins.
 
     A `timings` dict receives the wall seconds of each step: "tables"
-    (`fused_inputs` on the host), "upload" (to the device), "kernel" (the
-    launch until (min_e, arg_b) are back on the host) and "verify" (the
-    state and its f64 energy).
+    (`fused_inputs` on the host), "upload" (to the device, with the
+    kernels' operand packing on the card), "kernel" (the launch until
+    (min_e, arg_b) are back on the host) and "verify" (the state and its
+    f64 energy).
     """
     import time
 
-    from .ops.exact_cuda import mitm_min, mitm_min_i8
+    from .ops.exact_cuda import (_launch_f32, _launch_i8, _pack_f32,
+                                 _pack_i8, mitm_min, mitm_min_i8)
 
     dev = resolve_device(device)
     t0 = time.perf_counter()
@@ -317,11 +319,17 @@ def solve_exact_fused(prob, *, symmetry: Optional[bool] = None,
         planes=planes)
     t1 = time.perf_counter()
     inputs = [torch.as_tensor(x, device=dev) for x in arrays]
-    if timings is not None and dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    blocks = dict(block_a=block_a, block_b=block_b)
+    if dev.type == "cuda":
+        packed = (_pack_i8 if use_i8 else _pack_f32)(*inputs, **blocks)
+        if timings is not None:
+            torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
-    kernel = mitm_min_i8 if use_i8 else mitm_min
-    min_e, arg_b = kernel(*inputs, block_a=block_a, block_b=block_b)
+    if dev.type == "cuda":
+        min_e, arg_b = (_launch_i8 if use_i8 else _launch_f32)(*packed)
+    else:
+        min_e, arg_b = (mitm_min_i8 if use_i8 else mitm_min)(*inputs,
+                                                             **blocks)
     min_e = min_e.cpu().numpy()
     arg_b = arg_b.cpu().numpy()
     t3 = time.perf_counter()

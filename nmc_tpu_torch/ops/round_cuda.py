@@ -55,8 +55,9 @@ import torch
 
 from ._build import bind, load_library
 from .sweeps import heat_bath_update
-from .sweeps_cuda import (_broadcast, _check, _check_shared, _ptr, _raise_on,
-                          _require_cuda, _seed)
+from .sweeps_cuda import (MAX_SHARED_BYTES, _broadcast, _check,
+                          _check_shared, _ptr, _raise_on, _require_cuda,
+                          _seed)
 
 _LIB = "ensemble_round"
 # argument kinds of each C entry point, in order ('p' pointer, 'i' int,
@@ -411,6 +412,21 @@ def _shared_bytes(n_pad, B):
     """Dynamic shared memory per CTA: phi (f32), dm [B] (f32), m, the
     phase-best m and the phase flags (1 byte each per spin)."""
     return 7 * n_pad + 4 * B
+
+
+def round_kernel_limit(n_pad: int, block_size: int) -> Optional[str]:
+    """Why the round kernels cannot take a layout of n_pad spins in blocks
+    of `block_size`, or None when they can: the neighbour layout's int16
+    spin indices and the CTA's shared memory (one replica's state) are
+    their only limits on the layout."""
+    if n_pad > _INT16_MAX + 1:
+        return (f"n_pad {n_pad} > {_INT16_MAX + 1}, the int16 spin indices "
+                "of the round kernels' neighbour layout")
+    nbytes = _shared_bytes(n_pad, block_size)
+    if nbytes > MAX_SHARED_BYTES:
+        return (f"n_pad {n_pad} needs {nbytes} bytes of shared memory per "
+                f"CTA, above the {MAX_SHARED_BYTES} a CTA has")
+    return None
 
 
 def _launch(fn, nbrs, h, act, m0, cl, do_nmc, beta_row, generator, *,

@@ -18,18 +18,22 @@ couplings (slot planes, edge list or dense) sit on the device.
 Two round bodies, the route fixed at setup (`round_path`):
   * "K4" / "K5": one whole-round kernel launch over all instances
     (`ops/round_cuda.py`), then the fold of per-slot round bests into the
-    per-instance best, then batched label swaps. K4 (dense J) serves
-    colored float32 layouts with n_pad <= 1536, the same limit as K1 in
-    `SweepEngine`; above it K5 (the union block-sparse tiles) when the
-    union tile count K <= max(nB - 1, 1), the JAX engine's condition.
-    Both kernels read the couplings through the union graph's neighbour
-    layout (`round_nbrs`), built here once and passed to every launch;
+    per-instance best, then batched label swaps. Both kernels read the
+    couplings through the union graph's neighbour layout (`round_nbrs`),
+    built here once and passed to every launch, so any colored float32
+    layout inside that layout's own limits (`round_kernel_limit`: n_pad
+    <= 32768 for its int16 indices, one replica's state in a CTA's
+    shared memory) takes one: K4 (dense J) up to n_pad 1536, the same
+    limit as K1 in `SweepEngine`; above it K5 (the union block-sparse
+    tiles, whose count K per row block is below nB on a colored layout:
+    its diagonal tiles are zero);
   * "plain": the JAX engine's XLA round, one instance after another, each
     phase a call of `ops/sweeps.run_sweeps`. It serves `round_kernel="off"`
     and uncoloured (wishart) or float64 layouts.
 On a CUDA device `round_kernel="auto"` with a coloured float32 layout takes
-K4/K5 or raises; `"on"` raises whenever no kernel fits. On CPU tensors the
-kernel wrappers run their plain torch versions.
+K4/K5 or raises, naming the limit it passes; `"on"` raises whenever no
+kernel fits. On CPU tensors the kernel wrappers run their plain torch
+versions.
 
 The two routes heat the backbone differently, each as its JAX counterpart
 does: the kernels by beta_row * (1 + f32(temp_x_inv - 1)), the plain round
@@ -59,7 +63,7 @@ from ..ops.lbp_jit import (convexified_marginal_dense,
                            convexified_marginal_sparse)
 from ..ops.round_cuda import (ensemble_round, ensemble_round_sparse,
                               neighbors_from_dense, neighbors_from_tiles,
-                              phase_list)
+                              phase_list, round_kernel_limit)
 from ..ops.sweeps import run_sweeps
 from .sharded_pt import ShardedNPTConfig
 from .swaps import metropolis_label_swap
@@ -184,12 +188,18 @@ class EnsembleNMC:
                 si, di = np.asarray(g.src), np.asarray(g.dst)
                 self.edge_w = put(np.stack([Ji[si, di] for Ji in J_sq]))
 
-        # the round route, fixed here
+        # the round route, fixed here. Both kernels run one body over a
+        # neighbour layout, so any colored f32 layout inside that body's own
+        # limits (`round_kernel_limit`) takes one: K4 over dense J up to
+        # n_pad 1536, K5 over the union tiles above it.
         fails = []
         if not blocked[0].colored:
             fails.append("use_coloring=True (colored Jacobi layout)")
         if dtype != torch.float32:
             fails.append(f"dtype must be float32, got {dtype}")
+        limit = round_kernel_limit(n_pad, blocked[0].block_size)
+        if limit:
+            fails.append(limit)
         self.round_path = "plain"
         self._stream_tiles = self.round_nbrs = None
         if cfg.round_kernel != "off" and not fails:
@@ -199,18 +209,14 @@ class EnsembleNMC:
                     self.J_full, blocked[0].block_size)
             else:
                 col_idx, J_tiles = union or _union_tiles(blocked)
+                # each row block is one colour class, so its diagonal tile
+                # is zero in every instance and some column tile is empty
                 K, nB = col_idx.shape[1], blocked[0].num_blocks
-                if K <= max(nB - 1, 1):
-                    self.round_path = "K5"
-                    self._stream_tiles = (put(col_idx, torch.int32),
-                                          put(J_tiles))
-                    self.round_nbrs = neighbors_from_tiles(
-                        *self._stream_tiles)
-                else:
-                    fails.append(
-                        f"n_pad {n_pad} > {K1_MAX_N_PAD} (K4) and the union "
-                        f"tile count K = {K} > max(nB - 1, 1) = "
-                        f"{max(nB - 1, 1)} (K5)")
+                assert K <= max(nB - 1, 1), (K, nB)
+                self.round_path = "K5"
+                self._stream_tiles = (put(col_idx, torch.int32),
+                                      put(J_tiles))
+                self.round_nbrs = neighbors_from_tiles(*self._stream_tiles)
         if self.round_path == "plain" and (
                 cfg.round_kernel == "on"
                 or (cfg.round_kernel == "auto" and dev.type == "cuda"

@@ -10,6 +10,12 @@ on integers below 2^24, int32 below 2^31), padded rows and tie-heavy tables
 included. On float inputs the twin's matmul sums in another order than
 XLA's dot, so min_e agrees to 1e-4 absolute (entries below 40 in magnitude,
 a few f32 ulps) and arg_b exactly (no near-ties in these draws).
+
+The kernels read operands packed for the tensor cores (`f32_operands`: the
+exact three-way bf16 split of CBT along the depth; `i8_operands`: the digit
+planes column-major); `mitm_min_operands_reference` and its K7 twin reduce
+those operands in the kernels' association (EB as the accumulator's start,
+EA added after the row min) and are held against the Pallas kernels too.
 """
 
 import ctypes
@@ -30,7 +36,9 @@ CSRC = Path(__file__).resolve().parent.parent / "nmc_tpu_torch" / "csrc"
 # (TA, valid rows, a, TB, block_a, block_b)
 SHAPES = {"integer": (64, 64, 7, 256, 32, 64),
           "padded": (96, 64, 7, 128, 48, 64),
-          "ties": (64, 64, 4, 256, 64, 32)}
+          "ties": (64, 64, 4, 256, 64, 32),
+          # TB below one column tile of either kernel: the packed B pads
+          "ragged": (80, 72, 11, 96, 40, 32)}
 
 
 def _f32_inputs(case, seed=0):
@@ -52,7 +60,7 @@ def _f32_inputs(case, seed=0):
 
 
 def _i8_inputs(case, seed=0):
-    TA, valid, a, TB, _, _ = SHAPES[case]
+    TA, valid, a, TB, _, _ = SHAPES.get(case, SHAPES["padded"])
     rng = np.random.default_rng(seed)
     SA = np.where(rng.random((TA, a)) < 0.5, -1, 1).astype(np.int8)
     if case == "ties":
@@ -224,3 +232,149 @@ def test_ctypes_binding_matches_each_entry_point(fn):
     for p, t in zip(params, argtypes):
         expected = ctypes.c_void_p if "*" in p else ctypes.c_int
         assert t is expected, p
+
+
+# ---- the kernels' packed operands -------------------------------------------
+
+def _split_sum(x):
+    parts = ec.split_bf16(torch.as_tensor(x))
+    assert all(p.dtype == torch.bfloat16 for p in parts)
+    return [p.double().numpy() for p in parts]
+
+
+@pytest.mark.parametrize("kind", ["float", "integer"])
+def test_split_bf16_parts_sum_exactly(kind):
+    """hi + mid + lo == x bit for bit, every part with x's sign, and
+    |hi| + |mid| + |lo| == |x|: on f32 values over many binades and on
+    integers up to 2^24 in magnitude."""
+    rng = np.random.default_rng(11)
+    if kind == "float":
+        x = (rng.normal(size=4096) * 2.0 ** rng.integers(-30, 30, 4096))
+    else:
+        x = rng.integers(-(1 << 24), (1 << 24) + 1, 4096).astype(np.float64)
+        x[:4] = [1 << 24, -(1 << 24), (1 << 24) - 1, 0]
+    x = x.astype(np.float32)
+    hi, mid, lo = _split_sum(x)
+    np.testing.assert_array_equal(hi + mid + lo, x.astype(np.float64))
+    for p in (hi, mid, lo):
+        assert (p * x >= 0).all()
+    np.testing.assert_array_equal(np.abs(hi) + np.abs(mid) + np.abs(lo),
+                                  np.abs(x.astype(np.float64)))
+    assert (np.abs(mid) < np.abs(hi) + (hi == 0)).all()
+
+
+@pytest.mark.parametrize("case", ["integer", "padded", "ties", "ragged",
+                                  "float"])
+def test_f32_operands_layout(case):
+    """K6's packed product is -SA . CBT exactly; the depth is 3a rounded up
+    to 32, TB up to a whole column tile, EB padded with +inf."""
+    SA, CBT, EA, EB = map(torch.as_tensor, _f32_inputs(case))
+    TA, a = SA.shape
+    TB = EB.shape[0]
+    A, B, EBp = ec.f32_operands(SA, CBT, EB)
+    kd = 32 * -(-3 * a // 32)
+    TBp = -(-TB // ec.TILE_B_F32) * ec.TILE_B_F32
+    assert A.shape == (TA, kd) and B.shape == (TBp, kd)
+    assert A.dtype == B.dtype == torch.bfloat16 and EBp.shape == (TBp,)
+    np.testing.assert_array_equal(
+        (A.double() @ B.double().T)[:, :TB].numpy(),
+        -(SA.double() @ CBT.double()).numpy())
+    assert (A[:, 3 * a:] == 0).all() and (B[:, 3 * a:] == 0).all()
+    assert (B[TB:] == 0).all() and torch.isinf(EBp[TB:]).all()
+    assert torch.equal(EBp[:TB], EB)
+
+
+@pytest.mark.parametrize("case", ["padded", "ties", "ragged"])
+def test_i8_operands_layout(case):
+    SA, P, EA, EB = map(torch.as_tensor, _i8_inputs(case))
+    TA, a = SA.shape
+    K, _, TB = P.shape
+    A, B, EBp = ec.i8_operands(SA, P, EB)
+    TBp = -(-TB // ec.TILE_B_I8) * ec.TILE_B_I8
+    assert A.shape == (TA, 32) and B.shape == (TBp, K, 32)
+    assert A.dtype == B.dtype == torch.int8 and EBp.dtype == torch.int32
+    assert torch.equal(A[:, :a], -SA) and (A[:, a:] == 0).all()
+    assert torch.equal(B[:TB, :, :a], P.permute(2, 0, 1))
+    assert (B[TB:] == 0).all() and (B[:, :, a:] == 0).all()
+    assert (EBp[TB:] == torch.iinfo(torch.int32).max).all()
+    assert torch.equal(EBp[:TB], EB)
+
+
+def _packed_k6(args):
+    SA, CBT, EA, EB = map(torch.as_tensor, args)
+    A, B, EBp = ec.f32_operands(SA, CBT, EB)
+    return ec.mitm_min_operands_reference(A, B, EA, EBp)
+
+
+def _packed_k7(args):
+    SA, P, EA, EB = map(torch.as_tensor, args)
+    A, B, EBp = ec.i8_operands(SA, P, EB)
+    return ec.mitm_min_i8_operands_reference(A, B, EA, EBp)
+
+
+@pytest.mark.parametrize("case", ["integer", "padded", "ties", "ragged"])
+def test_k6_packed_operands_match_pallas_interpret_bitwise(case):
+    """The kernel's association over its packed operands (EB + A . B, the
+    row min, EA after it) equals the Pallas kernel bit for bit on integer
+    couplings, pad rows (+inf, 0) and tied rows included."""
+    *_, ba, bb = SHAPES[case]
+    args = _f32_inputs(case, seed=4)
+    je, jb = jx.mitm_min_pallas(*map(jnp.asarray, args), block_a=ba,
+                                block_b=bb, interpret=True)
+    te, tb = _packed_k6(args)
+    assert te.dtype == torch.float32 and tb.dtype == torch.int32
+    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    valid = SHAPES[case][1]
+    assert np.isinf(te.numpy()[valid:]).all()
+    assert (tb.numpy()[valid:] == 0).all()
+
+
+def test_k6_packed_operands_match_pallas_interpret_float():
+    """Float couplings: within 128 * 2^-24 * the entries' magnitude bound
+    (the tolerance chip_smoke.py holds the kernel to), argmins equal (no
+    near-ties in this draw)."""
+    args = _f32_inputs("float", seed=3)
+    SA, CBT, EA, EB = args
+    je, jb = jx.mitm_min_pallas(*map(jnp.asarray, args), block_a=32,
+                                block_b=64, interpret=True)
+    te, tb = _packed_k6(args)
+    bound = (np.abs(EA).max() + np.abs(EB).max()
+             + np.abs(CBT).sum(axis=0).max())
+    np.testing.assert_allclose(te.numpy(), np.asarray(je), rtol=0,
+                               atol=128 * 2.0 ** -24 * bound)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+
+
+@pytest.mark.parametrize("case", ["padded", "ties", "ragged"])
+def test_k7_packed_operands_match_pallas_interpret_bitwise(case):
+    """K7's association (plane 0 from EB, planes recombined in wrapping
+    uint32, EA after the row min) equals the Pallas kernel bit for bit, pad
+    rows included: 3 digit planes on "padded", ties on "ties", a ragged
+    TB on "ragged"."""
+    *_, ba, bb = SHAPES[case]
+    args = _i8_inputs(case, seed=6)
+    assert args[1].shape[0] == (1 if case == "ties" else 3)
+    je, jb = jx.mitm_min_pallas_i8(*map(jnp.asarray, args), block_a=ba,
+                                   block_b=bb, interpret=True)
+    te, tb = _packed_k7(args)
+    assert te.dtype == torch.int32 and tb.dtype == torch.int32
+    np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    valid = SHAPES[case][1]
+    assert (te.numpy()[valid:] > (1 << 29)).all()
+
+
+def test_k7_packed_equals_k6_packed_on_small_integers():
+    """Where both apply (integers below 2^24) the two associations agree on
+    every valid row, and K6's pad rows are (+inf, 0)."""
+    SA, CBT, EA, EB = _f32_inputs("ragged", seed=8)
+    e6, b6 = _packed_k6((SA, CBT, EA, EB))
+    EA_i = np.where(np.isfinite(EA), EA, ec.I32_PAD).astype(np.int32)
+    e7, b7 = _packed_k7((SA.astype(np.int8), ec.int8_planes(CBT), EA_i,
+                         EB.astype(np.int32)))
+    valid = SHAPES["ragged"][1]
+    np.testing.assert_array_equal(e7.numpy()[:valid],
+                                  e6.numpy()[:valid].astype(np.int32))
+    np.testing.assert_array_equal(b7.numpy()[:valid], b6.numpy()[:valid])
+    assert np.isinf(e6.numpy()[valid:]).all() and (b6[valid:] == 0).all()
