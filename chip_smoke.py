@@ -18,11 +18,17 @@ non-zero without printing a result:
                  against the enumerated Boltzmann law of a 4-cycle;
   4. streamed_kernels — K3 (colored_sweeps_sparse) on chimera 16x16
                  (n_pad 2048) and K2 (colored_sweeps_streamed) on a random
-                 3-regular +-J graph with N = 4096, each against its plain
-                 version at R = 256, T = 16 with identical uniforms, in an
-                 "all" and a "heated clusters + beta_row" case; then
-                 K1 = K2 = K3 bit for bit with their own Philox draws on
-                 chimera 8x8, and the Boltzmann TV of K2 and K3;
+                 3-regular +-J graph with N = 4096, one kernel body over a
+                 neighbour layout (`SweepNeighbors`), each at R = 256,
+                 T = 16 with identical uniforms, in an "all" and a "heated
+                 clusters + beta_row" case: against its plain version
+                 (dense rows / tiles) within its tolerance, and bit for bit
+                 against `neighbor_sweeps_reference` (the plain sweeps over
+                 the layout with the kernel's association) at every CTA
+                 width; the same bit for bit, K2 and K3 each, on Gaussian
+                 chimera 8x8 and 16x16; K1 = K2 = K3 bit for bit with their
+                 own Philox draws on +-J and Gaussian chimera 8x8; the
+                 Boltzmann TV of K2 and K3;
   5. nmc_512   — nmc_run on chimera 8x8, 256 chains, reduced depth, through
                  K1 (launch count of that run); plus the NMC cycle loop at a
                  small size on the card against the CPU path;
@@ -92,20 +98,24 @@ non-zero without printing a result:
                  kernel's, element for element), bounds on the tensor
                  cores and the CUDA cores, registers, shared memory and
                  CTAs per SM; K6 on the float instance against its plain
-                 version with a stated tolerance; and K1, K2 and K3 alone
+                 version with a stated tolerance; K1, K2 and K3 alone
                  at the shapes they launch at on the main paths
                  (LAUNCH_SHAPES: K3 at R = 256, 64, 24 and 2), beside
-                 their bounds.
+                 their bounds; and K2 against K1 (bit for bit, then each
+                 timed) on a denser colored layout, 32 random matchings
+                 at N = 4096.
 Phases 5-8, 10-12 and 14 are the main paths: each sets the launch counts to
 0 just before it and reads them just after. Then one line {"kernels": [...]},
 the card's name and power limit, and last {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --round-ablation
     python3 chip_smoke.py --exact-ablation
+    python3 chip_smoke.py --sweep-ablation
 
-time patched copies of the round kernels' and the exact kernels' sources
-against the kernels as they are, in turns (ROUND_ABLATIONS,
-EXACT_ABLATIONS).
+time patched copies of the round kernels', the exact kernels' and the
+K2/K3 body's sources against the kernels as they are, in turns
+(ROUND_ABLATIONS, EXACT_ABLATIONS, SWEEP_ABLATIONS; the last also each CTA
+width and block steps at every K2/K3 launch shape).
 """
 
 import functools
@@ -309,10 +319,12 @@ def _tiles(eng):
             torch.as_tensor(J_tiles, device=DEVICE))
 
 
-def _kernel_fns(name, eng):
+def _kernel_fns(name, eng, threads=None):
     """(kernel, plain version) of one wrapper on an engine's layout, both
     taking (h, m0, phi0, generator, beta, beta_row, mask, beta_spin, *,
-    num_sweeps, uniforms)."""
+    num_sweeps, uniforms). The kernel runs over the engine's neighbour
+    layout where it built one (K2/K3 routes), else the wrapper builds it
+    from its own arrays; `threads` None takes the wrapper's width rule."""
     import functools
     from nmc_tpu_torch.ops import sweeps_cuda as sc
     if name == "colored_sweeps_sparse":
@@ -321,7 +333,24 @@ def _kernel_fns(name, eng):
     else:
         args = (eng.J_rows,)
         k, p = sc.colored_sweeps_streamed, sc.colored_sweeps_streamed_reference
-    return functools.partial(k, *args), functools.partial(p, *args)
+    return (functools.partial(k, *args, nbrs=eng.sweep_nbrs, threads=threads),
+            functools.partial(p, *args))
+
+
+def _bit_equal(a, b):
+    """Every output of two sweep results equal element for element (==, so
+    a zero's sign aside)."""
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _gaussian_chimera(size, seed=5):
+    """chimera C(size, size, 4) with Gaussian couplings, normalized, and
+    its engine (K1's layout at 8x8, K3's at 16x16)."""
+    from nmc_tpu_torch.io.generators import chimera_graph
+    from nmc_tpu_torch.ops.engine import SweepEngine
+    prob = chimera_graph(size, size, seed=seed, pm=False).normalized()[0]
+    return prob, SweepEngine(prob, use_coloring=True, device=DEVICE)
 
 
 # ---- kernel phases -----------------------------------------------------------
@@ -398,72 +427,130 @@ def phase_kernel():
     return max_err
 
 
-def phase_streamed_kernels(c2048, r4096):
-    """K3 and K2 against their plain versions at full width; the three
-    kernels against each other; K2's and K3's Philox Boltzmann TV."""
-    import torch
-    from nmc_tpu_torch.ops import sweeps_cuda as sc
-    R, T = R_CHECK, T_CHECK
-    out = {"phase": "streamed_kernels", "R": R, "T": T}
-    max_err = {}
-    for name, eng in (("colored_sweeps_sparse", c2048[1]),
-                      ("colored_sweeps_streamed", r4096[1])):
-        kernel, plain = _kernel_fns(name, eng)
-        n_pad = eng.n_pad
-        gen = torch.Generator(device=DEVICE).manual_seed(11)
-        m0 = eng.init_states(gen, R)
-        phi0 = eng.fields(m0)
-        u = torch.rand((T, R, n_pad), generator=gen, device=DEVICE)
-        cl = ((torch.rand((R, n_pad), generator=gen, device=DEVICE) < 0.5)
-              & eng.active)
-        cases = {
-            "all": (torch.full((T,), 1.0, device=DEVICE),
-                    torch.ones(R, device=DEVICE), eng.active[None], None),
-            "heated_clusters_beta_row": (
-                torch.full((T,), 2.5, device=DEVICE),
-                torch.linspace(0.5, 2.0, R, device=DEVICE), cl,
-                torch.where(cl, 1.0 / TEMP_X, 1.0)),
-        }
-        res = {"n_pad": n_pad, "num_blocks": eng.blocked.num_blocks}
-        if name == "colored_sweeps_sparse":
-            res["tiles_per_row_block"] = int(eng.stream_tiles[0].shape[1])
-        else:
-            res["tiles_per_row_block"] = r4096[2]
-        err = 0.0
-        for case, (beta, beta_row, mask, bs) in cases.items():
-            k = kernel(eng.h, m0, phi0, None, beta, beta_row, mask, bs,
-                       num_sweeps=T, uniforms=u)
-            p = plain(eng.h, m0, phi0, None, beta, beta_row, mask, bs,
-                      num_sweeps=T, uniforms=u)
-            res[case], e = _compare(torch, f"{name} {case}", k, p,
-                                    eng.J_full, eng.h, m0, mask)
-            err = max(err, e)
-        max_err[name] = err
-        out[name] = res
+def _sweep_cases(torch, eng, R, T, seed):
+    """Random states, uniforms and the two sweep cases of a K2/K3 check:
+    "all" (every active spin at beta 1) and an NMC C phase with clusters
+    heated to beta / temp_x, the rest frozen, and a per-replica beta_row;
+    each (beta, beta_row, mask, beta_spin)."""
+    n_pad = eng.n_pad
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    m0 = eng.init_states(gen, R)
+    phi0 = eng.fields(m0)
+    u = torch.rand((T, R, n_pad), generator=gen, device=DEVICE)
+    cl = ((torch.rand((R, n_pad), generator=gen, device=DEVICE) < 0.5)
+          & eng.active)
+    cases = {
+        "all": (torch.full((T,), 1.0, device=DEVICE),
+                torch.ones(R, device=DEVICE), eng.active[None], None),
+        "heated_clusters_beta_row": (
+            torch.full((T,), 2.5, device=DEVICE),
+            torch.linspace(0.5, 2.0, R, device=DEVICE), cl,
+            torch.where(cl, 1.0 / TEMP_X, 1.0)),
+    }
+    return m0, phi0, u, cases
 
-    # K1 = K2 = K3 with their own Philox draws: on +-J couplings phi is
-    # integer-valued, so the three compute the same function exactly
-    _, eng = _flagship()
+
+def _layout_of(eng):
+    """The engine's K2/K3 neighbour layout, or the one its wrappers build
+    from its J (K1 layouts)."""
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    if eng.sweep_nbrs is not None:
+        return eng.sweep_nbrs
+    return sc.sweep_neighbors_from_dense(eng.J_rows)
+
+
+def _equals_k1(torch, eng, names, R, T):
+    """K1 and each wrapper of `names` (K2, K3) on one layout with one
+    Philox seed, from the same random states at beta 2: every output
+    equal element for element (checked)."""
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     m0 = eng.init_states(gen, R)
     phi0 = eng.fields(m0)
     beta = torch.full((T,), 2.0, device=DEVICE)
-    ones = torch.ones(R, device=DEVICE)
     k1 = sc.colored_sweeps(
         eng.J_full, eng.h, m0, phi0,
         torch.Generator(device=DEVICE).manual_seed(7), beta,
         torch.ones((), device=DEVICE), eng.active.expand(R, eng.n_pad),
-        num_sweeps=T)
-    same = {}
-    for name in ("colored_sweeps_streamed", "colored_sweeps_sparse"):
-        kernel, _ = _kernel_fns(name, eng)
-        kr = kernel(eng.h, m0, phi0,
-                    torch.Generator(device=DEVICE).manual_seed(7), beta, ones,
-                    eng.active[None], None, num_sweeps=T)
-        same[name] = all(torch.equal(a, b) for a, b in zip(k1, kr))
-        check(same[name], f"{name} differs from K1 with the same Philox seed")
+        num_sweeps=T, block_size=eng.blocked.block_size)
     check(bool((k1.m != m0).any()), "K1 moved no spin")
-    out["k1_k2_k3_bit_equal_philox"] = same
+    for name in names:
+        kr = _kernel_fns(name, eng)[0](
+            eng.h, m0, phi0, torch.Generator(device=DEVICE).manual_seed(7),
+            beta, torch.ones(R, device=DEVICE), eng.active[None], None,
+            num_sweeps=T)
+        check(_bit_equal(k1, kr),
+              f"{name} differs from K1 with the same Philox seed")
+    return True
+
+
+def phase_streamed_kernels(c2048, r4096):
+    """K3 and K2 against their plain versions (within today's tolerances)
+    and, bit for bit, against the plain sweeps over their neighbour layout
+    with the kernel's association, at every CTA width; the same on
+    Gaussian chimera couplings; K1 = K2 = K3 with one Philox seed on +-J
+    and Gaussian couplings; K2's and K3's Philox Boltzmann TV."""
+    import torch
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    R, T = R_CHECK, T_CHECK
+    out = {"phase": "streamed_kernels", "R": R, "T": T,
+           "widths": list(sc.SWEEP_WIDTHS),
+           "width_rule": {r: sc.sweep_threads(r, sc._num_sms(DEVICE))
+                          for r in (2, 24, 64, 256, 2048)}}
+    max_err = {"colored_sweeps_streamed": 0.0, "colored_sweeps_sparse": 0.0}
+    g8, g16 = _gaussian_chimera(8), _gaussian_chimera(16)
+    # (kernel, layout name, engine, also against the dense/tile plain twin)
+    layouts = (("colored_sweeps_sparse", "chimera2048", c2048[1], True),
+               ("colored_sweeps_streamed", "regular3_4096", r4096[1], True),
+               ("colored_sweeps_sparse", "gaussian_chimera512", g8[1], False),
+               ("colored_sweeps_streamed", "gaussian_chimera512", g8[1],
+                False),
+               ("colored_sweeps_sparse", "gaussian_chimera2048", g16[1],
+                False),
+               ("colored_sweeps_streamed", "gaussian_chimera2048", g16[1],
+                False))
+    for name, layout, eng, twin in layouts:
+        kernel, plain = _kernel_fns(name, eng)
+        nbrs = _layout_of(eng)
+        m0, phi0, u, cases = _sweep_cases(torch, eng, R, T, 11)
+        res = {"n_pad": eng.n_pad, "num_blocks": eng.blocked.num_blocks,
+               "steps": int(nbrs.step_ptr.shape[0]) - 1,
+               "targets": int(nbrs.tgt.shape[0]),
+               "entries": int(nbrs.src.shape[0])}
+        if layout == "chimera2048":
+            res["tiles_per_row_block"] = int(eng.stream_tiles[0].shape[1])
+        elif layout == "regular3_4096":
+            res["tiles_per_row_block"] = r4096[2]
+        for case, (beta, beta_row, mask, bs) in cases.items():
+            args = (eng.h, m0, phi0, None, beta, beta_row, mask, bs)
+            k = kernel(*args, num_sweeps=T, uniforms=u)
+            q = sc.neighbor_sweeps_reference(nbrs, *args, num_sweeps=T,
+                                             uniforms=u)
+            torch.cuda.synchronize()
+            check(_bit_equal(k, q), f"{name} {layout} {case}: differs from "
+                  "the plain sweeps over its layout")
+            check(bool((k.m != m0).any()), f"{name} {layout}: no spin moved")
+            res[case] = {"vs_neighbor_plain_bit_equal": True}
+            if twin:
+                p = plain(*args, num_sweeps=T, uniforms=u)
+                cmp, e = _compare(torch, f"{name} {case}", k, p, eng.J_full,
+                                  eng.h, m0, mask)
+                res[case].update(cmp)
+                max_err[name] = max(max_err[name], e)
+            # the same outputs at every CTA width
+            for w in sc.SWEEP_WIDTHS:
+                kw, _ = _kernel_fns(name, eng, threads=w)
+                check(_bit_equal(kw(*args, num_sweeps=T, uniforms=u), k),
+                      f"{name} {layout} {case}: width {w} differs")
+            res[case]["widths_bit_equal"] = True
+        out.setdefault(name, {})[layout] = res
+
+    # K1 = K2 = K3 with their own Philox draws on one layout: the step
+    # gather runs K1's FMA chain, so they agree on any f32 couplings
+    names = ("colored_sweeps_streamed", "colored_sweeps_sparse")
+    out["k1_k2_k3_bit_equal_philox"] = {
+        "chimera512": _equals_k1(torch, _flagship()[1], names, R, T),
+        "gaussian_chimera512": _equals_k1(torch, g8[1], names, R, T)}
 
     for name in ("colored_sweeps_streamed", "colored_sweeps_sparse"):
         def run(eng, m, gen, beta, sweeps, name=name):
@@ -1778,9 +1865,9 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0,
         def call(fn, m, T):
             return fn(eng.h, m.m, m.phi, gen, betas[:T], ones,
                       eng.active[None], None, num_sweeps=T)
-        j_bytes = (4 * n_pad * n_pad if name == "colored_sweeps_streamed"
-                   else sum(t.numel() * t.element_size()
-                            for t in eng.stream_tiles))
+        # K2/K3 read the couplings only through the neighbour layout
+        j_bytes = sum(t.numel() * t.element_size() for t in eng.sweep_nbrs
+                      if isinstance(t, torch.Tensor))
         mask_bytes = n_pad + 4 * R              # [1, n_pad] mask, beta_row
     state = ColoredSweepResult(m0, eng.fields(m0), None, None, None)
     kernel, plain = fns
@@ -1826,8 +1913,10 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0,
     t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_HBM_BYTES
     k_ms = min(times["kernel"])
     p_ms = min(times["plain"]) if with_plain else None
+    threads = (256 if name == "colored_sweeps"
+               else sc.sweep_threads(R, sc._num_sms(DEVICE)))
     return {"name": name, "R": R, "sweeps": sweeps, "iters": iters, "N": N,
-            "n_pad": n_pad, "beta": beta, "ms": times,
+            "n_pad": n_pad, "threads": threads, "beta": beta, "ms": times,
             "kernel_ms_per_call": k_ms, "plain_ms_per_call": p_ms,
             "kernel_attempts_per_s": attempts / (k_ms * 1e-3),
             "plain_attempts_per_s": attempts / (p_ms * 1e-3) if p_ms else None,
@@ -1852,6 +1941,10 @@ LAUNCH_SHAPES = {
     "colored_sweeps_sparse": [(256, 500, 10, 6500), (64, 200, 26, 5200),
                               (24, 300, 4, 1200), (2, 100, 12, 1200)],
 }
+# K2's and K3's throughput shape (replicas, sweeps per call), and the
+# shapes K1 and K2 are timed at on the denser layout (_dense_layout)
+SWEEP_THROUGHPUT = (2048, 256)
+DENSE_SHAPES = ((64, 100), (2048, 32))
 
 
 def _launch_shapes(torch, name, prob, eng):
@@ -1867,8 +1960,38 @@ def _launch_shapes(torch, name, prob, eng):
                     "main_path_sweeps": total,
                     "ms": r["kernel_ms_per_call"], "bound_ms": r["bound_ms"],
                     "flips_per_attempt": r["flips_per_attempt"],
+                    "threads": r["threads"],
                     "gap_ms": total / sweeps * (r["kernel_ms_per_call"]
                                                 - r["bound_ms"])})
+    return out
+
+
+def _dense_layout(torch):
+    """K2 and K1 on a denser colored layout, the union of 32 random +-1
+    perfect matchings at N = 4096 (many more colour classes, so steps, than
+    chimera's or the 3-regular graph's; the K2 route): K1 = K2 bit for bit
+    with one Philox seed, then each kernel alone at R = 64 x 100 and
+    R = 2048 x 32 sweeps. K1, the dense-row body, computes the same
+    function by streaming a J row per flip."""
+    from nmc_tpu_torch.ops.engine import SweepEngine
+    prob = _matchings(4096, 32, 7, "matchings32_4096")
+    eng = SweepEngine(prob, use_coloring=True, device=DEVICE)
+    check(eng.sweep_kernel == "colored_sweeps_streamed",
+          f"32 matchings: route {eng.sweep_kernel}")
+    nbrs = eng.sweep_nbrs
+    out = {"N": prob.n, "mean_degree": np.count_nonzero(prob.J) / prob.n,
+           "n_pad": eng.n_pad, "num_blocks": eng.blocked.num_blocks,
+           "steps": int(nbrs.step_ptr.shape[0]) - 1,
+           "entries": int(nbrs.src.shape[0])}
+    out["k1_k2_bit_equal_philox"] = _equals_k1(
+        torch, eng, ("colored_sweeps_streamed",), 64, 8)
+    for R, sweeps in DENSE_SHAPES:
+        for name in ("colored_sweeps_streamed", "colored_sweeps"):
+            r = _throughput_one(torch, name, prob, eng, R, sweeps, 1,
+                                with_plain=False)
+            out[f"{name} R={R} x {sweeps}"] = {
+                k: r[k] for k in ("threads", "kernel_ms_per_call", "bound_ms",
+                                  "flips_per_attempt", "ms")}
     return out
 
 
@@ -1885,9 +2008,12 @@ def phase_throughput(card, c2048, r4096, ens512, ens2048):
     out["colored_sweeps"] = _throughput_one(torch, "colored_sweeps", prob,
                                             eng, 2048, 1024, 4)
     out["colored_sweeps_sparse"] = _throughput_one(
-        torch, "colored_sweeps_sparse", c2048[0], c2048[1], 2048, 256, 4)
+        torch, "colored_sweeps_sparse", c2048[0], c2048[1], *SWEEP_THROUGHPUT,
+        4)
     out["colored_sweeps_streamed"] = _throughput_one(
-        torch, "colored_sweeps_streamed", r4096[0], r4096[1], 2048, 256, 4)
+        torch, "colored_sweeps_streamed", r4096[0], r4096[1],
+        *SWEEP_THROUGHPUT, 4)
+    out["dense_layout"] = _dense_layout(torch)
     out["ensemble_round"] = _throughput_round(torch, "ensemble_round",
                                               ens512)
     out["ensemble_round_sparse"] = _throughput_round(
@@ -1977,33 +2103,34 @@ _SAME_ARITHMETIC = ("gather_4_loads_at_once", "l1_carveout",
 
 def _ablate(phase, lib, headers, variants, cases, turns):
     """Each variant of `variants` ({name: [(text, its replacement), ...]},
-    "as_is" first) built from a patched copy of csrc/<lib>.cu and its
-    `headers` under the ignored build directory (a patch that does not
-    apply exactly once fails), then timed in turns: each turn one call of
-    every case on every variant, so drift falls on all alike; min and
-    median of `turns`. `cases` maps a name to (probe, timed): probe(variant)
-    runs once on the freshly built variant, checks it and returns what to
-    report beside its times; timed() is the call timed by CUDA events."""
-    import shutil
+    "as_is" first; a patch (header, text, replacement) applies to that
+    header) built from a patched copy of csrc/<lib>.cu and its `headers`
+    under the ignored build directory (a patch that does not apply exactly
+    once fails), then timed in turns: each turn one call of every case on
+    every variant, so drift falls on all alike; min and median of `turns`.
+    `cases` maps a name to (probe, timed): probe(variant) runs once on the
+    freshly built variant, checks it and returns what to report beside its
+    times; timed() is the call timed by CUDA events."""
     import statistics
     import torch
     from nmc_tpu_torch.ops import _build
     out = {"phase": phase, "card": phase_device(), "turns": turns}
-    source = (_build.CSRC / f"{lib}.cu").read_text()
     csrc, build_dir = _build.CSRC, _build.BUILD_DIR
+    sources = {f: (csrc / f).read_text() for f in [f"{lib}.cu", *headers]}
     libs = {}
     try:
         for variant, patches in variants.items():
-            text = source
-            for old, new in patches:
-                check(text.count(old) == 1,
-                      f"{variant}: a patch does not apply to the source")
-                text = text.replace(old, new)
+            texts = dict(sources)
+            for patch in patches:
+                f, old, new = (patch if len(patch) == 3
+                               else (f"{lib}.cu", *patch))
+                check(texts[f].count(old) == 1,
+                      f"{variant}: a patch does not apply to {f}")
+                texts[f] = texts[f].replace(old, new)
             vdir = build_dir / phase / variant
             vdir.mkdir(parents=True, exist_ok=True)
-            (vdir / f"{lib}.cu").write_text(text)
-            for header in headers:
-                shutil.copy(csrc / header, vdir)
+            for f, text in texts.items():
+                (vdir / f).write_text(text)
             _build.CSRC, _build.BUILD_DIR = vdir, vdir / "_build"
             _build._LIBS.clear()
             libs[variant] = _build.load_library(lib)
@@ -2130,6 +2257,116 @@ def exact_ablation(turns=5):
                 ("mitm_min", "off"), ("mitm_min_i8", "on"))}, turns)
 
 
+# ---- the sweep kernels' ablation (chip_smoke.py --sweep-ablation) ----
+
+# Timing variants of csrc/colored_sweeps_nbr.cu (K2/K3) and the draw in
+# sweep_common.cuh: each drops one piece of a sweep, so its results are
+# wrong and it only splits the time. The CTA widths and block steps (one
+# step per row block instead of per colour class) are cases of the kernel
+# as is, each held bit for bit against it at the width rule's width.
+_SW_NO_GATHER = ("      gather_step(a, s, dm, phi);",
+                 "      if (false) gather_step(a, s, dm, phi);")
+_SW_NO_ENERGY = ("    nmc::end_of_sweep(m, phi, a.h, n_pad,",
+                 "    if (false) nmc::end_of_sweep(m, phi, a.h, n_pad,")
+_SW_NO_PHILOX = ("sweep_common.cuh",
+                 "philox4x32_10_word0(\n            (uint32_t)col, a.r, "
+                 "(uint32_t)t, 0u, a.seed0, a.seed1);",
+                 "(uint32_t)col * 0x9E3779B9u ^ (uint32_t)t * 0x85EBCA6Bu "
+                 "^ a.r ^ a.seed0;")
+# a target's source indices and their dm loaded four at a time before its
+# FMAs, in the same order
+_SW_GATHER_4 = ("""    for (int e = __ldg(a.src_ptr + t); e < e1; ++e) {
+      const int d = dm[__ldg(a.src + e)];
+      if (d != 0) acc = fmaf((float)d, __ldg(a.w + e), acc);
+    }""", """    for (int e = __ldg(a.src_ptr + t); e < e1; e += 4) {
+      int d[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        d[q] = e + q < e1 ? dm[__ldg(a.src + e + q)] : 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (d[q] != 0) acc = fmaf((float)d[q], __ldg(a.w + e + q), acc);
+    }""")
+SWEEP_ABLATIONS = {
+    "as_is": [], "no_gather": [_SW_NO_GATHER], "no_philox": [_SW_NO_PHILOX],
+    "no_sweep_energy": [_SW_NO_ENERGY],
+    "no_gather_philox_energy": [_SW_NO_GATHER, _SW_NO_PHILOX, _SW_NO_ENERGY],
+    "gather_4_loads_at_once": [_SW_GATHER_4]}
+_SWEEP_SAME_ARITHMETIC = ("gather_4_loads_at_once",)
+
+
+def sweep_ablation(turns=7):
+    """`_ablate` over SWEEP_ABLATIONS at every main-path launch shape of K3
+    and K2 (LAUNCH_SHAPES) and at the throughput shape R = 2048 x 256: per
+    shape each CTA width, then block steps at the rule's width, from a
+    burnt-in state at beta 2 (Philox). On the kernel as is, and on the
+    variants that keep its arithmetic, every case of a shape equals the
+    kernel as is at the rule's width bit for bit on 4 sweeps of injected
+    uniforms."""
+    import torch
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    c2048, r4096 = _chimera2048(), _regular3()
+    sms = sc._num_sms(DEVICE)
+    shapes = ([("colored_sweeps_sparse", c2048[1], R, T)
+               for R, T, _, _ in LAUNCH_SHAPES["colored_sweeps_sparse"]]
+              + [("colored_sweeps_sparse", c2048[1], *SWEEP_THROUGHPUT)]
+              + [("colored_sweeps_streamed", r4096[1], R, T)
+                 for R, T, _, _ in LAUNCH_SHAPES["colored_sweeps_streamed"]]
+              + [("colored_sweeps_streamed", r4096[1], *SWEEP_THROUGHPUT)])
+    block_steps = {id(eng): sc.sweep_neighbors_from_dense(
+        eng.J_rows, steps=range(eng.blocked.num_blocks + 1))
+        for eng in (c2048[1], r4096[1])}
+    reference, burnt = {}, {}
+    cases = {}
+
+    def case(shape, name, eng, R, T, threads, nbrs):
+        gen = torch.Generator(device=DEVICE).manual_seed(5)
+        u = torch.rand((4, R, eng.n_pad), generator=gen, device=DEVICE)
+        betas = torch.full((max(T, 4),), 2.0, device=DEVICE)
+        ones = torch.ones(R, device=DEVICE)
+        kernel = functools.partial(
+            sc.colored_sweeps_sparse, *_tiles(eng)) if name == \
+            "colored_sweeps_sparse" else functools.partial(
+                sc.colored_sweeps_streamed, eng.J_rows)
+
+        def run(state, T, **kw):
+            return kernel(eng.h, state.m, state.phi, gen, betas[:T], ones,
+                          eng.active[None], None, num_sweeps=T,
+                          threads=threads, nbrs=nbrs, **kw)
+
+        def probe(variant):
+            if shape not in burnt:
+                m0 = eng.init_states(gen, R)
+                burnt[shape] = run(sc.ColoredSweepResult(
+                    m0, eng.fields(m0), None, None, None), T)
+            short = run(burnt[shape], 4, uniforms=u)
+            if variant == "as_is" and shape not in reference:
+                reference[shape] = short
+            if variant == "as_is" or variant in _SWEEP_SAME_ARITHMETIC:
+                check(_bit_equal(short, reference[shape]),
+                      f"{variant} {shape}: {threads} threads / "
+                      f"{len(nbrs.step_ptr) - 1} steps differ from the "
+                      "kernel as is at the rule's width")
+            run(burnt[shape], T)                               # warm-up
+            regs, ctas = sc.sweep_occupancy(eng.n_pad, threads)
+            return {"threads": threads, "steps": len(nbrs.step_ptr) - 1,
+                    "registers": regs, "ctas_per_sm": ctas}
+
+        return probe, lambda: run(burnt[shape], T)
+
+    for name, eng, R, T in shapes:
+        shape = f"{'K3' if name == 'colored_sweeps_sparse' else 'K2'} R={R}x{T}"
+        rule = sc.sweep_threads(R, sms)
+        widths = [rule] + [w for w in sc.SWEEP_WIDTHS if w != rule]
+        for w in widths:
+            cases[f"{shape} w={w}"] = case(shape, name, eng, R, T, w,
+                                           eng.sweep_nbrs)
+        cases[f"{shape} w={rule} block_steps"] = case(
+            shape, name, eng, R, T, rule, block_steps[id(eng)])
+    _ablate("sweep_ablation", "colored_sweeps_nbr", ["sweep_common.cuh"],
+            SWEEP_ABLATIONS, cases, turns)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2142,6 +2379,9 @@ def main():
         return
     if sys.argv[1:] == ["--exact-ablation"]:
         exact_ablation()
+        return
+    if sys.argv[1:] == ["--sweep-ablation"]:
+        sweep_ablation()
         return
     t_start = time.perf_counter()
     card = phase_device()
@@ -2168,10 +2408,10 @@ def main():
     sources = {"colored_sweeps": ("nmc_tpu_torch/csrc/colored_sweeps.cu",
                                   "nmc_tpu/ops/sweeps_pallas.py:128"),
                "colored_sweeps_streamed": (
-                   "nmc_tpu_torch/csrc/colored_sweeps.cu",
+                   "nmc_tpu_torch/csrc/colored_sweeps_nbr.cu",
                    "nmc_tpu/ops/sweeps_pallas.py:291"),
                "colored_sweeps_sparse": (
-                   "nmc_tpu_torch/csrc/colored_sweeps_sparse.cu",
+                   "nmc_tpu_torch/csrc/colored_sweeps_nbr.cu",
                    "nmc_tpu/ops/sweeps_pallas.py:493"),
                "ensemble_round": ("nmc_tpu_torch/csrc/ensemble_round.cu",
                                   "nmc_tpu/ops/round_pallas.py:458"),

@@ -183,8 +183,9 @@ def block_sparse_tiles(blocked: BlockedProblem):
     """Block-sparse view of J: for each spin row-block b, the column tiles
     (width block_size) holding any nonzero coupling. Returns
     (col_idx [nB, K] int32, J_tiles [nB, K, B, B]), padded with zero tiles
-    up to the max count K. The sparse sweep kernel (K3, still to port)
-    consumes it.
+    up to the max count K. `SweepEngine` routes by K (K3 when K <= nB/2);
+    K3's plain version reads the tiles, and its wrapper builds its
+    neighbour layout from them when it is given none.
     """
     nB = blocked.num_blocks
     B = blocked.block_size

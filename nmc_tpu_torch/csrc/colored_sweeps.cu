@@ -1,42 +1,32 @@
 // Colored-block heat-bath Gibbs sweeps with the replica state on chip, J dense.
 //
-// Two entry points, one kernel body:
-//   colored_sweeps_f32          replaces nmc_tpu/ops/sweeps_pallas.py::
-//                               pallas_colored_sweeps (K1, J resident in VMEM
-//                               on the TPU; n_pad <= 1536 in the engine);
-//   colored_sweeps_streamed_f32 replaces ::pallas_colored_sweeps_streamed
-//                               (K2, J row blocks double-buffered from HBM on
-//                               the TPU; the engine's dense route above 1536).
-// Both compute T sweeps over the colour blocks of a graph-coloured layout:
-// per block of B spins every spin draws from its heat-bath probability
-// p_up = (1 + tanh(beta * phi)) / 2 at once (exact Gibbs, the block is an
-// independent set), masked spins keep their value, and the cached local
-// fields follow with phi += dm @ J[block, :]. Each sweep ends with
-// E = -0.5 * m.(phi + h) per replica and a running best state and energy
-// (strict <, e_best starting at +inf, m_best starting at m0). K1 takes
-// beta = beta_t * beta_spin with a [R, n_pad] mask; K2 takes
-// beta = (beta_t * beta_row[r]) * beta_spin (beta_spin optional) with a
-// [1 | R, n_pad] mask. On Hopper the TPU's split between a resident and a
-// streamed kernel is gone: J stays in global memory either way and the
-// caches decide, so K2 is K1's body with K2's parameters.
+// colored_sweeps_f32 replaces nmc_tpu/ops/sweeps_pallas.py::
+// pallas_colored_sweeps (K1, J resident in VMEM on the TPU; n_pad <= 1536
+// in the engine). It computes T sweeps over the colour blocks of a
+// graph-coloured layout: per block of B spins every spin draws from its
+// heat-bath probability p_up = (1 + tanh(beta * phi)) / 2 at once (exact
+// Gibbs, the block is an independent set), masked spins keep their value,
+// and the cached local fields follow with phi += dm @ J[block, :]. Each
+// sweep ends with E = -0.5 * m.(phi + h) per replica and a running best
+// state and energy (strict <, e_best starting at +inf, m_best starting at
+// m0). beta = beta_t * beta_spin with a [R, n_pad] mask. The streamed
+// kernels K2/K3 compute the same function over a neighbour layout
+// (colored_sweeps_nbr.cu); on one layout and one seed the three agree bit
+// for bit.
 //
 // Design: one CTA owns one replica for all T sweeps (grid = R). Its phi
-// (f32) and m (int8) stay in shared memory (5 bytes per spin: 22 KB at
-// n_pad = 4352). The phi update runs over the changed spins only (dm is 0
-// or +-2): after the draw, one warp compacts the block's flipped spins into
-// a list (ballot, in spin order), and each thread then walks that list for
-// its phi columns with the J-row loads independent of each other, so
-// several are in flight at once. The FMAs run in spin order, so phi is
-// bit-for-bit what a sequential pass over the flips gives.
+// (f32) and m (int8) stay in shared memory (5 bytes per spin). The phi
+// update runs over the changed spins only (dm is 0 or +-2): after the draw,
+// one warp compacts the block's flipped spins into a list (ballot, in spin
+// order), and each thread then walks that list for its phi columns with the
+// J-row loads independent of each other, so several are in flight at once.
+// The FMAs run in spin order, so phi is bit-for-bit what a sequential pass
+// over the flips gives.
 //
 // Bound: per attempt one Philox-4x32-10 and one tanhf; per flip the kernel
 // streams the whole J row (n_pad floats) although a sparse topology's row
 // holds a handful of nonzeros. At chimera-512 (n_pad = 640) J is 1.6 MB and
-// stays in the 50 MB L2, so L2 bandwidth bounds K1. At n_pad = 4352 dense J
-// is 75.8 MB and does not fit L2, so each flip's 17 KB row comes from HBM:
-// K2 is bound by HBM bytes per flip. The block-sparse K3
-// (colored_sweeps_sparse.cu) streams only the nonzero column tiles and
-// serves the layouts where they are few.
+// stays in the 50 MB L2, so L2 bandwidth bounds K1.
 //
 // One replica per CTA was fastest on an H100 80GB HBM3 at 700 W, chimera-512
 // (n_pad = 640), beta = 2: R = 2048, 2.8e10 attempts/s against 2.6e10 with 4
@@ -53,19 +43,14 @@ namespace {
 
 using nmc::kThreads;
 
-// kRowBeta = false: K1 (beta_spin [R, n_pad], mask [R, n_pad]).
-// kRowBeta = true:  K2 (beta_row [R], beta_spin [R, n_pad] or null,
-//                   mask [mask_rows, n_pad] with mask_rows 1 or R).
-template <bool kRowBeta>
 __global__ void __launch_bounds__(kThreads) colored_sweeps_kernel(
     const float* __restrict__ J,          // [n_pad, n_pad]
     const float* __restrict__ h,          // [n_pad]
     const float* __restrict__ m0,         // [R, n_pad]
     const float* __restrict__ phi0,       // [R, n_pad]
-    const float* __restrict__ beta_spin,  // [R, n_pad] (null: 1, K2 only)
-    const uint8_t* __restrict__ mask,     // [mask_rows, n_pad] (bool storage)
+    const float* __restrict__ beta_spin,  // [R, n_pad]
+    const uint8_t* __restrict__ mask,     // [R, n_pad] (bool storage)
     const float* __restrict__ beta_sweep, // [T]
-    const float* __restrict__ beta_row,   // [R] (K2 only)
     const float* __restrict__ uniforms,   // [T, R, n_pad] or null
     const int32_t* __restrict__ seed,     // [2], read when uniforms is null
     float* __restrict__ m_out,            // [R, n_pad]
@@ -73,7 +58,7 @@ __global__ void __launch_bounds__(kThreads) colored_sweeps_kernel(
     float* __restrict__ m_best,           // [R, n_pad]
     float* __restrict__ e_best_out,       // [R]
     float* __restrict__ energies,         // [T, R]
-    int R, int n_pad, int B, int T, int mask_rows) {
+    int R, int n_pad, int B, int T) {
   extern __shared__ float smem[];
   float* phi = smem;                                  // [n_pad]
   float* dm = phi + n_pad;                            // [B]
@@ -85,12 +70,12 @@ __global__ void __launch_bounds__(kThreads) colored_sweeps_kernel(
   const int tid = threadIdx.x;
   const size_t base = (size_t)r * n_pad;
   nmc::ReplicaDraws draws;
-  draws.beta_spin = beta_spin != nullptr ? beta_spin + base : nullptr;
-  draws.mask = mask + (mask_rows == 1 ? 0 : base);
+  draws.beta_spin = beta_spin + base;
+  draws.mask = mask + base;
   draws.uniforms = uniforms;
   draws.u_offset = base;
   draws.u_sweep = (size_t)R * n_pad;
-  draws.beta_row = kRowBeta ? beta_row[r] : 1.f;
+  draws.beta_row = 1.f;
   draws.r = (uint32_t)r;
   draws.seed0 = uniforms == nullptr ? (uint32_t)seed[0] : 0u;
   draws.seed1 = uniforms == nullptr ? (uint32_t)seed[1] : 0u;
@@ -109,7 +94,7 @@ __global__ void __launch_bounds__(kThreads) colored_sweeps_kernel(
     const float beta_t = beta_sweep[t];
     for (int b = 0; b < num_blocks; ++b) {
       const int s = b * B;
-      nmc::draw_block<kRowBeta>(draws, t, beta_t, s, B, phi, m, dm);
+      nmc::draw_block<false>(draws, t, beta_t, s, B, phi, m, dm);
       __syncthreads();
       nmc::list_flips(dm, flips, &num_flips, B);
       __syncthreads();
@@ -138,31 +123,6 @@ __global__ void __launch_bounds__(kThreads) colored_sweeps_kernel(
   if (tid == 0) e_best_out[r] = e_best;
 }
 
-template <bool kRowBeta>
-int launch(const float* J, const float* h, const float* m0, const float* phi0,
-           const float* beta_spin, const uint8_t* mask,
-           const float* beta_sweep, const float* beta_row,
-           const float* uniforms, const int32_t* seed, float* m_out,
-           float* phi_out, float* m_best, float* e_best, float* energies,
-           int R, int n_pad, int block_size, int num_sweeps, int mask_rows,
-           void* stream) {
-  const size_t smem = (size_t)n_pad * sizeof(float)         // phi
-                      + (size_t)block_size * sizeof(float)  // dm
-                      + (size_t)block_size * sizeof(int)    // flips
-                      + (size_t)n_pad;                      // m (int8)
-  cudaError_t err = cudaFuncSetAttribute(
-      colored_sweeps_kernel<kRowBeta>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (R == 0) return (int)cudaSuccess;
-  colored_sweeps_kernel<kRowBeta>
-      <<<R, kThreads, smem, (cudaStream_t)stream>>>(
-          J, h, m0, phi0, beta_spin, mask, beta_sweep, beta_row, uniforms,
-          seed, m_out, phi_out, m_best, e_best, energies, R, n_pad,
-          block_size, num_sweeps, mask_rows);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -175,27 +135,19 @@ int colored_sweeps_f32(const float* J, const float* h, const float* m0,
                        float* m_out, float* phi_out, float* m_best,
                        float* e_best, float* energies, int R, int n_pad,
                        int block_size, int num_sweeps, void* stream) {
-  return launch<false>(J, h, m0, phi0, beta_spin, mask, beta_sweep, nullptr,
-                       uniforms, seed, m_out, phi_out, m_best, e_best,
-                       energies, R, n_pad, block_size, num_sweeps, R, stream);
-}
-
-// K2. J_blocks is [nB, B, n_pad] (the same memory as [n_pad, n_pad]);
-// beta_spin may be null; mask has mask_rows (1 or R) rows.
-int colored_sweeps_streamed_f32(const float* J_blocks, const float* h,
-                                const float* m0, const float* phi0,
-                                const float* beta_spin, const uint8_t* mask,
-                                const float* beta_sweep,
-                                const float* beta_row, const float* uniforms,
-                                const int32_t* seed, float* m_out,
-                                float* phi_out, float* m_best, float* e_best,
-                                float* energies, int R, int n_pad,
-                                int block_size, int num_sweeps, int mask_rows,
-                                void* stream) {
-  return launch<true>(J_blocks, h, m0, phi0, beta_spin, mask, beta_sweep,
-                      beta_row, uniforms, seed, m_out, phi_out, m_best,
-                      e_best, energies, R, n_pad, block_size, num_sweeps,
-                      mask_rows, stream);
+  const size_t smem = (size_t)n_pad * sizeof(float)         // phi
+                      + (size_t)block_size * sizeof(float)  // dm
+                      + (size_t)block_size * sizeof(int)    // flips
+                      + (size_t)n_pad;                      // m (int8)
+  cudaError_t err = cudaFuncSetAttribute(
+      colored_sweeps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (R == 0) return (int)cudaSuccess;
+  colored_sweeps_kernel<<<R, kThreads, smem, (cudaStream_t)stream>>>(
+      J, h, m0, phi0, beta_spin, mask, beta_sweep, uniforms, seed, m_out,
+      phi_out, m_best, e_best, energies, R, n_pad, block_size, num_sweeps);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,11 +1,12 @@
-// Device code shared by the colored sweep kernels (colored_sweeps.cu: K1 and
-// K2; colored_sweeps_sparse.cu: K3). One CTA owns one replica for all T
+// Device code shared by the colored sweep kernels (colored_sweeps.cu: K1;
+// colored_sweeps_nbr.cu: K2 and K3) and the whole-round kernels
+// (ensemble_round.cu). A sweep kernel's CTA owns one replica for all T
 // sweeps, with its phi (f32) and m (int8) in shared memory; these helpers are
-// the per-block heat-bath draw, the flip list and the end-of-sweep energy
-// that all three run the same way, so that on one layout and one seed the
-// three kernels compute the same function draw for draw. The neighbour-list
-// phi update (`gather_block`) is the whole-round kernels' (ensemble_round.cu);
-// K1-K3 do not use it.
+// the heat-bath draw, K1's flip list and the end-of-sweep energy that the
+// sweep kernels run the same way, so that on one layout and one seed K1, K2
+// and K3 compute the same function draw for draw. The neighbour-list phi
+// update `gather_block` is the whole-round kernels'; K2/K3 run their own
+// step gather (colored_sweeps_nbr.cu), which starts from phi as K1 does.
 //
 // Random numbers: Philox-4x32-10 with key = seed and counter = (spin column,
 // replica, sweep, 0); the uniform is (bits >> 8) * 2^-24 as on the TPU. The
@@ -58,16 +59,17 @@ struct ReplicaDraws {
   uint32_t r, seed0, seed1;
 };
 
-// Heat-bath draws for the B spins of the block starting at column s: every
-// unmasked spin takes +1 with p_up = (1 + tanh(beta * phi)) / 2 at once
-// (exact Gibbs, the block is an independent set). dm[i] gets new - old.
-template <bool kRowBeta>
+// Heat-bath draws for the n spins starting at column s: every unmasked spin
+// takes +1 with p_up = (1 + tanh(beta * phi)) / 2 at once (exact Gibbs when
+// they are an independent set). dm[i] gets new - old of spin s + i, as a
+// float (K1) or an int8 (K2/K3).
+template <bool kRowBeta, typename D>
 __device__ __forceinline__ void draw_block(
-    const ReplicaDraws& a, int t, float beta_t, int s, int B,
-    const float* phi, int8_t* m, float* dm) {
-  for (int i = threadIdx.x; i < B; i += blockDim.x) {
+    const ReplicaDraws& a, int t, float beta_t, int s, int n,
+    const float* phi, int8_t* m, D* dm) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int col = s + i;
-    float d = 0.f;
+    D d = 0;
     if (a.mask[col]) {
       float u;
       if (a.uniforms != nullptr) {
@@ -88,14 +90,14 @@ __device__ __forceinline__ void draw_block(
       const int8_t old = m[col];
       const int8_t nw = u < p_up ? 1 : -1;
       m[col] = nw;
-      d = (float)(nw - old);
+      d = (D)(nw - old);
     }
     dm[i] = d;
   }
 }
 
 // Warp 0 lists the block's flipped spins (dm != 0) in spin order with a
-// ballot; the caller synchronises before and after.
+// ballot (K1); the caller synchronises before and after.
 __device__ __forceinline__ void list_flips(const float* dm, int* flips,
                                            int* num_flips, int B) {
   if (threadIdx.x >= 32) return;

@@ -11,8 +11,11 @@ at setup from the layout):
   * above, when every row block touches at most nB/2 column tiles of J:
     `colored_sweeps_sparse` (K3, the block-sparse tiles, built at setup);
   * else `colored_sweeps_streamed` (K2, dense J row blocks).
-Each wrapper launches its CUDA kernel on a CUDA device and runs its plain
-torch version on the CPU. Everything else (sequential within-block scans,
+K2 and K3 launch one kernel body over a neighbour layout (`sweep_nbrs`, a
+`SweepNeighbors` whose steps are the colour classes), built once at setup
+from J and passed on every call. Each wrapper launches its CUDA kernel on a
+CUDA device and runs its plain torch version (from J or the tiles) on the
+CPU. Everything else (sequential within-block scans,
 recorded states) runs `ops/sweeps.run_sweeps` in plain torch, as JAX ran it
 through XLA.
 """
@@ -30,7 +33,8 @@ from ..core.problem import (BlockedProblem, IsingProblem, block_problem,
 from ..device import resolve_device, resolve_dtype
 from .sweeps import SweepResult, anneal_schedule, run_sweeps
 from .sweeps_cuda import (colored_sweeps, colored_sweeps_sparse,
-                          colored_sweeps_streamed)
+                          colored_sweeps_streamed, steps_are_independent,
+                          sweep_neighbors_from_dense)
 
 # Largest n_pad the dense colored kernel K1 serves; above it the JAX package
 # streams J (K2, or K3 for block-sparse layouts), and so does the port.
@@ -98,7 +102,7 @@ class SweepEngine:
         self.active = torch.as_tensor(blocked.active, device=dev)
         self._inv_perm = torch.as_tensor(blocked.inv_perm, dtype=torch.long,
                                          device=dev)
-        self.stream_tiles = None
+        self.stream_tiles = self.sweep_nbrs = None
         if not blocked.colored:
             self.sweep_kernel = None
         elif blocked.n_pad <= K1_MAX_N_PAD:
@@ -107,11 +111,16 @@ class SweepEngine:
             col_idx, J_tiles = block_sparse_tiles(blocked)
             if col_idx.shape[1] <= blocked.num_blocks // 2:
                 self.sweep_kernel = "colored_sweeps_sparse"
+                # read by the plain version on the CPU
                 self.stream_tiles = (
                     torch.as_tensor(col_idx, dtype=torch.int32, device=dev),
                     torch.as_tensor(J_tiles, dtype=dt, device=dev))
             else:
                 self.sweep_kernel = "colored_sweeps_streamed"
+            self.sweep_nbrs = sweep_neighbors_from_dense(self.J_rows)
+            if not steps_are_independent(self.sweep_nbrs):
+                raise ValueError("a sweep step of the colored layout holds a "
+                                 "coupled pair")
 
     # ---- layout helpers -------------------------------------------------
     @property
@@ -256,11 +265,11 @@ class SweepEngine:
                 cres = colored_sweeps_sparse(
                     col_idx, J_tiles, self.h, m0, phi, generator, beta_sweep,
                     beta_row, mask_arg, bs_arg, num_sweeps=num_sweeps,
-                    uniforms=uniforms)
+                    uniforms=uniforms, nbrs=self.sweep_nbrs)
             else:
                 cres = colored_sweeps_streamed(
                     self.J_rows, self.h, m0, phi, generator, beta_sweep,
                     beta_row, mask_arg, bs_arg, num_sweeps=num_sweeps,
-                    uniforms=uniforms)
+                    uniforms=uniforms, nbrs=self.sweep_nbrs)
         return SweepResult(m=cres.m, phi=cres.phi, m_best=cres.m_best,
                            e_best=cres.e_best, energies=cres.energies, M=None)

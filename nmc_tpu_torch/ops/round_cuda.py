@@ -55,9 +55,9 @@ import torch
 
 from ._build import bind, load_library
 from .sweeps import heat_bath_update
-from .sweeps_cuda import (MAX_SHARED_BYTES, _broadcast, _check,
-                          _check_shared, _ptr, _raise_on, _require_cuda,
-                          _seed)
+from .sweeps_cuda import (_INT16_MAX, MAX_SHARED_BYTES, _broadcast, _check,
+                          _check_shared, _pack_neighbors, _ptr, _raise_on,
+                          _require_cuda, _seed)
 
 _LIB = "ensemble_round"
 # argument kinds of each C entry point, in order ('p' pointer, 'i' int,
@@ -65,7 +65,6 @@ _LIB = "ensemble_round"
 # neighbour layout (5 pointers) and the same round arguments.
 _SIGNATURES = {"ensemble_round_f32": "p" * 19 + "i" * 8 + "f",
                "ensemble_round_sparse_f32": "p" * 19 + "i" * 8 + "f"}
-_INT16_MAX = 32767
 
 
 class EnsembleRoundResult(NamedTuple):
@@ -90,34 +89,13 @@ class RoundNeighbors(NamedTuple):
     block_size: int
 
 
-def _pack_neighbors(b, j, kk, w, nB, B):
+def _round_neighbors(b, j, kk, w, nB, B) -> RoundNeighbors:
     """The layout from union entries (row block b, target j, source offset
-    kk) sorted by (b, j, kk), with their weights w [I, nnz]. Within a block
-    the targets go by source count, longest first (then by j), so that the
-    kernel's warps, one target per lane, run lists of about equal length;
-    the order of targets changes no sum."""
-    device = b.device
-    nnz = b.numel()
-    n_pad = nB * B
-    if n_pad > _INT16_MAX + 1:
-        raise ValueError(f"n_pad {n_pad} does not fit the int16 layout")
-    starts = torch.ones(nnz, dtype=torch.bool, device=device)
-    starts[1:] = (b[1:] != b[:-1]) | (j[1:] != j[:-1])
-    first = torch.nonzero(starts).squeeze(1)       # first entry of each target
-    count = torch.diff(first, append=torch.tensor([nnz], device=device))
-    order = torch.argsort((b[first] * (B + 1) + B - count) * n_pad + j[first])
-    first, count = first[order], count[order]
-    src_ptr = torch.zeros(first.numel() + 1, dtype=torch.int64, device=device)
-    src_ptr[1:] = torch.cumsum(count, 0)
-    # the entries of the reordered targets, each target's run kept in order
-    entry = (torch.repeat_interleave(first - src_ptr[:-1], count)
-             + torch.arange(nnz, device=device))
-    tgt_ptr = torch.zeros(nB + 1, dtype=torch.int32, device=device)
-    tgt_ptr[1:] = torch.cumsum(torch.bincount(b[first], minlength=nB), 0)
-    return RoundNeighbors(
-        tgt_ptr=tgt_ptr, tgt=j[first].to(torch.int16),
-        src_ptr=src_ptr.to(torch.int32), src=kk[entry].to(torch.int16),
-        w=w[:, entry].to(torch.float32).contiguous(), block_size=B)
+    kk) sorted by (b, j, kk), with their weights w [I, nnz]
+    (`sweeps_cuda._pack_neighbors`: per block, longest source list first)."""
+    tgt_ptr, tgt, src_ptr, src, w = _pack_neighbors(b, j, kk, w, nB, B, nB * B)
+    return RoundNeighbors(tgt_ptr=tgt_ptr, tgt=tgt, src_ptr=src_ptr, src=src,
+                          w=w.to(torch.float32), block_size=B)
 
 
 def neighbors_from_dense(J, block_size: int) -> RoundNeighbors:
@@ -130,7 +108,7 @@ def neighbors_from_dense(J, block_size: int) -> RoundNeighbors:
     nB = n_pad // B
     union = (J != 0).any(0).reshape(nB, B, n_pad).transpose(1, 2)
     b, j, kk = torch.nonzero(union.contiguous(), as_tuple=True)  # (b, j, kk)
-    return _pack_neighbors(b, j, kk, J[:, b * B + kk, j], nB, B)
+    return _round_neighbors(b, j, kk, J[:, b * B + kk, j], nB, B)
 
 
 def neighbors_from_tiles(col_idx, J_tiles) -> RoundNeighbors:
@@ -143,7 +121,7 @@ def neighbors_from_tiles(col_idx, J_tiles) -> RoundNeighbors:
     j = col_idx.to(b.device).long()[b, k] * B + jj
     order = torch.argsort((b * n_pad + j) * B + kk, stable=True)
     b, k, kk, jj, j = (x[order] for x in (b, k, kk, jj, j))
-    return _pack_neighbors(b, j, kk, J_tiles[:, b, k, kk, jj], nB, B)
+    return _round_neighbors(b, j, kk, J_tiles[:, b, k, kk, jj], nB, B)
 
 
 def _check_neighbors(nbrs, I, n_pad, B, device):

@@ -9,14 +9,27 @@ chip for the whole launch:
     beta = beta_t * beta_spin, mask [R, n_pad] (csrc/colored_sweeps.cu);
   * `colored_sweeps_streamed` (K2, ``pallas_colored_sweeps_streamed``): dense
     J row blocks [nB, B, n_pad], beta = (beta_t * beta_row) * beta_spin with
-    beta_spin optional, mask [1 | R, n_pad] (csrc/colored_sweeps.cu);
+    beta_spin optional, mask [1 | R, n_pad];
   * `colored_sweeps_sparse` (K3, ``pallas_colored_sweeps_sparse``): K2 over
     each row block's nonzero column tiles (col_idx [nB, K], J_tiles
-    [nB, K, B, B] from `block_sparse_tiles`; csrc/colored_sweeps_sparse.cu).
+    [nB, K, B, B] from `block_sparse_tiles`).
 
 They take the Pallas kernels' arrays and return the same outputs; a
 `torch.Generator` stands in for the seed, and optional injected uniforms
 [T, R, n_pad] replace the kernels' Philox draws.
+
+K2 and K3 launch one kernel body (csrc/colored_sweeps_nbr.cu) that reads
+the couplings only through a `SweepNeighbors` layout: the row blocks cut
+into steps (maximal runs of blocks with no coupling between two of them: a
+coloured layout's colour classes), per step the targets coupled to it and
+per target its sources in the step. It is built once from dense J
+(`sweep_neighbors_from_dense`) or from the tiles
+(`sweep_neighbors_from_tiles`), which give the same layout for the same
+couplings; `SweepEngine` builds it at setup and passes it as `nbrs=`, and a
+wrapper called without it builds it. The CTA width follows R
+(`sweep_threads`). `neighbor_sweeps_reference` runs the sweeps in plain
+torch over the layout with the kernel's steps and association (for the
+tests and chip_smoke.py; no route calls it).
 
 On a CPU tensor a wrapper runs its `*_reference`, the same function in plain
 torch, and launches nothing. On a CUDA tensor it launches the kernel or
@@ -25,8 +38,11 @@ raises. Each wrapper counts its kernel launches in `<wrapper>.launches`.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import ctypes
+import functools
+from typing import List, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..core.energy import energy_from_fields
@@ -34,9 +50,13 @@ from ._build import bind, load_library
 from .sweeps import _uniforms, heat_bath_update, run_sweeps
 
 _LIB = "colored_sweeps"
-_LIB_SPARSE = "colored_sweeps_sparse"
+_LIB_NBR = "colored_sweeps_nbr"
 # Dynamic shared memory one CTA may use on Hopper (227 KB).
 MAX_SHARED_BYTES = 232_448
+_INT16_MAX = 32767
+# The CTA widths K2/K3 are built for, and the threads one Hopper SM holds.
+SWEEP_WIDTHS = (256, 512, 1024)
+_SM_THREADS = 2048
 
 
 class ColoredSweepResult(NamedTuple):
@@ -64,14 +84,169 @@ def colored_sweeps_reference(
                               e_best=res.e_best, energies=res.energies)
 
 
-def _row_beta_sweeps(phi_update, num_blocks, block_size, h, m0, phi0,
-                     generator, beta_sweep, beta_row, mask, beta_spin,
-                     num_sweeps, uniforms) -> ColoredSweepResult:
-    """The streamed kernels' sweep loop in plain torch: per block,
-    beta = (beta_t * beta_row) * beta_spin in that order, then
-    phi = phi_update(phi, dm, b)."""
+class SweepNeighbors(NamedTuple):
+    """K2/K3's coupling layout. The row blocks are cut into steps, maximal
+    runs of consecutive blocks with no coupling between two of them (on a
+    colored layout, its colour classes). Per step: the targets j with a
+    coupling from a spin of the step (longest source list first, then
+    ascending j), and per target its sources k in the step (ascending k)
+    with their weights."""
+    step_ptr: torch.Tensor  # [n_steps + 1] int32: step s holds row blocks step_ptr[s]:step_ptr[s+1]
+    tgt_ptr: torch.Tensor   # [n_steps + 1] int32: step s's targets tgt_ptr[s]:tgt_ptr[s+1]
+    tgt: torch.Tensor       # [n_tgt] int16 target spin j
+    src_ptr: torch.Tensor   # [n_tgt + 1] int32: target t's sources
+    src: torch.Tensor       # [nnz] int16 source spin k
+    w: torch.Tensor         # [nnz] J[k, j], in J's dtype
+    block_size: int
+    n_pad: int
+
+
+def _pack_neighbors(g, j, src, w, num_groups, width, n_pad):
+    """A neighbour layout from entries (group g, target j, source src)
+    sorted by (g, j, src), with their weights w [I, nnz]: (tgt_ptr, tgt,
+    src_ptr, src, w). Within a group the targets go by source count (at
+    most `width`), longest first (then by j), so that the kernels' warps,
+    one target per lane, run lists of about equal length; the order of
+    targets changes no sum."""
+    device = g.device
+    nnz = g.numel()
+    if n_pad > _INT16_MAX + 1:
+        raise ValueError(f"n_pad {n_pad} does not fit the int16 layout")
+    starts = torch.ones(nnz, dtype=torch.bool, device=device)
+    starts[1:] = (g[1:] != g[:-1]) | (j[1:] != j[:-1])
+    first = torch.nonzero(starts).squeeze(1)       # first entry of each target
+    count = torch.diff(first, append=torch.tensor([nnz], device=device))
+    order = torch.argsort((g[first] * (width + 1) + width - count) * n_pad
+                          + j[first])
+    first, count = first[order], count[order]
+    src_ptr = torch.zeros(first.numel() + 1, dtype=torch.int64, device=device)
+    src_ptr[1:] = torch.cumsum(count, 0)
+    # the entries of the reordered targets, each target's run kept in order
+    entry = (torch.repeat_interleave(first - src_ptr[:-1], count)
+             + torch.arange(nnz, device=device))
+    tgt_ptr = torch.zeros(num_groups + 1, dtype=torch.int32, device=device)
+    tgt_ptr[1:] = torch.cumsum(torch.bincount(g[first], minlength=num_groups),
+                               0)
+    return (tgt_ptr, j[first].to(torch.int16), src_ptr.to(torch.int32),
+            src[entry].to(torch.int16), w[:, entry].contiguous())
+
+
+def sweep_steps(adj) -> List[int]:
+    """Step boundaries [0, ..., nB] over the row blocks, from the blocks'
+    coupling pattern adj [nB, nB] (adj[b, c]: a spin of block b couples to
+    one of block c). Left to right, a block joins the current step unless
+    it couples to a block already in it, so each step is a maximal run of
+    consecutive blocks with no coupling between two of them. Couplings
+    inside one block (an uncoloured layout) stay in its step, drawn all at
+    once as in the block-by-block sweep."""
+    adj = np.asarray(adj, dtype=bool)
+    adj = adj | adj.T
+    bounds = [0]
+    for c in range(1, adj.shape[0]):
+        if adj[c, bounds[-1]:c].any():
+            bounds.append(c)
+    return bounds + [adj.shape[0]]
+
+
+def _sweep_neighbors(k, j, w, nB, B, steps) -> SweepNeighbors:
+    """The layout of the couplings w of (source k, target j) in blocks of B;
+    `steps` gives the step boundaries over blocks (default `sweep_steps`)."""
+    n_pad = nB * B
+    device = k.device
+    if steps is None:
+        adj = np.zeros((nB, nB), dtype=bool)
+        adj[(k // B).cpu().numpy(), (j // B).cpu().numpy()] = True
+        steps = sweep_steps(adj)
+    steps = list(steps)
+    if steps[0] != 0 or steps[-1] != nB or np.any(np.diff(steps) <= 0):
+        raise ValueError(f"steps {steps} do not cut {nB} blocks")
+    bounds = torch.tensor(steps, dtype=torch.int64, device=device)
+    n_steps = len(steps) - 1
+    step_of_block = torch.repeat_interleave(
+        torch.arange(n_steps, device=device), torch.diff(bounds))
+    g = step_of_block[k // B]
+    order = torch.argsort((g * n_pad + j) * n_pad + k)
+    g, j, k, w = g[order], j[order], k[order], w[order]
+    tgt_ptr, tgt, src_ptr, src, w = _pack_neighbors(g, j, k, w[None], n_steps,
+                                                    n_pad, n_pad)
+    return SweepNeighbors(step_ptr=bounds.to(torch.int32), tgt_ptr=tgt_ptr,
+                          tgt=tgt, src_ptr=src_ptr, src=src, w=w[0],
+                          block_size=B, n_pad=n_pad)
+
+
+def sweep_neighbors_from_dense(J_blocks, *,
+                               steps: Optional[Sequence[int]] = None
+                               ) -> SweepNeighbors:
+    """The layout of dense J row blocks [nB, B, n_pad] (rows are sources)."""
+    nB, B, n_pad = J_blocks.shape
+    if nB * B != n_pad:
+        raise ValueError(f"J_blocks {tuple(J_blocks.shape)} is not square")
+    J = J_blocks.reshape(n_pad, n_pad)
+    k, j = torch.nonzero(J, as_tuple=True)
+    return _sweep_neighbors(k, j, J[k, j], nB, B, steps)
+
+
+def sweep_neighbors_from_tiles(col_idx, J_tiles, *,
+                               steps: Optional[Sequence[int]] = None
+                               ) -> SweepNeighbors:
+    """The layout of block-sparse tiles J_tiles [nB, K, B, B] over col_idx
+    [nB, K]; padding tiles (zero, aliasing column block 0) give no
+    entries."""
+    nB, K, B, _ = J_tiles.shape
+    b, t, kk, jj = torch.nonzero(J_tiles, as_tuple=True)
+    j = torch.as_tensor(col_idx, device=b.device).long()[b, t] * B + jj
+    return _sweep_neighbors(b * B + kk, j, J_tiles[b, t, kk, jj], nB, B,
+                            steps)
+
+
+def steps_are_independent(nbrs: SweepNeighbors) -> bool:
+    """True when no step holds a coupled pair: no target of a step is a
+    spin of the step."""
+    bounds = nbrs.step_ptr.long() * nbrs.block_size
+    counts = torch.diff(nbrs.tgt_ptr.long())
+    step = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=counts.device), counts)
+    j = nbrs.tgt.long()
+    return not bool(((j >= bounds[step]) & (j < bounds[step + 1])).any())
+
+
+def sweep_threads(R: int, num_sms: int) -> int:
+    """K2/K3's CTA width for R replicas (one CTA each) on num_sms SMs: the
+    widest of SWEEP_WIDTHS at which all R CTAs fit the SMs' threads at once
+    (R * width <= num_sms * 2048), else the narrowest."""
+    for width in sorted(SWEEP_WIDTHS, reverse=True):
+        if R * width <= num_sms * _SM_THREADS:
+            return width
+    return SWEEP_WIDTHS[0]
+
+
+def warp0_energy(h, m, phi):
+    """E = -1/2 m.(phi + h) summed as the sweep kernels' warp 0 sums it
+    (nmc::end_of_sweep): lane l adds m_j (phi_j + h_j) over j = l, l + 32,
+    ... in order from 0, then an xor butterfly over the 32 lanes."""
+    R, n_pad = m.shape
+    lanes = -(-n_pad // 32)
+    x = torch.zeros((R, lanes * 32), dtype=m.dtype, device=m.device)
+    x[:, :n_pad] = m * (phi + h)
+    x = x.reshape(R, lanes, 32)
+    acc = torch.zeros((R, 32), dtype=m.dtype, device=m.device)
+    for i in range(lanes):
+        acc = acc + x[:, i]
+    lane = torch.arange(32, device=m.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, lane ^ off]
+    return -0.5 * acc[:, 0]
+
+
+def _row_beta_sweeps(phi_update, ranges, h, m0, phi0, generator, beta_sweep,
+                     beta_row, mask, beta_spin, num_sweeps, uniforms,
+                     energy=energy_from_fields) -> ColoredSweepResult:
+    """The streamed kernels' sweep loop in plain torch: per spin range
+    (s0, s1) of `ranges` (a block, or a step), all its spins draw at once
+    with beta = (beta_t * beta_row) * beta_spin in that order, then
+    phi = phi_update(phi, dm, i) for range i; each sweep ends with
+    energy(h, m, phi)."""
     R, n_pad = m0.shape
-    B = block_size
     dtype, device = m0.dtype, m0.device
     if uniforms is not None and tuple(uniforms.shape) != (num_sweeps, R, n_pad):
         raise ValueError(f"uniforms must be [{num_sweeps}, {R}, {n_pad}], "
@@ -95,16 +270,15 @@ def _row_beta_sweeps(phi_update, num_blocks, block_size, h, m0, phi0,
     for t in range(num_sweeps):
         u = _uniforms(generator, uniforms, t, (R, n_pad), dtype, device)
         beta_tr = beta_sweep[t] * beta_row                       # [R, 1]
-        for b in range(num_blocks):
-            s = b * B
+        for i, (s0, s1) in enumerate(ranges):
             betab = (beta_tr if beta_spin is None
-                     else beta_tr * beta_spin[:, s:s + B])
-            mb = m[:, s:s + B]
-            mb_new = heat_bath_update(phi[:, s:s + B], betab, u[:, s:s + B],
-                                      mb, mask[:, s:s + B])
-            phi = phi_update(phi, mb_new - mb, b)
-            m[:, s:s + B] = mb_new
-        e = energy_from_fields(h, m, phi)
+                     else beta_tr * beta_spin[:, s0:s1])
+            mb = m[:, s0:s1]
+            mb_new = heat_bath_update(phi[:, s0:s1], betab, u[:, s0:s1], mb,
+                                      mask[:, s0:s1])
+            phi = phi_update(phi, mb_new - mb, i)
+            m[:, s0:s1] = mb_new
+        e = energy(h, m, phi)
         better = e < e_best
         m_best = torch.where(better[:, None], m, m_best)
         e_best = torch.where(better, e, e_best)
@@ -124,8 +298,13 @@ def colored_sweeps_streamed_reference(
     def dense(phi, dm, b):
         return phi + torch.matmul(dm, J_blocks[b])
 
-    return _row_beta_sweeps(dense, nB, B, h, m0, phi0, generator, beta_sweep,
-                            beta_row, mask, beta_spin, num_sweeps, uniforms)
+    return _row_beta_sweeps(dense, _block_ranges(nB, B), h, m0, phi0,
+                            generator, beta_sweep, beta_row, mask, beta_spin,
+                            num_sweeps, uniforms)
+
+
+def _block_ranges(nB, B):
+    return [(b * B, (b + 1) * B) for b in range(nB)]
 
 
 def colored_sweeps_sparse_reference(
@@ -146,15 +325,64 @@ def colored_sweeps_sparse_reference(
             phi[:, c * B:(c + 1) * B] += out[:, k * B:(k + 1) * B]
         return phi
 
-    return _row_beta_sweeps(sparse, nB, B, h, m0, phi0, generator, beta_sweep,
-                            beta_row, mask, beta_spin, num_sweeps, uniforms)
+    return _row_beta_sweeps(sparse, _block_ranges(nB, B), h, m0, phi0,
+                            generator, beta_sweep, beta_row, mask, beta_spin,
+                            num_sweeps, uniforms)
+
+
+def neighbor_sweeps_reference(
+    nbrs, h, m0, phi0, generator, beta_sweep, beta_row, mask,
+    beta_spin=None, *, num_sweeps: int,
+    uniforms: Optional[torch.Tensor] = None,
+) -> ColoredSweepResult:
+    """Plain-torch K2/K3 over a `SweepNeighbors` layout with the kernel's
+    steps and association: per step every spin draws at once, then per
+    target acc = phi[j], acc = acc + dm_k * w_kj over its sources in
+    ascending k (dm_k in {0, +-2}, so each product is exact and the
+    kernel's fmaf rounds as this sum does; a zero dm adds a zero), and the
+    energies in warp 0's order (`warp0_energy`), so that in f32 it equals
+    the kernel bit for bit. Vectorised over a step's targets by source
+    rank. For the tests and chip_smoke.py; no route calls it."""
+    B = nbrs.block_size
+    dtype = m0.dtype
+    steps = nbrs.step_ptr.tolist()
+    tgt_ptr = nbrs.tgt_ptr.tolist()
+    src_ptr = nbrs.src_ptr.long()
+    counts = src_ptr[1:] - src_ptr[:-1]
+    ranges, plans = [], []
+    for s in range(len(steps) - 1):
+        s0, s1 = steps[s] * B, steps[s + 1] * B
+        t0, t1 = tgt_ptr[s], tgt_ptr[s + 1]
+        D = int(counts[t0:t1].max()) if t1 > t0 else 0
+        # the sources of the step's targets, padded to D with weight 0
+        d = torch.arange(D, device=m0.device)
+        e = src_ptr[t0:t1, None] + d
+        live = d < counts[t0:t1, None]
+        e = torch.where(live, e, 0)
+        idx = torch.where(live, nbrs.src.long()[e] - s0, 0)
+        wt = torch.where(live, nbrs.w.to(dtype)[e], 0)
+        ranges.append((s0, s1))
+        plans.append((nbrs.tgt.long()[t0:t1], idx, wt))
+
+    def gather(phi, dm, s):
+        tgt, idx, wt = plans[s]
+        acc = phi[:, tgt]
+        for d in range(idx.shape[1]):
+            acc = acc + dm[:, idx[:, d]] * wt[:, d]
+        phi[:, tgt] = acc
+        return phi
+
+    return _row_beta_sweeps(gather, ranges, h, m0, phi0, generator,
+                            beta_sweep, beta_row, mask, beta_spin, num_sweeps,
+                            uniforms, energy=warp0_energy)
 
 
 # argument kinds of each C entry point, in order ('p' pointer, 'i' int); the
-# CUDA stream follows as one more pointer
+# CUDA stream follows as one more pointer. K2 and K3 take the neighbour
+# layout (6 pointers) and the same sweep arguments.
 _SIGNATURES = {"colored_sweeps_f32": "p" * 14 + "i" * 4,
-               "colored_sweeps_streamed_f32": "p" * 15 + "i" * 5,
-               "colored_sweeps_sparse_f32": "p" * 16 + "i" * 6}
+               "colored_sweeps_streamed_f32": "p" * 20 + "i" * 7,
+               "colored_sweeps_sparse_f32": "p" * 20 + "i" * 7}
 
 
 def _bind(lib, fn: str = "colored_sweeps_f32"):
@@ -307,6 +535,68 @@ def _row_beta_args(h, m0, phi0, beta_sweep, beta_row, mask, beta_spin,
     return beta_sweep, beta_row, mask, rows, beta_spin
 
 
+def _check_sweep_neighbors(nbrs, n_pad, B, device):
+    if not isinstance(nbrs, SweepNeighbors):
+        raise TypeError("nbrs must be a SweepNeighbors")
+    if nbrs.block_size != B:
+        raise ValueError(f"nbrs has block_size {nbrs.block_size}, expected {B}")
+    n_steps = nbrs.step_ptr.shape[0] - 1
+    n_tgt, nnz = nbrs.tgt.shape[0], nbrs.src.shape[0]
+    if not 1 <= n_steps <= n_pad // B:
+        raise ValueError(f"nbrs has {n_steps} steps for {n_pad // B} blocks")
+    if nbrs.n_pad != n_pad:
+        raise ValueError(f"nbrs is for n_pad {nbrs.n_pad}, not {n_pad}")
+    _check("nbrs.step_ptr", nbrs.step_ptr, (n_steps + 1,), torch.int32, device)
+    _check("nbrs.tgt_ptr", nbrs.tgt_ptr, (n_steps + 1,), torch.int32, device)
+    _check("nbrs.tgt", nbrs.tgt, (n_tgt,), torch.int16, device)
+    _check("nbrs.src_ptr", nbrs.src_ptr, (n_tgt + 1,), torch.int32, device)
+    _check("nbrs.src", nbrs.src, (nnz,), torch.int16, device)
+    _check("nbrs.w", nbrs.w, (nnz,), torch.float32, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _shared_bytes_nbr(n_pad):
+    """K2/K3's dynamic shared memory per CTA: phi (f32), m and dm (int8)."""
+    return 6 * n_pad
+
+
+def _launch_nbr(fn, nbrs, B, h, m0, phi0, generator, beta_sweep, beta_row,
+                mask, beta_spin, num_sweeps, uniforms, threads):
+    """Check the arguments and launch entry point `fn` (K2 or K3) over the
+    layout, `threads` per CTA (default `sweep_threads`)."""
+    device = m0.device
+    R, n_pad = m0.shape
+    _check_sweep_neighbors(nbrs, n_pad, B, device)
+    beta_sweep, beta_row, mask, rows, beta_spin = _row_beta_args(
+        h, m0, phi0, beta_sweep, beta_row, mask, beta_spin, num_sweeps, n_pad,
+        device)
+    _check_shared(fn, _shared_bytes_nbr(n_pad))
+    if threads is None:
+        threads = sweep_threads(R, _num_sms(device))
+    if threads not in SWEEP_WIDTHS:
+        raise ValueError(f"threads must be one of {SWEEP_WIDTHS}, got {threads}")
+    seed = _seed(generator, uniforms, (num_sweeps, R, n_pad), device)
+
+    lib = _bind(load_library(_LIB_NBR), fn)
+    out = _outputs(m0, num_sweeps)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, fn)(
+        nbrs.step_ptr.data_ptr(), nbrs.tgt_ptr.data_ptr(), nbrs.tgt.data_ptr(),
+        nbrs.src_ptr.data_ptr(), nbrs.src.data_ptr(), nbrs.w.data_ptr(),
+        h.data_ptr(), m0.data_ptr(), phi0.data_ptr(), _ptr(beta_spin),
+        mask.data_ptr(), beta_sweep.data_ptr(), beta_row.data_ptr(),
+        _ptr(uniforms), _ptr(seed), out.m.data_ptr(), out.phi.data_ptr(),
+        out.m_best.data_ptr(), out.e_best.data_ptr(), out.energies.data_ptr(),
+        R, n_pad, B, num_sweeps, rows, nbrs.step_ptr.shape[0] - 1, threads,
+        stream)
+    _raise_on(err, fn)
+    return out
+
+
 def colored_sweeps_streamed(
     J_blocks,     # [nB, B, n_pad] float32 row blocks of the colored layout
     h,            # [n_pad]
@@ -320,38 +610,26 @@ def colored_sweeps_streamed(
     *,
     num_sweeps: int,
     uniforms: Optional[torch.Tensor] = None,   # [T, R, n_pad] injected draws
+    nbrs: Optional[SweepNeighbors] = None,     # J's layout (built if None)
+    threads: Optional[int] = None,             # CTA width (sweep_threads)
 ) -> ColoredSweepResult:
     """T colored heat-bath sweeps with per-replica beta over dense J row
     blocks (K2); the CUDA kernel on CUDA tensors, the plain torch version
-    on CPU tensors."""
+    on CPU tensors (which ignores `nbrs` and `threads`)."""
     if m0.device.type == "cpu":
         return colored_sweeps_streamed_reference(
             J_blocks, h, m0, phi0, generator, beta_sweep, beta_row, mask,
             beta_spin, num_sweeps=num_sweeps, uniforms=uniforms)
     _require_cuda(m0, "colored_sweeps_streamed")
-
-    device = m0.device
     nB, B, n_pad = J_blocks.shape
-    R = m0.shape[0]
     if nB * B != n_pad:
         raise ValueError(f"J_blocks {tuple(J_blocks.shape)} is not square")
-    _check("J_blocks", J_blocks, (nB, B, n_pad), torch.float32, device)
-    beta_sweep, beta_row, mask, rows, beta_spin = _row_beta_args(
-        h, m0, phi0, beta_sweep, beta_row, mask, beta_spin, num_sweeps, n_pad,
-        device)
-    _check_shared("colored_sweeps_streamed", 5 * n_pad + 8 * B)
-    seed = _seed(generator, uniforms, (num_sweeps, R, n_pad), device)
-
-    lib = _bind(load_library(_LIB), "colored_sweeps_streamed_f32")
-    out = _outputs(m0, num_sweeps)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.colored_sweeps_streamed_f32(
-        J_blocks.data_ptr(), h.data_ptr(), m0.data_ptr(), phi0.data_ptr(),
-        _ptr(beta_spin), mask.data_ptr(), beta_sweep.data_ptr(),
-        beta_row.data_ptr(), _ptr(uniforms), _ptr(seed), out.m.data_ptr(),
-        out.phi.data_ptr(), out.m_best.data_ptr(), out.e_best.data_ptr(),
-        out.energies.data_ptr(), R, n_pad, B, num_sweeps, rows, stream)
-    _raise_on(err, "colored_sweeps_streamed")
+    _check("J_blocks", J_blocks, (nB, B, n_pad), torch.float32, m0.device)
+    if nbrs is None:
+        nbrs = sweep_neighbors_from_dense(J_blocks)
+    out = _launch_nbr("colored_sweeps_streamed_f32", nbrs, B, h, m0, phi0,
+                      generator, beta_sweep, beta_row, mask, beta_spin,
+                      num_sweeps, uniforms, threads)
     colored_sweeps_streamed.launches += 1
     return out
 
@@ -370,41 +648,43 @@ def colored_sweeps_sparse(
     *,
     num_sweeps: int,
     uniforms: Optional[torch.Tensor] = None,   # [T, R, n_pad] injected draws
+    nbrs: Optional[SweepNeighbors] = None,     # the tiles' layout (built if None)
+    threads: Optional[int] = None,             # CTA width (sweep_threads)
 ) -> ColoredSweepResult:
     """T colored heat-bath sweeps with per-replica beta over the block-sparse
     tiles of J (K3); the CUDA kernel on CUDA tensors, the plain torch
-    version on CPU tensors."""
+    version on CPU tensors (which ignores `nbrs` and `threads`)."""
     if m0.device.type == "cpu":
         return colored_sweeps_sparse_reference(
             col_idx, J_tiles, h, m0, phi0, generator, beta_sweep, beta_row,
             mask, beta_spin, num_sweeps=num_sweeps, uniforms=uniforms)
     _require_cuda(m0, "colored_sweeps_sparse")
-
     device = m0.device
     nB, K, B, _ = J_tiles.shape
-    n_pad = nB * B
-    R = m0.shape[0]
     _check("col_idx", col_idx, (nB, K), torch.int32, device)
     _check("J_tiles", J_tiles, (nB, K, B, B), torch.float32, device)
-    beta_sweep, beta_row, mask, rows, beta_spin = _row_beta_args(
-        h, m0, phi0, beta_sweep, beta_row, mask, beta_spin, num_sweeps, n_pad,
-        device)
-    _check_shared("colored_sweeps_sparse", 5 * n_pad + 4 * K * B + 8 * B + 4 * K)
-    seed = _seed(generator, uniforms, (num_sweeps, R, n_pad), device)
-
-    lib = _bind(load_library(_LIB_SPARSE), "colored_sweeps_sparse_f32")
-    out = _outputs(m0, num_sweeps)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.colored_sweeps_sparse_f32(
-        col_idx.data_ptr(), J_tiles.data_ptr(), h.data_ptr(), m0.data_ptr(),
-        phi0.data_ptr(), _ptr(beta_spin), mask.data_ptr(),
-        beta_sweep.data_ptr(), beta_row.data_ptr(), _ptr(uniforms),
-        _ptr(seed), out.m.data_ptr(), out.phi.data_ptr(),
-        out.m_best.data_ptr(), out.e_best.data_ptr(),
-        out.energies.data_ptr(), R, n_pad, B, K, num_sweeps, rows, stream)
-    _raise_on(err, "colored_sweeps_sparse")
+    if nbrs is None:
+        nbrs = sweep_neighbors_from_tiles(col_idx, J_tiles)
+    out = _launch_nbr("colored_sweeps_sparse_f32", nbrs, B, h, m0, phi0,
+                      generator, beta_sweep, beta_row, mask, beta_spin,
+                      num_sweeps, uniforms, threads)
     colored_sweeps_sparse.launches += 1
     return out
+
+
+def sweep_occupancy(n_pad: int, threads: int):
+    """(registers per thread, CTAs per SM) of K2/K3's kernel at `threads`
+    per CTA with its dynamic shared memory at this n_pad, from the CUDA
+    runtime (builds the library)."""
+    lib = load_library(_LIB_NBR)
+    f = lib.colored_sweeps_nbr_occupancy
+    f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                  ctypes.POINTER(ctypes.c_int)]
+    f.restype = ctypes.c_int
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    _raise_on(f(threads, _shared_bytes_nbr(n_pad), ctypes.byref(regs),
+                ctypes.byref(ctas)), "colored_sweeps_nbr_occupancy")
+    return regs.value, ctas.value
 
 
 colored_sweeps.launches = 0
