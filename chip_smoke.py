@@ -12,10 +12,16 @@ non-zero without printing a result:
                  tensor-core SASS lines of each K6 / K7 kernel
                  (`cuobjdump -sass`: HMMA, IMMA, HGMMA, IGMMA, which must
                  be there) with its ptxas registers and spills;
-  3. kernel    — K1 (colored_sweeps) against its plain torch version on
-                 chimera 8x8 (N = 512, n_pad = 640), R = 256, T = 16, with
-                 identical injected uniforms; then K1's own Philox draws
-                 against the enumerated Boltzmann law of a 4-cycle;
+  3. kernel    — K1 (colored_sweeps, the neighbour-list body with P
+                 replicas per CTA) on +-J and Gaussian chimera 8x8 (n_pad
+                 640) and +-J ea_2d L = 32 (n_pad 1024), R = 256 and 253,
+                 T = 16, an "all" and a "heated backbone + per-chain mask"
+                 case, identical injected uniforms: bit for bit against
+                 `neighbor_sweeps_reference` at every (P, width) that
+                 `k1_launch` returns and at P = 1 at every width, and
+                 against its dense plain version within its tolerance;
+                 then K1's own Philox draws against the enumerated
+                 Boltzmann law of a 4-cycle;
   4. streamed_kernels — K3 (colored_sweeps_sparse) on chimera 16x16
                  (n_pad 2048) and K2 (colored_sweeps_streamed) on a random
                  3-regular +-J graph with N = 4096, one kernel body over a
@@ -26,9 +32,9 @@ non-zero without printing a result:
                  against `neighbor_sweeps_reference` (the plain sweeps over
                  the layout with the kernel's association) at every CTA
                  width; the same bit for bit, K2 and K3 each, on Gaussian
-                 chimera 8x8 and 16x16; K1 = K2 = K3 bit for bit with their
-                 own Philox draws on +-J and Gaussian chimera 8x8; the
-                 Boltzmann TV of K2 and K3;
+                 chimera 8x8 and 16x16; K1 (several replicas per CTA) = K2
+                 = K3 bit for bit with their own Philox draws on +-J and
+                 Gaussian chimera 8x8; the Boltzmann TV of K2 and K3;
   5. nmc_512   — nmc_run on chimera 8x8, 256 chains, reduced depth, through
                  K1 (launch count of that run); plus the NMC cycle loop at a
                  small size on the card against the CPU path;
@@ -101,9 +107,10 @@ non-zero without printing a result:
                  version with a stated tolerance; K1, K2 and K3 alone
                  at the shapes they launch at on the main paths
                  (LAUNCH_SHAPES: K3 at R = 256, 64, 24 and 2), beside
-                 their bounds; and K2 against K1 (bit for bit, then each
-                 timed) on a denser colored layout, 32 random matchings
-                 at N = 4096.
+                 their bounds, with each shape's replicas per CTA, width,
+                 registers and CTAs per SM; and K2 against K1 (bit for
+                 bit, then each timed) on a denser colored layout, 32
+                 random matchings at N = 4096.
 Phases 5-8, 10-12 and 14 are the main paths: each sets the launch counts to
 0 just before it and reads them just after. Then one line {"kernels": [...]},
 the card's name and power limit, and last {"ok": true, "device": {...}}.
@@ -111,11 +118,16 @@ the card's name and power limit, and last {"ok": true, "device": {...}}.
     python3 chip_smoke.py --round-ablation
     python3 chip_smoke.py --exact-ablation
     python3 chip_smoke.py --sweep-ablation
+    python3 chip_smoke.py --sweep-times [CHECKOUT]
 
 time patched copies of the round kernels', the exact kernels' and the
-K2/K3 body's sources against the kernels as they are, in turns
-(ROUND_ABLATIONS, EXACT_ABLATIONS, SWEEP_ABLATIONS; the last also each CTA
-width and block steps at every K2/K3 launch shape).
+sweep body's sources against the kernels as they are, in turns
+(ROUND_ABLATIONS, EXACT_ABLATIONS, SWEEP_ABLATIONS; the last also each
+replicas-per-CTA and width pair of K1 at R = 256 x 500 and 2048 x 1024,
+each CTA width of K2/K3 at their launch shapes, and block steps);
+`--sweep-times` times K1-K3 alone at their launch and throughput shapes
+with the chip_smoke.py and package of CHECKOUT (default: this one), to
+compare two checkouts in turns on one card.
 """
 
 import functools
@@ -384,38 +396,94 @@ def _compare(torch, name, k, p, J, h, m0, mask):
         max(phi_err, e_err)
 
 
+def _ea2d32():
+    """ea_2d(32, seed=0), +-J: 2 colour classes, n_pad 1024, a second K1
+    layout, and its engine."""
+    from nmc_tpu_torch.io.generators import ea_2d
+    from nmc_tpu_torch.ops.engine import SweepEngine
+    eng = SweepEngine(ea_2d(32, seed=0), use_coloring=True, device=DEVICE)
+    check(eng.n_pad == 1024 and eng.sweep_kernel == "colored_sweeps",
+          f"ea_2d L = 32: n_pad {eng.n_pad}, route {eng.sweep_kernel}")
+    return eng
+
+
+def _k1_shapes(n_pad):
+    """Every (replicas per CTA, width) that k1_launch returns at this n_pad
+    on this card for R = 1 .. 16384, and one replica per CTA at every
+    width."""
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    sms = sc._num_sms(DEVICE)
+    shapes = {sc.k1_launch(R, n_pad, sms) for R in range(1, 16385)}
+    return sorted(shapes | {(1, w) for w in sc.K1_WIDTHS})
+
+
 def phase_kernel():
-    """K1 against colored_sweeps_reference with identical uniforms."""
+    """K1 on three layouts (+-J chimera 8x8, Gaussian chimera 8x8, +-J
+    ea_2d L = 32), at R = 256 and R = 253 (not a multiple of 2, 4 or 8),
+    T = 16, in an "all" case and a "heated backbone + per-chain mask" case
+    with identical injected uniforms: at every (P, width) of `_k1_shapes`,
+    bit for bit against `neighbor_sweeps_reference` (beta_row 1, the
+    kernel's steps and association); at the rule's shape against
+    `colored_sweeps_reference` (dense J row blocks, the TPU kernel's
+    function) within `_compare`'s tolerance. Then K1's own Philox draws
+    against the enumerated Boltzmann law of a 4-cycle."""
     import torch
-    from nmc_tpu_torch.ops.sweeps_cuda import (colored_sweeps,
-                                               colored_sweeps_reference)
-    prob, eng = _flagship()
-    R, T, n_pad = R_CHECK, T_CHECK, eng.n_pad
-    gen = torch.Generator(device=DEVICE).manual_seed(1)
-    m0 = eng.init_states(gen, R)
-    phi0 = eng.fields(m0)
-    u = torch.rand((T, R, n_pad), generator=gen, device=DEVICE)
-    cl = (torch.rand((R, n_pad), generator=gen, device=DEVICE) < 0.5) & eng.active
-    cases = {
-        # all spins at beta = 1, as in an ALL phase
-        "all": (torch.full((T,), 1.0, device=DEVICE),
-                torch.ones((), device=DEVICE), eng.active.expand(R, n_pad)),
-        # an NMC C phase: clusters heated to beta/temp_x, the rest frozen
-        "heated_clusters": (torch.full((T,), 2.5, device=DEVICE),
-                            torch.where(cl, 1.0 / TEMP_X, 1.0), cl),
-    }
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    T = T_CHECK
+    layouts = {"chimera512": _flagship()[1],
+               "gaussian_chimera512": _gaussian_chimera(8)[1],
+               "ea2d_1024": _ea2d32()}
+    out = {"phase": "kernel", "kernel": "colored_sweeps", "T": T}
     max_err = 0.0
-    out = {"phase": "kernel", "kernel": "colored_sweeps", "R": R, "T": T,
-           "n_pad": n_pad}
-    for name, (beta, bs, mask) in cases.items():
-        k = colored_sweeps(eng.J_full, eng.h, m0, phi0, None, beta, bs, mask,
-                           num_sweeps=T, block_size=128, uniforms=u)
-        p = colored_sweeps_reference(eng.J_full, eng.h, m0, phi0, None, beta,
-                                     bs, mask, num_sweeps=T, block_size=128,
-                                     uniforms=u)
-        out[name], err = _compare(torch, name, k, p, eng.J_full, eng.h, m0,
-                                  mask)
-        max_err = max(max_err, err)
+    for layout, eng in layouts.items():
+        n_pad, B = eng.n_pad, eng.blocked.block_size
+        shapes = _k1_shapes(n_pad)
+        res = {"n_pad": n_pad, "steps": len(eng.sweep_nbrs.step_ptr) - 1,
+               "shapes_bit_equal": [list(x) for x in shapes]}
+        for R in (R_CHECK, R_CHECK - 3):
+            gen = torch.Generator(device=DEVICE).manual_seed(1)
+            m0 = eng.init_states(gen, R)
+            phi0 = eng.fields(m0)
+            u = torch.rand((T, R, n_pad), generator=gen, device=DEVICE)
+            cl = ((torch.rand((R, n_pad), generator=gen, device=DEVICE) < 0.5)
+                  & eng.active)
+            cases = {
+                # all spins at beta = 1, as in an ALL phase
+                "all": (torch.full((T,), 1.0, device=DEVICE),
+                        torch.ones((), device=DEVICE), eng.active[None]),
+                # an NMC C phase: the backbone heated to beta / temp_x, the
+                # rest frozen
+                "heated_backbone_chain_mask": (
+                    torch.full((T,), 2.5, device=DEVICE),
+                    torch.where(cl, 1.0 / TEMP_X, 1.0), cl)}
+            rule = sc.k1_launch(R, n_pad, sc._num_sms(DEVICE))
+            for case, (beta, bs, mask) in cases.items():
+                args = (eng.h, m0, phi0, None, beta)
+                q = sc.neighbor_sweeps_reference(
+                    eng.sweep_nbrs, *args, torch.ones(R, device=DEVICE), mask,
+                    None if bs.ndim == 0 else bs, num_sweeps=T, uniforms=u)
+                for P, width in shapes:
+                    k = sc.colored_sweeps(
+                        eng.J_full, *args, bs, mask, num_sweeps=T,
+                        block_size=B, uniforms=u, nbrs=eng.sweep_nbrs,
+                        threads=width, replicas_per_cta=P)
+                    torch.cuda.synchronize()
+                    check(_bit_equal(k, q), f"K1 {layout} R={R} {case} P={P} "
+                          f"width={width}: differs from the plain sweeps over "
+                          "its layout")
+                k = sc.colored_sweeps(eng.J_full, *args, bs, mask,
+                                      num_sweeps=T, block_size=B, uniforms=u,
+                                      nbrs=eng.sweep_nbrs)
+                p = sc.colored_sweeps_reference(eng.J_full, *args, bs, mask,
+                                                num_sweeps=T, block_size=B,
+                                                uniforms=u)
+                cmp, err = _compare(torch, f"K1 {layout} R={R} {case}", k, p,
+                                    eng.J_full, eng.h, m0, mask)
+                res[f"R={R} {case}"] = {"rule": list(rule),
+                                        "vs_neighbor_plain_bit_equal": True,
+                                        "vs_dense_plain": cmp}
+                max_err = max(max_err, err)
+        out[layout] = res
 
     def k1(eng, m, gen, beta, sweeps):
         return eng.run(m, gen, sweeps, beta, blocked_input=True,
@@ -450,20 +518,13 @@ def _sweep_cases(torch, eng, R, T, seed):
     return m0, phi0, u, cases
 
 
-def _layout_of(eng):
-    """The engine's K2/K3 neighbour layout, or the one its wrappers build
-    from its J (K1 layouts)."""
-    from nmc_tpu_torch.ops import sweeps_cuda as sc
-    if eng.sweep_nbrs is not None:
-        return eng.sweep_nbrs
-    return sc.sweep_neighbors_from_dense(eng.J_rows)
-
-
 def _equals_k1(torch, eng, names, R, T):
-    """K1 and each wrapper of `names` (K2, K3) on one layout with one
-    Philox seed, from the same random states at beta 2: every output
-    equal element for element (checked)."""
+    """K1, at the (P, width) k1_launch gives R = 2048 on this layout, and
+    each wrapper of `names` (K2, K3) on one layout with one Philox seed,
+    from the same random states at beta 2: every output equal element for
+    element (checked). Returns K1's (P, width)."""
     from nmc_tpu_torch.ops import sweeps_cuda as sc
+    P, width = sc.k1_launch(2048, eng.n_pad, sc._num_sms(DEVICE))
     gen = torch.Generator(device=DEVICE).manual_seed(3)
     m0 = eng.init_states(gen, R)
     phi0 = eng.fields(m0)
@@ -471,8 +532,9 @@ def _equals_k1(torch, eng, names, R, T):
     k1 = sc.colored_sweeps(
         eng.J_full, eng.h, m0, phi0,
         torch.Generator(device=DEVICE).manual_seed(7), beta,
-        torch.ones((), device=DEVICE), eng.active.expand(R, eng.n_pad),
-        num_sweeps=T, block_size=eng.blocked.block_size)
+        torch.ones((), device=DEVICE), eng.active[None], num_sweeps=T,
+        block_size=eng.blocked.block_size, nbrs=eng.sweep_nbrs,
+        threads=width, replicas_per_cta=P)
     check(bool((k1.m != m0).any()), "K1 moved no spin")
     for name in names:
         kr = _kernel_fns(name, eng)[0](
@@ -481,15 +543,16 @@ def _equals_k1(torch, eng, names, R, T):
             num_sweeps=T)
         check(_bit_equal(k1, kr),
               f"{name} differs from K1 with the same Philox seed")
-    return True
+    return {"k1_replicas_per_cta": P, "k1_threads": width}
 
 
 def phase_streamed_kernels(c2048, r4096):
     """K3 and K2 against their plain versions (within today's tolerances)
     and, bit for bit, against the plain sweeps over their neighbour layout
     with the kernel's association, at every CTA width; the same on
-    Gaussian chimera couplings; K1 = K2 = K3 with one Philox seed on +-J
-    and Gaussian couplings; K2's and K3's Philox Boltzmann TV."""
+    Gaussian chimera couplings; K1 (at its R = 2048 shape, several replicas
+    per CTA) = K2 = K3 with one Philox seed on +-J and Gaussian couplings;
+    K2's and K3's Philox Boltzmann TV."""
     import torch
     from nmc_tpu_torch.ops import sweeps_cuda as sc
     R, T = R_CHECK, T_CHECK
@@ -511,7 +574,7 @@ def phase_streamed_kernels(c2048, r4096):
                 False))
     for name, layout, eng, twin in layouts:
         kernel, plain = _kernel_fns(name, eng)
-        nbrs = _layout_of(eng)
+        nbrs = eng.sweep_nbrs
         m0, phi0, u, cases = _sweep_cases(torch, eng, R, T, 11)
         res = {"n_pad": eng.n_pad, "num_blocks": eng.blocked.num_blocks,
                "steps": int(nbrs.step_ptr.shape[0]) - 1,
@@ -545,8 +608,8 @@ def phase_streamed_kernels(c2048, r4096):
             res[case]["widths_bit_equal"] = True
         out.setdefault(name, {})[layout] = res
 
-    # K1 = K2 = K3 with their own Philox draws on one layout: the step
-    # gather runs K1's FMA chain, so they agree on any f32 couplings
+    # K1 (several replicas per CTA) = K2 = K3 with their own Philox draws on
+    # one layout: one body, whatever P, so they agree on any f32 couplings
     names = ("colored_sweeps_streamed", "colored_sweeps_sparse")
     out["k1_k2_k3_bit_equal_philox"] = {
         "chimera512": _equals_k1(torch, _flagship()[1], names, R, T),
@@ -1849,15 +1912,15 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0,
     m0 = eng.init_states(gen, R)
     betas = torch.full((sweeps,), beta, device=DEVICE)
     if name == "colored_sweeps":
-        mask = eng.active.expand(R, n_pad)
         one = torch.ones((), device=DEVICE)
 
         def call(fn, m, T):
             return fn(eng.J_full, eng.h, m.m, m.phi, gen, betas[:T], one,
-                      mask, num_sweeps=T, block_size=eng.blocked.block_size)
-        fns = (sc.colored_sweeps, sc.colored_sweeps_reference)
-        j_bytes = 4 * n_pad * n_pad
-        mask_bytes = R * n_pad + 4 * R * n_pad   # [R, n_pad] mask, beta_spin
+                      eng.active[None], num_sweeps=T,
+                      block_size=eng.blocked.block_size)
+        fns = (functools.partial(sc.colored_sweeps, nbrs=eng.sweep_nbrs),
+               sc.colored_sweeps_reference)
+        P, threads = sc.k1_launch(R, n_pad, sc._num_sms(DEVICE))
     else:
         fns = _kernel_fns(name, eng)
         ones = torch.ones(R, device=DEVICE)
@@ -1865,10 +1928,12 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0,
         def call(fn, m, T):
             return fn(eng.h, m.m, m.phi, gen, betas[:T], ones,
                       eng.active[None], None, num_sweeps=T)
-        # K2/K3 read the couplings only through the neighbour layout
-        j_bytes = sum(t.numel() * t.element_size() for t in eng.sweep_nbrs
-                      if isinstance(t, torch.Tensor))
-        mask_bytes = n_pad + 4 * R              # [1, n_pad] mask, beta_row
+        P, threads = 1, sc.sweep_threads(R, sc._num_sms(DEVICE))
+    # all three read the couplings only through the neighbour layout, a
+    # [1, n_pad] mask and beta_row (K1: its scalar beta_spin)
+    j_bytes = sum(t.numel() * t.element_size() for t in eng.sweep_nbrs
+                  if isinstance(t, torch.Tensor))
+    mask_bytes = n_pad + 4 * R
     state = ColoredSweepResult(m0, eng.fields(m0), None, None, None)
     kernel, plain = fns
     state = call(kernel, state, sweeps)        # burn-in (and warm-up)
@@ -1913,10 +1978,10 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0,
     t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_HBM_BYTES
     k_ms = min(times["kernel"])
     p_ms = min(times["plain"]) if with_plain else None
-    threads = (256 if name == "colored_sweeps"
-               else sc.sweep_threads(R, sc._num_sms(DEVICE)))
+    regs, ctas = sc.sweep_occupancy(n_pad, threads, P)
     return {"name": name, "R": R, "sweeps": sweeps, "iters": iters, "N": N,
-            "n_pad": n_pad, "threads": threads, "beta": beta, "ms": times,
+            "n_pad": n_pad, "threads": threads, "replicas_per_cta": P,
+            "registers": regs, "ctas_per_sm": ctas, "beta": beta, "ms": times,
             "kernel_ms_per_call": k_ms, "plain_ms_per_call": p_ms,
             "kernel_attempts_per_s": attempts / (k_ms * 1e-3),
             "plain_attempts_per_s": attempts / (p_ms * 1e-3) if p_ms else None,
@@ -1961,6 +2026,9 @@ def _launch_shapes(torch, name, prob, eng):
                     "ms": r["kernel_ms_per_call"], "bound_ms": r["bound_ms"],
                     "flips_per_attempt": r["flips_per_attempt"],
                     "threads": r["threads"],
+                    "replicas_per_cta": r["replicas_per_cta"],
+                    "registers": r["registers"],
+                    "ctas_per_sm": r["ctas_per_sm"],
                     "gap_ms": total / sweeps * (r["kernel_ms_per_call"]
                                                 - r["bound_ms"])})
     return out
@@ -1971,8 +2039,8 @@ def _dense_layout(torch):
     perfect matchings at N = 4096 (many more colour classes, so steps, than
     chimera's or the 3-regular graph's; the K2 route): K1 = K2 bit for bit
     with one Philox seed, then each kernel alone at R = 64 x 100 and
-    R = 2048 x 32 sweeps. K1, the dense-row body, computes the same
-    function by streaming a J row per flip."""
+    R = 2048 x 32 sweeps, K1 at its rule's replicas per CTA (shared memory
+    allows at most 4 at n_pad 5248), K2 at one."""
     from nmc_tpu_torch.ops.engine import SweepEngine
     prob = _matchings(4096, 32, 7, "matchings32_4096")
     eng = SweepEngine(prob, use_coloring=True, device=DEVICE)
@@ -1990,7 +2058,8 @@ def _dense_layout(torch):
             r = _throughput_one(torch, name, prob, eng, R, sweeps, 1,
                                 with_plain=False)
             out[f"{name} R={R} x {sweeps}"] = {
-                k: r[k] for k in ("threads", "kernel_ms_per_call", "bound_ms",
+                k: r[k] for k in ("threads", "replicas_per_cta",
+                                  "kernel_ms_per_call", "bound_ms",
                                   "flips_per_attempt", "ms")}
     return out
 
@@ -2259,80 +2328,96 @@ def exact_ablation(turns=5):
 
 # ---- the sweep kernels' ablation (chip_smoke.py --sweep-ablation) ----
 
-# Timing variants of csrc/colored_sweeps_nbr.cu (K2/K3) and the draw in
-# sweep_common.cuh: each drops one piece of a sweep, so its results are
-# wrong and it only splits the time. The CTA widths and block steps (one
-# step per row block instead of per colour class) are cases of the kernel
-# as is, each held bit for bit against it at the width rule's width.
-_SW_NO_GATHER = ("      gather_step(a, s, dm, phi);",
-                 "      if (false) gather_step(a, s, dm, phi);")
-_SW_NO_ENERGY = ("    nmc::end_of_sweep(m, phi, a.h, n_pad,",
-                 "    if (false) nmc::end_of_sweep(m, phi, a.h, n_pad,")
-_SW_NO_PHILOX = ("sweep_common.cuh",
-                 "philox4x32_10_word0(\n            (uint32_t)col, a.r, "
-                 "(uint32_t)t, 0u, a.seed0, a.seed1);",
+# Timing variants of csrc/colored_sweeps_nbr.cu (K1, K2, K3): "no_*" drop one
+# piece of a sweep, so their results are wrong and they only split the
+# time. The others keep the arithmetic and are held bit for bit: the
+# gather reads a weight once per entry at every P ("w_load_once") or only
+# for a flipped source at every P ("w_load_when_flipped"; the kernel does
+# the first at P > 1, the second at P = 1), and launch bounds that ask for
+# 2048 / width CTAs per SM, 32 registers a thread ("full_sm_bounds"). The
+# replicas per CTA (K1), the CTA widths and block steps (one step per row
+# block instead of per colour class) are cases of the kernel as is, each
+# held bit for bit against the rule's shape.
+_SW_NO_GATHER = ("      gather_step<kP>(a, s, dm, phi);",
+                 "      if (false) gather_step<kP>(a, s, dm, phi);")
+_SW_NO_ENERGY = ("    if (warp < live)\n      end_of_sweep(",
+                 "    if (false)\n      end_of_sweep(")
+_SW_NO_PHILOX = ("nmc::philox4x32_10_word0(\n            (uint32_t)col, "
+                 "d.r, (uint32_t)t, 0u, d.seed0, d.seed1);",
                  "(uint32_t)col * 0x9E3779B9u ^ (uint32_t)t * 0x85EBCA6Bu "
-                 "^ a.r ^ a.seed0;")
-# a target's source indices and their dm loaded four at a time before its
-# FMAs, in the same order
-_SW_GATHER_4 = ("""    for (int e = __ldg(a.src_ptr + t); e < e1; ++e) {
-      const int d = dm[__ldg(a.src + e)];
-      if (d != 0) acc = fmaf((float)d, __ldg(a.w + e), acc);
-    }""", """    for (int e = __ldg(a.src_ptr + t); e < e1; e += 4) {
-      int d[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        d[q] = e + q < e1 ? dm[__ldg(a.src + e + q)] : 0;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (d[q] != 0) acc = fmaf((float)d[q], __ldg(a.w + e + q), acc);
-    }""")
+                 "^ d.r ^ d.seed0;")
+_SW_W_ONCE = [("kP > 1 ? __ldg(a.w + e) : 0.f", "__ldg(a.w + e)"),
+              ("kP > 1 ? w : __ldg(a.w + e)", "w")]
+_SW_W_WHEN_FLIPPED = [
+    ("      const float w = kP > 1 ? __ldg(a.w + e) : 0.f;\n", ""),
+    ("kP > 1 ? w : __ldg(a.w + e)", "__ldg(a.w + e)")]
+_SW_FULL_SM = ("__launch_bounds__(kWidth) colored_sweeps_nbr_kernel",
+               "__launch_bounds__(kWidth, 2048 / kWidth) "
+               "colored_sweeps_nbr_kernel")
 SWEEP_ABLATIONS = {
     "as_is": [], "no_gather": [_SW_NO_GATHER], "no_philox": [_SW_NO_PHILOX],
     "no_sweep_energy": [_SW_NO_ENERGY],
     "no_gather_philox_energy": [_SW_NO_GATHER, _SW_NO_PHILOX, _SW_NO_ENERGY],
-    "gather_4_loads_at_once": [_SW_GATHER_4]}
-_SWEEP_SAME_ARITHMETIC = ("gather_4_loads_at_once",)
+    "w_load_once": _SW_W_ONCE, "w_load_when_flipped": _SW_W_WHEN_FLIPPED,
+    "full_sm_bounds": [_SW_FULL_SM]}
+_SWEEP_SAME_ARITHMETIC = ("w_load_once", "w_load_when_flipped",
+                          "full_sm_bounds")
+# K1's ablation shapes on chimera 8x8: its main-path launch shape and the
+# throughput shape (bench.py's R = 2048 x 1024 sweeps)
+K1_ABLATION_SHAPES = ((256, 500), (2048, 1024))
 
 
 def sweep_ablation(turns=7):
-    """`_ablate` over SWEEP_ABLATIONS at every main-path launch shape of K3
-    and K2 (LAUNCH_SHAPES) and at the throughput shape R = 2048 x 256: per
-    shape each CTA width, then block steps at the rule's width, from a
-    burnt-in state at beta 2 (Philox). On the kernel as is, and on the
-    variants that keep its arithmetic, every case of a shape equals the
-    kernel as is at the rule's width bit for bit on 4 sweeps of injected
-    uniforms."""
+    """`_ablate` over SWEEP_ABLATIONS at K1's shapes (K1_ABLATION_SHAPES, on
+    chimera 8x8), every main-path launch shape of K3 and K2 (LAUNCH_SHAPES)
+    and their throughput shape R = 2048 x 256: per shape each (replicas
+    per CTA, width) that fits (K1: P in 1, 2, 4, 8 x widths 128-1024 of at
+    least 32 P; K2/K3: P = 1 at each of their widths), then block steps at
+    the rule's shape, from a burnt-in state at beta 2 (Philox). On the
+    kernel as is, and on the variants that keep its arithmetic, every case
+    of a shape equals the kernel as is at the rule's shape bit for bit on 4
+    sweeps of injected uniforms."""
     import torch
     from nmc_tpu_torch.ops import sweeps_cuda as sc
-    c2048, r4096 = _chimera2048(), _regular3()
+    c512, c2048, r4096 = _flagship()[1], _chimera2048()[1], _regular3()[1]
     sms = sc._num_sms(DEVICE)
-    shapes = ([("colored_sweeps_sparse", c2048[1], R, T)
-               for R, T, _, _ in LAUNCH_SHAPES["colored_sweeps_sparse"]]
-              + [("colored_sweeps_sparse", c2048[1], *SWEEP_THROUGHPUT)]
-              + [("colored_sweeps_streamed", r4096[1], R, T)
+    shapes = ([("colored_sweeps", c512, R, T) for R, T in K1_ABLATION_SHAPES]
+              + [("colored_sweeps_sparse", c2048, R, T)
+                 for R, T, _, _ in LAUNCH_SHAPES["colored_sweeps_sparse"]]
+              + [("colored_sweeps_sparse", c2048, *SWEEP_THROUGHPUT)]
+              + [("colored_sweeps_streamed", r4096, R, T)
                  for R, T, _, _ in LAUNCH_SHAPES["colored_sweeps_streamed"]]
-              + [("colored_sweeps_streamed", r4096[1], *SWEEP_THROUGHPUT)])
+              + [("colored_sweeps_streamed", r4096, *SWEEP_THROUGHPUT)])
     block_steps = {id(eng): sc.sweep_neighbors_from_dense(
         eng.J_rows, steps=range(eng.blocked.num_blocks + 1))
-        for eng in (c2048[1], r4096[1])}
+        for eng in (c512, c2048, r4096)}
     reference, burnt = {}, {}
     cases = {}
 
-    def case(shape, name, eng, R, T, threads, nbrs):
+    def case(shape, name, eng, R, T, P, threads, nbrs):
         gen = torch.Generator(device=DEVICE).manual_seed(5)
         u = torch.rand((4, R, eng.n_pad), generator=gen, device=DEVICE)
         betas = torch.full((max(T, 4),), 2.0, device=DEVICE)
-        ones = torch.ones(R, device=DEVICE)
-        kernel = functools.partial(
-            sc.colored_sweeps_sparse, *_tiles(eng)) if name == \
-            "colored_sweeps_sparse" else functools.partial(
-                sc.colored_sweeps_streamed, eng.J_rows)
+        if name == "colored_sweeps":
+            one = torch.ones((), device=DEVICE)
 
-        def run(state, T, **kw):
-            return kernel(eng.h, state.m, state.phi, gen, betas[:T], ones,
-                          eng.active[None], None, num_sweeps=T,
-                          threads=threads, nbrs=nbrs, **kw)
+            def run(state, T, **kw):
+                return sc.colored_sweeps(
+                    eng.J_full, eng.h, state.m, state.phi, gen, betas[:T], one,
+                    eng.active[None], num_sweeps=T,
+                    block_size=eng.blocked.block_size, threads=threads,
+                    replicas_per_cta=P, nbrs=nbrs, **kw)
+        else:
+            kernel = functools.partial(
+                sc.colored_sweeps_sparse, *_tiles(eng)) if name == \
+                "colored_sweeps_sparse" else functools.partial(
+                    sc.colored_sweeps_streamed, eng.J_rows)
+            ones = torch.ones(R, device=DEVICE)
+
+            def run(state, T, **kw):
+                return kernel(eng.h, state.m, state.phi, gen, betas[:T], ones,
+                              eng.active[None], None, num_sweeps=T,
+                              threads=threads, nbrs=nbrs, **kw)
 
         def probe(variant):
             if shape not in burnt:
@@ -2344,31 +2429,71 @@ def sweep_ablation(turns=7):
                 reference[shape] = short
             if variant == "as_is" or variant in _SWEEP_SAME_ARITHMETIC:
                 check(_bit_equal(short, reference[shape]),
-                      f"{variant} {shape}: {threads} threads / "
+                      f"{variant} {shape}: P = {P}, {threads} threads / "
                       f"{len(nbrs.step_ptr) - 1} steps differ from the "
-                      "kernel as is at the rule's width")
+                      "kernel as is at the rule's shape")
             run(burnt[shape], T)                               # warm-up
-            regs, ctas = sc.sweep_occupancy(eng.n_pad, threads)
-            return {"threads": threads, "steps": len(nbrs.step_ptr) - 1,
-                    "registers": regs, "ctas_per_sm": ctas}
+            regs, ctas = sc.sweep_occupancy(eng.n_pad, threads, P)
+            return {"replicas_per_cta": P, "threads": threads,
+                    "steps": len(nbrs.step_ptr) - 1, "registers": regs,
+                    "ctas_per_sm": ctas}
 
         return probe, lambda: run(burnt[shape], T)
 
     for name, eng, R, T in shapes:
-        shape = f"{'K3' if name == 'colored_sweeps_sparse' else 'K2'} R={R}x{T}"
-        rule = sc.sweep_threads(R, sms)
-        widths = [rule] + [w for w in sc.SWEEP_WIDTHS if w != rule]
-        for w in widths:
-            cases[f"{shape} w={w}"] = case(shape, name, eng, R, T, w,
-                                           eng.sweep_nbrs)
-        cases[f"{shape} w={rule} block_steps"] = case(
-            shape, name, eng, R, T, rule, block_steps[id(eng)])
+        kind = {"colored_sweeps": "K1", "colored_sweeps_sparse": "K3",
+                "colored_sweeps_streamed": "K2"}[name]
+        shape = f"{kind} R={R}x{T}"
+        if name == "colored_sweeps":
+            rule = sc.k1_launch(R, eng.n_pad, sms)
+            grid = [(P, w) for P in sc.K1_REPLICAS_PER_CTA
+                    for w in sc.K1_WIDTHS if w >= 32 * P
+                    and sc._shared_bytes_nbr(eng.n_pad, P)
+                    <= sc.MAX_SHARED_BYTES]
+        else:
+            rule = (1, sc.sweep_threads(R, sms))
+            grid = [(1, w) for w in sc.SWEEP_WIDTHS]
+        for P, w in [rule] + [x for x in grid if x != rule]:
+            cases[f"{shape} P={P} w={w}"] = case(shape, name, eng, R, T, P, w,
+                                                 eng.sweep_nbrs)
+        cases[f"{shape} P={rule[0]} w={rule[1]} block_steps"] = case(
+            shape, name, eng, R, T, *rule, block_steps[id(eng)])
     _ablate("sweep_ablation", "colored_sweeps_nbr", ["sweep_common.cuh"],
             SWEEP_ABLATIONS, cases, turns)
 
 
+def sweep_times(tree):
+    """K1, K2 and K3 alone (CUDA events, beta 2) at their main-path launch
+    shapes (`_launch_shapes`) and their throughput shapes (K1 R = 2048 x
+    1024, K2/K3 SWEEP_THROUGHPUT), through the chip_smoke.py and
+    nmc_tpu_torch of the checkout at `tree`: run it from two checkouts in
+    turns (parent, change, change, parent) to compare them on one card.
+    Prints one JSON line."""
+    sys.path.insert(0, str(tree))
+    import torch
+    import chip_smoke as c          # the one in `tree`
+    out = {"tree": str(tree), "card": c.phase_device()}
+    c512, c2048, r4096 = c._flagship(), c._chimera2048(), c._regular3()[:2]
+    for name, (prob, eng), shape in (
+            ("colored_sweeps", c512, (2048, 1024)),
+            ("colored_sweeps_sparse", c2048, c.SWEEP_THROUGHPUT),
+            ("colored_sweeps_streamed", r4096, c.SWEEP_THROUGHPUT)):
+        out[name] = {
+            "launch_shapes": [{k: r[k] for k in ("R", "sweeps", "ms",
+                                                 "bound_ms")}
+                              for r in c._launch_shapes(torch, name, prob,
+                                                        eng)],
+            "throughput_ms": c._throughput_one(
+                torch, name, prob, eng, *shape, 4,
+                with_plain=False)["kernel_ms_per_call"]}
+    emit(out)
+
+
 def main():
     import torch
+    if sys.argv[1:2] == ["--sweep-times"]:
+        sweep_times(sys.argv[2] if len(sys.argv) > 2 else ".")
+        return
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test runs on a CUDA card only", file=sys.stderr)
@@ -2405,7 +2530,7 @@ def main():
     for name in ("mitm_min", "mitm_min_i8"):
         errs[name] = max(errs[name], tp[name]["max_abs_err"])
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
-    sources = {"colored_sweeps": ("nmc_tpu_torch/csrc/colored_sweeps.cu",
+    sources = {"colored_sweeps": ("nmc_tpu_torch/csrc/colored_sweeps_nbr.cu",
                                   "nmc_tpu/ops/sweeps_pallas.py:128"),
                "colored_sweeps_streamed": (
                    "nmc_tpu_torch/csrc/colored_sweeps_nbr.cu",

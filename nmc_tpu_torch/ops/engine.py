@@ -7,17 +7,19 @@ counterpart of ``nmc_tpu/ops/engine.py``.
 Routing of a colored, block-Jacobi, fixed-order run without state
 recording, as in the JAX engine (`sweep_kernel` names the choice, made once
 at setup from the layout):
-  * n_pad <= 1536: `colored_sweeps` (K1, dense J);
+  * n_pad <= 1536: `colored_sweeps` (K1, whose Pallas kernel holds dense J);
   * above, when every row block touches at most nB/2 column tiles of J:
     `colored_sweeps_sparse` (K3, the block-sparse tiles, built at setup);
   * else `colored_sweeps_streamed` (K2, dense J row blocks).
-K2 and K3 launch one kernel body over a neighbour layout (`sweep_nbrs`, a
-`SweepNeighbors` whose steps are the colour classes), built once at setup
-from J and passed on every call. Each wrapper launches its CUDA kernel on a
-CUDA device and runs its plain torch version (from J or the tiles) on the
-CPU. Everything else (sequential within-block scans,
-recorded states) runs `ops/sweeps.run_sweeps` in plain torch, as JAX ran it
-through XLA.
+K1, K2 and K3 launch one kernel body over a neighbour layout
+(`sweep_nbrs`, a `SweepNeighbors` whose steps are the colour classes),
+built once at setup from J and passed on every call; K1 gets a scalar
+beta_spin when nothing is heated and the active row as a one-row mask when
+no update mask is given, so that it reads neither as [R, n_pad]. Each
+wrapper launches its CUDA kernel on a CUDA device and runs its plain torch
+version (from J or the tiles) on the CPU. Everything else (sequential
+within-block scans, recorded states) runs `ops/sweeps.run_sweeps` in plain
+torch, as JAX ran it through XLA.
 """
 
 from __future__ import annotations
@@ -102,10 +104,10 @@ class SweepEngine:
         self.active = torch.as_tensor(blocked.active, device=dev)
         self._inv_perm = torch.as_tensor(blocked.inv_perm, dtype=torch.long,
                                          device=dev)
-        self.stream_tiles = self.sweep_nbrs = None
+        self.stream_tiles = self.sweep_nbrs = self.sweep_kernel = None
         if not blocked.colored:
-            self.sweep_kernel = None
-        elif blocked.n_pad <= K1_MAX_N_PAD:
+            return
+        if blocked.n_pad <= K1_MAX_N_PAD:
             self.sweep_kernel = "colored_sweeps"
         else:
             col_idx, J_tiles = block_sparse_tiles(blocked)
@@ -117,10 +119,10 @@ class SweepEngine:
                     torch.as_tensor(J_tiles, dtype=dt, device=dev))
             else:
                 self.sweep_kernel = "colored_sweeps_streamed"
-            self.sweep_nbrs = sweep_neighbors_from_dense(self.J_rows)
-            if not steps_are_independent(self.sweep_nbrs):
-                raise ValueError("a sweep step of the colored layout holds a "
-                                 "coupled pair")
+        self.sweep_nbrs = sweep_neighbors_from_dense(self.J_rows)
+        if not steps_are_independent(self.sweep_nbrs):
+            raise ValueError("a sweep step of the colored layout holds a "
+                             "coupled pair")
 
     # ---- layout helpers -------------------------------------------------
     @property
@@ -246,11 +248,13 @@ class SweepEngine:
     def _run_kernel(self, m0, phi, generator, beta_sweep, bs, mask,
                     beta_replica, has_bs, has_mask, num_sweeps, uniforms):
         """The colored sweep kernel chosen at setup (`sweep_kernel`)."""
+        mask_arg = mask if has_mask else self.active.reshape(1, self.n_pad)
         if self.sweep_kernel == "colored_sweeps":
             cres = colored_sweeps(
-                self.J_full, self.h, m0, phi, generator, beta_sweep, bs, mask,
-                num_sweeps=num_sweeps, block_size=self.blocked.block_size,
-                uniforms=uniforms)
+                self.J_full, self.h, m0, phi, generator, beta_sweep, bs,
+                mask_arg, num_sweeps=num_sweeps,
+                block_size=self.blocked.block_size, uniforms=uniforms,
+                nbrs=self.sweep_nbrs)
         else:
             # the streamed kernels' parameters, as the JAX engine passes them
             R = m0.shape[0]
@@ -259,7 +263,6 @@ class SweepEngine:
                         else torch.ones((R,), dtype=self.dtype,
                                         device=self.device))
             bs_arg = bs.expand(R, self.n_pad) if has_bs else None
-            mask_arg = mask if has_mask else self.active.reshape(1, self.n_pad)
             if self.sweep_kernel == "colored_sweeps_sparse":
                 col_idx, J_tiles = self.stream_tiles
                 cres = colored_sweeps_sparse(

@@ -6,7 +6,7 @@ heat-bath Gibbs on a graph-coloured layout with the replica state kept on
 chip for the whole launch:
 
   * `colored_sweeps` (K1, ``pallas_colored_sweeps``): dense J [n_pad, n_pad],
-    beta = beta_t * beta_spin, mask [R, n_pad] (csrc/colored_sweeps.cu);
+    beta = beta_t * beta_spin, mask [R, n_pad];
   * `colored_sweeps_streamed` (K2, ``pallas_colored_sweeps_streamed``): dense
     J row blocks [nB, B, n_pad], beta = (beta_t * beta_row) * beta_spin with
     beta_spin optional, mask [1 | R, n_pad];
@@ -18,7 +18,7 @@ They take the Pallas kernels' arrays and return the same outputs; a
 `torch.Generator` stands in for the seed, and optional injected uniforms
 [T, R, n_pad] replace the kernels' Philox draws.
 
-K2 and K3 launch one kernel body (csrc/colored_sweeps_nbr.cu) that reads
+All three launch one kernel body (csrc/colored_sweeps_nbr.cu) that reads
 the couplings only through a `SweepNeighbors` layout: the row blocks cut
 into steps (maximal runs of blocks with no coupling between two of them: a
 coloured layout's colour classes), per step the targets coupled to it and
@@ -26,21 +26,28 @@ per target its sources in the step. It is built once from dense J
 (`sweep_neighbors_from_dense`) or from the tiles
 (`sweep_neighbors_from_tiles`), which give the same layout for the same
 couplings; `SweepEngine` builds it at setup and passes it as `nbrs=`, and a
-wrapper called without it builds it. The CTA width follows R
-(`sweep_threads`). `neighbor_sweeps_reference` runs the sweeps in plain
-torch over the layout with the kernel's steps and association (for the
-tests and chip_smoke.py; no route calls it).
+wrapper called without it builds it. K1 runs P replicas per CTA, sharing
+each coupling load, with (P, CTA width) from `k1_launch`; K2 and K3 run one,
+with the CTA width from `sweep_threads`. K1 hands the body a beta_spin that
+is the same along each row (a scalar, [R, 1]) as the body's beta_row with
+no per-spin factor (beta_t * c either way), any other as beta_spin with
+beta_row = 1 (beta_t * 1 == beta_t), and a mask that repeats one row
+(stride 0) as that row, so the body computes K1's function bit for bit.
+`neighbor_sweeps_reference` runs the sweeps in plain torch over the layout
+with the kernel's steps and association (for the tests and chip_smoke.py;
+no route calls it).
 
 On a CPU tensor a wrapper runs its `*_reference`, the same function in plain
-torch, and launches nothing. On a CUDA tensor it launches the kernel or
-raises. Each wrapper counts its kernel launches in `<wrapper>.launches`.
+torch (K1's from dense J row blocks, the TPU kernel's function), and
+launches nothing. On a CUDA tensor it launches the kernel or raises. Each
+wrapper counts its kernel launches in `<wrapper>.launches`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +56,6 @@ from ..core.energy import energy_from_fields
 from ._build import bind, load_library
 from .sweeps import _uniforms, heat_bath_update, run_sweeps
 
-_LIB = "colored_sweeps"
 _LIB_NBR = "colored_sweeps_nbr"
 # Dynamic shared memory one CTA may use on Hopper (227 KB).
 MAX_SHARED_BYTES = 232_448
@@ -57,6 +63,12 @@ _INT16_MAX = 32767
 # The CTA widths K2/K3 are built for, and the threads one Hopper SM holds.
 SWEEP_WIDTHS = (256, 512, 1024)
 _SM_THREADS = 2048
+# K1's CTA widths and replicas per CTA (a width holds at least 32 threads,
+# one warp, per replica: warp p sums replica p's energy), and the width its
+# launch rule takes (k1_launch).
+K1_WIDTHS = (128, 256, 512, 1024)
+K1_REPLICAS_PER_CTA = (1, 2, 4, 8)
+K1_WIDTH = 512
 
 
 class ColoredSweepResult(NamedTuple):
@@ -220,10 +232,28 @@ def sweep_threads(R: int, num_sms: int) -> int:
     return SWEEP_WIDTHS[0]
 
 
+def k1_launch(R: int, n_pad: int, num_sms: int) -> Tuple[int, int]:
+    """K1's (replicas per CTA P, CTA width) for R replicas at this n_pad on
+    num_sms SMs: the fewest replicas per CTA at which the ceil(R / P) CTAs
+    need no more than one per SM, else the most that fit shared memory
+    (6 P n_pad bytes; P <= 8), at K1_WIDTH threads. From chip_smoke.py
+    --sweep-ablation on chimera 8x8 (PERF.md): one CTA of two replicas ran
+    faster than two CTAs of one sharing an SM (R = 256 x 500), P = 8 was
+    fastest at R = 2048 x 1024, and 512 threads (about one per target of a
+    colour class, 244-320 there) at both."""
+    fits = [P for P in K1_REPLICAS_PER_CTA
+            if _shared_bytes_nbr(n_pad, P) <= MAX_SHARED_BYTES]
+    for P in fits:
+        if -(-R // P) <= num_sms:
+            return P, K1_WIDTH
+    return fits[-1], K1_WIDTH
+
+
 def warp0_energy(h, m, phi):
-    """E = -1/2 m.(phi + h) summed as the sweep kernels' warp 0 sums it
-    (nmc::end_of_sweep): lane l adds m_j (phi_j + h_j) over j = l, l + 32,
-    ... in order from 0, then an xor butterfly over the 32 lanes."""
+    """E = -1/2 m.(phi + h) summed as the sweep body's warp p sums replica
+    p's (end_of_sweep in colored_sweeps_nbr.cu): lane l adds
+    m_j (phi_j + h_j) over j = l, l + 32, ... in order from 0, then an xor
+    butterfly over the 32 lanes."""
     R, n_pad = m.shape
     lanes = -(-n_pad // 32)
     x = torch.zeros((R, lanes * 32), dtype=m.dtype, device=m.device)
@@ -378,9 +408,10 @@ def neighbor_sweeps_reference(
 
 
 # argument kinds of each C entry point, in order ('p' pointer, 'i' int); the
-# CUDA stream follows as one more pointer. K2 and K3 take the neighbour
-# layout (6 pointers) and the same sweep arguments.
-_SIGNATURES = {"colored_sweeps_f32": "p" * 14 + "i" * 4,
+# CUDA stream follows as one more pointer. All three take the neighbour
+# layout (6 pointers) and the same sweep arguments; K1 also the replicas
+# per CTA.
+_SIGNATURES = {"colored_sweeps_f32": "p" * 20 + "i" * 8,
                "colored_sweeps_streamed_f32": "p" * 20 + "i" * 7,
                "colored_sweeps_sparse_f32": "p" * 20 + "i" * 7}
 
@@ -416,8 +447,11 @@ def _broadcast(name, x, shape, dtype, device):
 
 
 def _mask_rows(mask, R, n_pad, device):
-    """A [1 | R, n_pad] bool mask, materialised; returns (mask, rows)."""
+    """A [1 | R, n_pad] bool mask, materialised; returns (mask, rows). A
+    mask that repeats one row (an expand view, row stride 0) is that row."""
     rows = mask.shape[0] if getattr(mask, "ndim", 0) == 2 else 1
+    if rows > 1 and isinstance(mask, torch.Tensor) and mask.stride(0) == 0:
+        mask, rows = mask[:1], 1
     if rows not in (1, R):
         raise ValueError(f"mask must have 1 or {R} rows, got {rows}")
     return _broadcast("mask", mask, (rows, n_pad), torch.bool, device), rows
@@ -479,42 +513,56 @@ def colored_sweeps(
     num_sweeps: int,
     block_size: int = 128,
     uniforms: Optional[torch.Tensor] = None,   # [T, R, n_pad] injected draws
+    nbrs: Optional[SweepNeighbors] = None,     # J's layout (built if None)
+    threads: Optional[int] = None,             # CTA width (k1_launch)
+    replicas_per_cta: Optional[int] = None,    # P (k1_launch)
 ) -> ColoredSweepResult:
     """T colored heat-bath sweeps (K1); the CUDA kernel on CUDA tensors, the
-    plain torch version on CPU tensors."""
+    plain torch version on CPU tensors (which ignores `nbrs`, `threads` and
+    `replicas_per_cta`)."""
     if m0.device.type == "cpu":
         return colored_sweeps_reference(
             J, h, m0, phi0, generator, beta_sweep, beta_spin, update_mask,
             num_sweeps=num_sweeps, block_size=block_size, uniforms=uniforms)
     _require_cuda(m0, "colored_sweeps")
-
     device = m0.device
-    f32 = torch.float32
     n_pad = J.shape[0]
     R = m0.shape[0]
     if n_pad % block_size:
         raise ValueError("n_pad must be a multiple of block_size")
-    _check("J", J, (n_pad, n_pad), f32, device)
-    _check("h", h, (n_pad,), f32, device)
-    _check("m0", m0, (R, n_pad), f32, device)
-    _check("phi0", phi0, (R, n_pad), f32, device)
-    beta_sweep = _broadcast("beta_sweep", beta_sweep, (num_sweeps,), f32, device)
-    beta_spin = _broadcast("beta_spin", beta_spin, (R, n_pad), f32, device)
-    mask = _broadcast("update_mask", update_mask, (R, n_pad), torch.bool, device)
-    seed = _seed(generator, uniforms, (num_sweeps, R, n_pad), device)
-
-    lib = _bind(load_library(_LIB))
-    out = _outputs(m0, num_sweeps)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.colored_sweeps_f32(
-        J.data_ptr(), h.data_ptr(), m0.data_ptr(), phi0.data_ptr(),
-        beta_spin.data_ptr(), mask.data_ptr(), beta_sweep.data_ptr(),
-        _ptr(uniforms), _ptr(seed), out.m.data_ptr(), out.phi.data_ptr(),
-        out.m_best.data_ptr(), out.e_best.data_ptr(), out.energies.data_ptr(),
-        R, n_pad, block_size, num_sweeps, stream)
-    _raise_on(err, "colored_sweeps")
+    _check("J", J, (n_pad, n_pad), torch.float32, device)
+    if nbrs is None:
+        nbrs = sweep_neighbors_from_dense(
+            J.reshape(n_pad // block_size, block_size, n_pad))
+    beta_row, beta_spin = _k1_betas(beta_spin, R, n_pad, device)
+    P, width = k1_launch(R, n_pad, _num_sms(device))
+    P = P if replicas_per_cta is None else replicas_per_cta
+    width = width if threads is None else threads
+    if P not in K1_REPLICAS_PER_CTA or width not in K1_WIDTHS \
+            or width < 32 * P:
+        raise ValueError(f"K1 takes replicas_per_cta in {K1_REPLICAS_PER_CTA} "
+                         f"and threads in {K1_WIDTHS}, at least 32 per "
+                         f"replica; got {P} and {width}")
+    out = _launch_nbr("colored_sweeps_f32", nbrs, block_size, h, m0, phi0,
+                      generator, beta_sweep, beta_row, update_mask, beta_spin,
+                      num_sweeps, uniforms, width, P)
     colored_sweeps.launches += 1
     return out
+
+
+def _k1_betas(beta_spin, R, n_pad, device):
+    """K1's beta_spin as the body's (beta_row [R], beta_spin [R, n_pad] or
+    None). A factor that is the same along each row (a scalar, 0-d, [R, 1])
+    becomes beta_row with no per-spin factor (beta_t * c either way); else
+    beta_row is 1 and beta_spin is materialised ((beta_t * 1) * b ==
+    beta_t * b)."""
+    x = (beta_spin if isinstance(beta_spin, torch.Tensor)
+         else torch.as_tensor(beta_spin, dtype=torch.float32, device=device))
+    if x.ndim == 0 or x.shape[-1] == 1:
+        return _broadcast("beta_spin", x.expand(R, 1)[:, 0], (R,),
+                          torch.float32, device), None
+    return (torch.ones((R,), dtype=torch.float32, device=device),
+            _broadcast("beta_spin", x, (R, n_pad), torch.float32, device))
 
 
 def _row_beta_args(h, m0, phi0, beta_sweep, beta_row, mask, beta_spin,
@@ -559,26 +607,30 @@ def _num_sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _shared_bytes_nbr(n_pad):
-    """K2/K3's dynamic shared memory per CTA: phi (f32), m and dm (int8)."""
-    return 6 * n_pad
+def _shared_bytes_nbr(n_pad, replicas=1):
+    """The sweep body's dynamic shared memory per CTA: phi (f32), m and dm
+    (int8) of each of its replicas."""
+    return 6 * n_pad * replicas
 
 
 def _launch_nbr(fn, nbrs, B, h, m0, phi0, generator, beta_sweep, beta_row,
-                mask, beta_spin, num_sweeps, uniforms, threads):
-    """Check the arguments and launch entry point `fn` (K2 or K3) over the
-    layout, `threads` per CTA (default `sweep_threads`)."""
+                mask, beta_spin, num_sweeps, uniforms, threads, replicas=None):
+    """Check the arguments and launch entry point `fn` over the layout:
+    K2 or K3 (replicas None: one replica per CTA, `threads` per CTA, default
+    `sweep_threads`), or K1 with `replicas` per CTA and `threads` given."""
     device = m0.device
     R, n_pad = m0.shape
     _check_sweep_neighbors(nbrs, n_pad, B, device)
     beta_sweep, beta_row, mask, rows, beta_spin = _row_beta_args(
         h, m0, phi0, beta_sweep, beta_row, mask, beta_spin, num_sweeps, n_pad,
         device)
-    _check_shared(fn, _shared_bytes_nbr(n_pad))
-    if threads is None:
-        threads = sweep_threads(R, _num_sms(device))
-    if threads not in SWEEP_WIDTHS:
-        raise ValueError(f"threads must be one of {SWEEP_WIDTHS}, got {threads}")
+    _check_shared(fn, _shared_bytes_nbr(n_pad, replicas or 1))
+    if replicas is None:
+        if threads is None:
+            threads = sweep_threads(R, _num_sms(device))
+        if threads not in SWEEP_WIDTHS:
+            raise ValueError(f"threads must be one of {SWEEP_WIDTHS}, "
+                             f"got {threads}")
     seed = _seed(generator, uniforms, (num_sweeps, R, n_pad), device)
 
     lib = _bind(load_library(_LIB_NBR), fn)
@@ -592,7 +644,7 @@ def _launch_nbr(fn, nbrs, B, h, m0, phi0, generator, beta_sweep, beta_row,
         _ptr(uniforms), _ptr(seed), out.m.data_ptr(), out.phi.data_ptr(),
         out.m_best.data_ptr(), out.e_best.data_ptr(), out.energies.data_ptr(),
         R, n_pad, B, num_sweeps, rows, nbrs.step_ptr.shape[0] - 1, threads,
-        stream)
+        *(() if replicas is None else (replicas,)), stream)
     _raise_on(err, fn)
     return out
 
@@ -672,17 +724,18 @@ def colored_sweeps_sparse(
     return out
 
 
-def sweep_occupancy(n_pad: int, threads: int):
-    """(registers per thread, CTAs per SM) of K2/K3's kernel at `threads`
-    per CTA with its dynamic shared memory at this n_pad, from the CUDA
-    runtime (builds the library)."""
+def sweep_occupancy(n_pad: int, threads: int, replicas_per_cta: int = 1):
+    """(registers per thread, CTAs per SM) of the sweep body at `threads`
+    and `replicas_per_cta` per CTA with its dynamic shared memory at this
+    n_pad, from the CUDA runtime (builds the library)."""
     lib = load_library(_LIB_NBR)
     f = lib.colored_sweeps_nbr_occupancy
-    f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                  ctypes.POINTER(ctypes.c_int)]
+    f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     f.restype = ctypes.c_int
     regs, ctas = ctypes.c_int(), ctypes.c_int()
-    _raise_on(f(threads, _shared_bytes_nbr(n_pad), ctypes.byref(regs),
+    _raise_on(f(threads, replicas_per_cta,
+                _shared_bytes_nbr(n_pad, replicas_per_cta), ctypes.byref(regs),
                 ctypes.byref(ctas)), "colored_sweeps_nbr_occupancy")
     return regs.value, ctas.value
 

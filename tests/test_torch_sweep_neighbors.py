@@ -1,6 +1,6 @@
 """The sweep kernels' neighbour layout and its plain sweeps, on the CPU.
 
-K2 and K3 (csrc/colored_sweeps_nbr.cu) read the couplings only through a
+K1, K2 and K3 (csrc/colored_sweeps_nbr.cu) read the couplings only through a
 `SweepNeighbors` layout: the row blocks cut into steps, per step the
 targets coupled to it and per target its sources in the step. Here, with
 inputs made from seeds with numpy:
@@ -12,7 +12,8 @@ inputs made from seeds with numpy:
     bit on +-1 couplings (f32), the Pallas K2/K3 in interpret mode (u = 0:
     m exact, phi and energies to 1e-5), and in f64 the JAX XLA Jacobi
     sweeps with JAX's uniforms injected (to 1e-10, Gaussian couplings too);
-  * `SweepEngine` builds the layout once and passes it to every launch;
+  * `SweepEngine` builds the layout once for every colored layout (K1's
+    too) and passes it to every launch, and none for an uncoloured one;
     the int16 limit raises; the CTA width rule is a function of (R, SMs).
 The kernel itself runs only on a card (chip_smoke.py holds it against
 these plain sweeps).
@@ -33,6 +34,7 @@ from nmc_tpu.ops.sweeps_pallas import (pallas_colored_sweeps_sparse,
                                        pallas_colored_sweeps_streamed)
 from nmc_tpu_torch.core.problem import IsingProblem
 from nmc_tpu_torch.io.generators import chimera_graph as t_chimera_graph
+from nmc_tpu_torch.io.generators import ea_2d as t_ea_2d
 from nmc_tpu_torch.ops import engine as t_engine
 from nmc_tpu_torch.ops import sweeps_cuda as sc
 from nmc_tpu_torch.ops.engine import SweepEngine
@@ -370,11 +372,45 @@ def test_engine_builds_the_layout_once(name, kernel, monkeypatch):
     assert all(n is eng.sweep_nbrs for n in seen)
 
 
-def test_engine_builds_no_layout_for_k1_or_uncoloured():
-    for prob, coloring in ((t_chimera_graph(2, 2, seed=0), True),
-                           (t_chimera_graph(16, 16, seed=0), False)):
-        eng = SweepEngine(prob, use_coloring=coloring, device="cpu")
-        assert eng.sweep_nbrs is None
+@pytest.mark.parametrize("name", ["chimera_8x8", "ea2d_32", "uncoloured"])
+def test_engine_builds_k1_layout_once_and_none_uncoloured(name, monkeypatch):
+    """On a K1 layout (chimera 8x8: 3 steps; ea_2d L = 32: 2) SweepEngine
+    builds the neighbour layout once at setup, one step per colour class,
+    and hands that object to every K1 call; an uncoloured layout gets
+    none and runs the plain sweeps."""
+    built, seen = [], []
+    inner = t_engine.sweep_neighbors_from_dense
+
+    def counting(*a, **k):
+        built.append(1)
+        return inner(*a, **k)
+    monkeypatch.setattr(t_engine, "sweep_neighbors_from_dense", counting)
+    wrapped = t_engine.colored_sweeps
+
+    def recording(*a, **k):
+        seen.append(k["nbrs"])
+        return wrapped(*a, **k)
+    monkeypatch.setattr(t_engine, "colored_sweeps", recording)
+    prob, coloring = {
+        "chimera_8x8": (t_chimera_graph(8, 8, seed=0), True),
+        "ea2d_32": (t_ea_2d(32, seed=1), True),
+        "uncoloured": (t_chimera_graph(2, 2, seed=0), False)}[name]
+    eng = SweepEngine(prob, use_coloring=coloring, device="cpu")
+    m = np.ones((2, prob.n))
+    for _ in range(2):
+        eng.run(m, torch.Generator().manual_seed(0), 1, 1.0)
+    if not coloring:
+        assert eng.sweep_kernel is None and eng.sweep_nbrs is None
+        assert built == [] and seen == []
+        return
+    assert eng.sweep_kernel == "colored_sweeps"
+    assert eng.n_pad <= t_engine.K1_MAX_N_PAD and len(built) == 1
+    want = sc.sweep_neighbors_from_dense(eng.J_rows)
+    for x, y in zip(eng.sweep_nbrs, want):
+        assert x == y if isinstance(x, int) else torch.equal(x, y)
+    assert sc.steps_are_independent(eng.sweep_nbrs)
+    assert len(eng.sweep_nbrs.step_ptr) - 1 == len(color_groups(prob.J))
+    assert len(seen) == 2 and all(n is eng.sweep_nbrs for n in seen)
 
 
 def test_wrappers_check_the_layout_and_the_cpu_path_ignores_it():

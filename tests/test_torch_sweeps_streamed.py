@@ -230,7 +230,7 @@ def test_wrappers_on_cpu_run_plain_versions_and_check_inputs():
 
 
 @pytest.mark.parametrize("fn,source", [
-    ("colored_sweeps_f32", "colored_sweeps.cu"),
+    ("colored_sweeps_f32", "colored_sweeps_nbr.cu"),
     ("colored_sweeps_streamed_f32", "colored_sweeps_nbr.cu"),
     ("colored_sweeps_sparse_f32", "colored_sweeps_nbr.cu"),
 ])
