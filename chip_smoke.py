@@ -55,7 +55,10 @@ non-zero without printing a result:
                  8x8 family and on a Gaussian-coupled one; the kernel's
                  registers, shared memory and resident CTAs per SM at both
                  shapes (ptxas and the CUDA runtime); the Boltzmann TV of
-                 each, chaining rounds on an enumerable 4-cycle;
+                 each, chaining rounds on an enumerable 4-cycle; and K4 and
+                 K5 at the ICM ensemble's shape (2 instances x 320 slots),
+                 pure ICM (no masks) and hybrid masks, against their plain
+                 versions and the plain round over their layout;
  10. ensemble_512 — EnsembleNMC at the campaign defaults on 20 chimera 8x8
                  instances (32 replicas, 6 NMC slots, planes LBP every 8
                  rounds), 16 rounds in 2 chunks, through K4; bests against
@@ -72,6 +75,34 @@ non-zero without printing a result:
                  2560) takes K5, and with a tile layout that has no empty
                  column tile K4 over dense J; 2 rounds through each, the
                  launches counted, bests against their f64 energies;
+ 12c. ensemble_icm_512 — EnsembleICM (the campaign's icm arm) at its
+                 defaults on 20 chimera 8x8 instances: 32 rungs x 10
+                 sub-replicas = 320 slots per instance, 576 sweeps per
+                 round through K4, batched device Houdayer moves ("auto":
+                 the neighbour index table), 16 rounds in 2 chunks; the
+                 launches, bests against their f64 energies, every
+                 (instance, sub) label map a permutation, Houdayer moves
+                 made, the per-round split round / houdayer / swaps, and
+                 one K4 round alone (CUDA events) beside its bound;
+ 12d. ensemble_icm_2048 — the same on 20 chimera 16x16 instances through
+                 K5, 8 rounds;
+ 12e. houdayer — not a main path: 3200 pairs of the 12d run's final states:
+                 the labels of the sparse, blocked and matmul backends (and
+                 the dense one on 16 pairs) equal bit for bit and equal the
+                 host components' minima; the moves from injected uniforms
+                 equal the CPU port's; ms and fixed-point iterations of
+                 each backend;
+ 12f. hybrid_512 — the hybrid arm (hybrid_cold 6) on 20 chimera 8x8, 8
+                 rounds through K4: heated chains, masks within
+                 max_heat_frac;
+ 12g. campaign_icm — the campaign CLI's icm, hybrid (K4) and icm_host (K1)
+                 arms in process on the family of phase 12: every instance
+                 a hit;
+ 12h. apt_icm — the icm CLI at its defaults (8 rungs x 10 sub-replicas,
+                 10000 sweeps, 100 swap rounds) on chimera 8x8 with host
+                 ICM through K1 and chimera 16x16 with --device-icm through
+                 K3: 200 sweep launches each, the best against its f64
+                 energy, Houdayer moves made;
  13. exact_kernels — K6 (mitm_min) and K7 (mitm_min_i8) against their plain
                  versions at N = 32 (a = 16, TA = 2^15, TB = 2^16) on
                  integer-coupled instances, min and argmin equal element for
@@ -111,9 +142,10 @@ non-zero without printing a result:
                  registers and CTAs per SM; and K2 against K1 (bit for
                  bit, then each timed) on a denser colored layout, 32
                  random matchings at N = 4096.
-Phases 5-8, 10-12 and 14 are the main paths: each sets the launch counts to
-0 just before it and reads them just after. Then one line {"kernels": [...]},
-the card's name and power limit, and last {"ok": true, "device": {...}}.
+Phases 5-8, 10-12, 12c, 12d, 12f-12h and 14 are the main paths: each sets
+the launch counts to 0 just before it and reads them just after. Then one
+line {"kernels": [...]}, the card's name and power limit, and last
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --round-ablation
     python3 chip_smoke.py --exact-ablation
@@ -1111,8 +1143,60 @@ def phase_round_kernels():
         tv = _boltzmann_tv(torch, run)
         check(tv < 0.05, f"{name} Philox TV {tv} >= 0.05")
         out[name]["boltzmann_tv"] = tv
+    _icm_round_cases(torch, out, errs)
     emit(out)
     return errs
+
+
+def _icm_round_cases(torch, out, errs):
+    """K4 (2 chimera 8x8 instances) and K5 (2 chimera 16x16) at the ICM
+    ensemble's shape, S * R = 10 x 32 = 320 slots per instance, with
+    identical injected uniforms against their plain versions and the plain
+    round over their neighbour layout, with the rules of the R = 32 cases:
+    pure ICM (cl = do_nmc = 0, one cycle, temp_x_inv 1) and hybrid masks
+    (3 cycles; do_nmc on half the slots of the 6 coldest rungs, ~30%
+    masks there, heated by 1 / temp_x)."""
+    from nmc_tpu_torch.ops import round_cuda as rc
+    for name, size in (("ensemble_round", 8), ("ensemble_round_sparse", 16)):
+        probs, ens, _ = _icm_ensemble(size, 2)
+        kernel, plain = _round_fns(ens)
+        gen = torch.Generator(device=DEVICE).manual_seed(31)
+        state = ens.init_state(gen)
+        I, S, R, n = state.m.shape
+        Rk = S * R
+        m0 = state.m.reshape(I, Rk, n)
+        beta = ens.beta_list[state.slot_to_beta].reshape(I, Rk).contiguous()
+        res = {"instances": I, "slots": Rk, "n_pad": n}
+        for arm in ("icm", "hybrid"):
+            if arm == "icm":
+                dn = torch.zeros((I, Rk), dtype=torch.bool, device=DEVICE)
+                cl = torch.zeros((I, Rk, n), dtype=torch.bool, device=DEVICE)
+                kw = dict(num_cycles=1, sweeps_per_phase=8, temp_x_inv=1.0)
+            else:
+                cold = (state.slot_to_beta >= R - ENS_NMC).reshape(I, Rk)
+                dn = cold & (torch.rand((I, Rk), generator=gen,
+                                        device=DEVICE) < 0.5)
+                cl = ((torch.rand((I, Rk, n), generator=gen, device=DEVICE)
+                       < 0.3) & ens.active & dn[..., None])
+                kw = dict(num_cycles=3, sweeps_per_phase=8,
+                          temp_x_inv=1.0 / TEMP_X)
+            P = len(rc.phase_list(kw["num_cycles"], 1))
+            u = torch.rand((P, 8, I, Rk, n), generator=gen, device=DEVICE)
+            tag = f"{name} {arm} Rk={Rk}"
+            k = kernel(m0, cl, dn, beta, None, uniforms=u, **kw)
+            p = plain(m0, cl, dn, beta, None, uniforms=u, **kw)
+            r, e1 = _compare_round(torch, tag, probs, ens, k, p, m0)
+            q = rc.ensemble_round_neighbors_reference(
+                ens.round_nbrs, ens.h, ens.active, m0, cl, dn, beta, None,
+                uniforms=u, **kw)
+            r["vs_neighbor_plain"], e2 = _compare_round(
+                torch, f"{tag} vs neighbour plain", probs, ens, k, q, m0)
+            r["vs_neighbor_plain"]["states_bit_equal"] = bool(
+                torch.equal(k.m, q.m) and torch.equal(k.m_best, q.m_best))
+            r["do_nmc_slots"] = int(dn.sum())
+            errs[name] = max(errs[name], e1, e2)
+            res[arm] = r
+        out[f"{name}_icm"] = res
 
 
 def _ensemble_main_path(size, rounds, chunks, kernel):
@@ -1287,6 +1371,394 @@ def phase_campaign():
           "engine": [ln for ln in text.splitlines()
                      if ln.startswith("engine:")]})
     return launches["ensemble_round"]
+
+
+# ---- the campaign's ICM arms: EnsembleICM, Houdayer moves, APT + ICM ---------
+
+ICM_S = 10                       # the campaign's --subreplicas
+
+
+def _icm_ensemble(size, count, hybrid_cold=0):
+    """EnsembleICM on `count` chimera size x size instances (+-1, seeds
+    0..), normalized, as the campaign builds its icm / hybrid arms at their
+    defaults: the geometric 32-rung ladder over beta 0.25-32, 10
+    sub-replicas, 3 x 3 x 64 = 576 sweeps per round, 8 swap pairs,
+    houdayer "auto", temp_x 20, 3 cycles (hybrid)."""
+    from nmc_tpu_torch.campaign import build_ladder
+    from nmc_tpu_torch.io.generators import chimera_graph
+    from nmc_tpu_torch.parallel import EnsembleICM, EnsembleICMConfig
+    probs = [chimera_graph(size, size, seed=s).normalized()[0]
+             for s in range(count)]
+    cfg = EnsembleICMConfig(
+        sweeps_per_round=576, num_subreplicas=ICM_S,
+        num_swapping_pairs=ENS_R // 4, use_coloring=True,
+        hybrid_cold=hybrid_cold, temp_x=TEMP_X, num_cycles=3,
+        houdayer="auto")
+    t0 = time.perf_counter()
+    ens = EnsembleICM(probs, build_ladder(0.25, 32.0, ENS_R), cfg,
+                      device=DEVICE)
+    return probs, ens, time.perf_counter() - t0
+
+
+def _icm_kernel_ms(torch, ens, state, iters=2):
+    """One pure-ICM round of the ensemble's kernel (3 phases x 192 sweeps
+    over all I x 320 slots) on the final state, CUDA events, beside its
+    flips per attempt and the least time the card could take for it."""
+    from types import SimpleNamespace
+    kernel, _ = _round_fns(ens)
+    I, S, R, n = state.m.shape
+    m0 = state.m.reshape(I, S * R, n)
+    beta = ens.beta_list[state.slot_to_beta].reshape(I, S * R).contiguous()
+    dn = torch.zeros((I, S * R), dtype=torch.bool, device=DEVICE)
+    cl = torch.zeros((I, S * R, n), dtype=torch.bool, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    kw = dict(num_cycles=1, sweeps_per_phase=192, temp_x_inv=1.0)
+    flips = torch.zeros((I, S * R), dtype=torch.int32, device=DEVICE)
+    kernel(m0, cl, dn, beta, gen, flips=flips, **kw)          # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        kernel(m0, cl, dn, beta, gen, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    n_flips = int(flips.sum())
+    attempts, ops, nbytes = _round_work(
+        torch, ens, SimpleNamespace(m=m0, do_nmc_slot=dn, cl=cl), kw,
+        n_flips, 576)
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_HBM_BYTES
+    return {"kernel_ms_per_round": ms, "attempts": attempts,
+            "flips_per_attempt": n_flips / attempts,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "share_of_bound": 1e3 * max(t_ops, t_bytes) / ms}
+
+
+def _icm_main_path(size, rounds, chunks, kernel, hybrid_cold=0):
+    """EnsembleICM through `kernel` on 20 instances as the campaign drives
+    it: chunks of rounds, each ended by best(); the launch counts set to 0
+    just before and read just after. The last chunk runs with the
+    per-stage timing split (round / houdayer / swaps)."""
+    import torch
+    probs, ens, setup = _icm_ensemble(size, 20, hybrid_cold)
+    want = {"ensemble_round": "K4", "ensemble_round_sparse": "K5"}[kernel]
+    check(ens.round_path == want, f"round_path {ens.round_path} != {want}")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    state = ens.init_state(gen)
+    per_chunk = rounds // chunks
+    chunk_seconds, timings, stats = [], {}, {}
+    torch.cuda.synchronize()
+    reset_counts()
+    for c in range(chunks):
+        t0 = time.perf_counter()
+        state = ens.run_scanned(
+            state, per_chunk, timings=timings if c == chunks - 1 else None,
+            houdayer_stats=stats)
+        eb, mb = ens.best(state)
+        chunk_seconds.append(time.perf_counter() - t0)
+    launches = read_counts()
+    check(launches[kernel] == rounds,
+          f"{kernel} launched {launches[kernel]} times for {rounds} rounds")
+    check(all(v == 0 for k, v in launches.items() if k != kernel),
+          f"other kernels launched: {launches}")
+    e64 = np.array([p.energy(mb[i]) for i, p in enumerate(probs)])
+    best_err = float(np.abs(e64 - eb).max())
+    check(np.isfinite(eb).all() and best_err <= 1e-3,
+          f"bests off their f64 energies by {best_err}")
+    check(np.isin(mb, [-1.0, 1.0]).all(), "best states outside +-1")
+    b2s = state.beta_to_slot.cpu().numpy().reshape(-1, ENS_R)
+    check(all(sorted(r.tolist()) == list(range(ENS_R)) for r in b2s),
+          "a (instance, sub) beta_to_slot is not a permutation")
+    moves = state.icm_moves.cpu().numpy()
+    flips = state.icm_flips.cpu().numpy()
+    check(moves.sum() > 0, "no Houdayer move")
+    check(bool((state.m[..., ~ens.active] == 1).all()),
+          "padded spins left +1")
+    return launches[kernel], {
+        "instances": len(probs), "N": probs[0].n, "n_pad": ens.n_pad,
+        "replicas": ENS_R, "subreplicas": ICM_S, "slots": ICM_S * ENS_R,
+        "rounds": rounds, "chunks": chunks, "round_path": ens.round_path,
+        "houdayer": ens.houdayer, "launches": launches[kernel],
+        "setup_seconds": setup, "chunk_seconds": chunk_seconds,
+        "seconds_per_round": sum(chunk_seconds) / rounds,
+        "last_chunk_split_seconds_per_round": {
+            k: v / per_chunk for k, v in timings.items()},
+        "fixpoint": stats,
+        "best_energy_mean": float(eb.mean()),
+        "bests_vs_f64_max_abs_err": best_err,
+        "icm_moves_per_instance_min": int(moves.min()),
+        "icm_moves_total": int(moves.sum()),
+        "icm_flips_total": int(flips.sum()),
+        "labels_moved": int((state.beta_to_slot != torch.arange(
+            ENS_R, device=DEVICE)).sum()),
+    }, (probs, ens, state)
+
+
+def phase_ensemble_icm_512():
+    import torch
+    launches, out, (probs, ens, state) = _icm_main_path(
+        8, 16, 2, "ensemble_round")
+    out["kernel_timing"] = _icm_kernel_ms(torch, ens, state)
+    emit({"phase": "ensemble_icm_512", "reduced": {"rounds": [2777, 16]},
+          **out})
+    return launches
+
+
+def phase_ensemble_icm_2048():
+    import torch
+    launches, out, keep = _icm_main_path(16, 8, 1, "ensemble_round_sparse")
+    out["kernel_timing"] = _icm_kernel_ms(torch, keep[1], keep[2])
+    emit({"phase": "ensemble_icm_2048", "reduced": {"rounds": [2777, 8]},
+          **out})
+    return launches, keep
+
+
+def phase_hybrid_512():
+    """The hybrid arm (hybrid_cold = 6) on 20 chimera 8x8 instances, 8
+    rounds through K4: some chains carry heated phases, each mask within
+    max_heat_frac of the active spins and empty off those chains."""
+    launches, out, (probs, ens, state) = _icm_main_path(
+        8, 8, 1, "ensemble_round", hybrid_cold=6)
+    dn, cl = state.dn, state.cl
+    frac = (cl.sum(dim=-1).float() / ens.active.sum()).cpu().numpy()
+    dn_np = dn.cpu().numpy()
+    check(dn_np.any(), "no chain carries heated phases")
+    check(not cl[~dn].any() and not cl[..., ~ens.active].any(),
+          "a mask off its chain or on padded spins")
+    check(bool(((frac[dn_np] > 0)
+                & (frac[dn_np] <= ens.cfg.max_heat_frac)).all()),
+          f"heated masks outside (0, {ens.cfg.max_heat_frac}]")
+    emit({"phase": "hybrid_512", "reduced": {"rounds": [2777, 8]}, **out,
+          "hybrid_cold": 6, "heated_chains": int(dn_np.sum()),
+          "heated_mask_frac_mean": float(frac[dn_np].mean()),
+          "heated_mask_frac_max": float(frac[dn_np].max())})
+    return launches
+
+
+def phase_houdayer(keep):
+    """The batched Houdayer moves on 3200 real pairs: the ensemble_icm_2048
+    run's final states (20 chimera 16x16 instances after 8 rounds of sweeps
+    at every rung), sub-replicas (0, 1), ..., (8, 9) paired at each
+    temperature. Labels of the sparse, blocked and matmul backends (and
+    the dense one on 16 pairs) equal bit for bit, each pair's labels equal
+    the component minima of the host components (`disagreement_clusters_
+    adj`, scipy); the moves from injected uniforms equal the CPU port's on
+    640 of the pairs; ms (CUDA events) and fixed-point iterations per
+    backend."""
+    import torch
+    from nmc_tpu_torch.ops import clusters as oc
+    _, ens, state = keep
+    I, S, R, n = state.m.shape
+    Pn = S // 2
+    b2s = state.beta_to_slot
+    ii = torch.arange(I, device=DEVICE)[:, None, None]
+    sj = torch.arange(0, S, 2, device=DEVICE)[None, :, None].expand(I, Pn, 1)
+    slot_j = torch.gather(b2s, 1, sj.expand(I, Pn, R))
+    slot_k = torch.gather(b2s, 1, (sj + 1).expand(I, Pn, R))
+    s1 = state.m[ii, sj, slot_j].reshape(-1, n).contiguous()
+    s2 = state.m[ii, sj + 1, slot_k].reshape(-1, n).contiguous()
+    P = s1.shape[0]
+    group = torch.arange(I, device=DEVICE).repeat_interleave(Pn * R)
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    g = torch.rand((P, n), generator=gen, device=DEVICE)
+    # the engine's own operands: the matmul index table (its "auto"
+    # backend at chimera 16x16) and K5's union tiles; edge lists from J
+    check(ens.houdayer == "matmul" and ens.round_path == "K5",
+          f"houdayer {ens.houdayer}, round_path {ens.round_path}")
+    planes = ens._houd
+    col_u, tiles = ens._stream_tiles
+    adj_t = tiles != 0
+    J_full = ens.J_full
+    J_np = J_full.cpu().numpy()
+    srcs, dsts, adjs = [], [], []
+    for i in range(I):
+        iu, ju = np.nonzero(np.triu(J_np[i], 1))
+        srcs.append(np.concatenate([iu, ju]))
+        dsts.append(np.concatenate([ju, iu]))
+        adjs.append(oc.CSRAdjacency(J_np[i]))
+    E = max(x.size for x in srcs)
+
+    def pad(x):
+        return np.concatenate([x, np.full(E - x.size, n - 1)])
+
+    src = torch.as_tensor(np.stack([pad(x) for x in srcs]), device=DEVICE)
+    dst = torch.as_tensor(np.stack([pad(x) for x in dsts]), device=DEVICE)
+    backends = {
+        "sparse": lambda a, b, grp, st: oc.houdayer_move_sparse(
+            src, dst, a, b, g=g[:a.shape[0]], group=grp, stats=st),
+        "blocked": lambda a, b, grp, st: oc.houdayer_move_blocked(
+            col_u, adj_t, a, b, g=g[:a.shape[0]], group=grp, stats=st),
+        "matmul": lambda a, b, grp, st: oc.houdayer_move_matmul(
+            planes, a, b, g=g[:a.shape[0]], group=grp, stats=st),
+        "device": lambda a, b, grp, st: oc.houdayer_move_device(
+            J_full, a, b, g=g[:a.shape[0]], group=grp, stats=st)}
+    out = {"phase": "houdayer", "pairs": P, "n_pad": n, "instances": I,
+           "disagreeing_spins_per_pair_mean": float(
+               (s1 != s2).float().sum(1).mean())}
+    labels, moves = {}, {}
+    for name, fn in backends.items():
+        a, b, grp = ((s1, s2, group) if name != "device"
+                     else (s1[:16], s2[:16], group[:16]))
+        lab_fn = {"sparse": lambda: oc.disagreement_labels_sparse(
+                      src, dst, a, b, group=grp),
+                  "blocked": lambda: oc.disagreement_labels_blocked(
+                      col_u, adj_t, a, b, group=grp),
+                  "matmul": lambda: oc.disagreement_labels_matmul(
+                      planes, a, b, group=grp),
+                  "device": lambda: oc.disagreement_labels_device(
+                      J_full, a, b, group=grp)}[name]
+        labels[name] = lab_fn()
+        st = {}
+        fn(a, b, grp, st)                                     # warm-up
+        times = []
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            moves[name] = fn(a, b, grp, None)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        out[name] = {"pairs": a.shape[0], "ms": times,
+                     "ms_per_call": min(times), **st}
+    for name in ("blocked", "matmul"):
+        check(torch.equal(labels[name], labels["sparse"]),
+              f"houdayer: {name} labels differ from sparse")
+        check(all(torch.equal(x, y) for x, y in zip(moves[name],
+                                                    moves["sparse"])),
+              f"houdayer: {name} moves differ from sparse")
+    check(torch.equal(labels["device"], labels["sparse"][:16]),
+          "houdayer: dense labels differ from sparse")
+    # host components, pair by pair
+    lab = labels["sparse"].cpu().numpy()
+    a_np, b_np = s1.cpu().numpy(), s2.cpu().numpy()
+    grp_np = group.cpu().numpy()
+    t0 = time.perf_counter()
+    for p in range(P):
+        want = np.full(n, n)
+        for c in oc.disagreement_clusters_adj(adjs[grp_np[p]], a_np[p],
+                                              b_np[p]):
+            want[c] = c.min()
+        check(np.array_equal(lab[p], want),
+              f"houdayer: pair {p} labels off the host components")
+    out["host_components_seconds"] = time.perf_counter() - t0
+    # the CPU port on 640 pairs (4 instances), the same injected uniforms
+    sub = slice(0, min(4 * Pn * R, P))
+    cpu = oc.houdayer_move_sparse(
+        src.cpu(), dst.cpu(), s1[sub].cpu(), s2[sub].cpu(),
+        g=g[sub].cpu(), group=group[sub].cpu())
+    check(all(torch.equal(x[sub].cpu(), y)
+              for x, y in zip(moves["matmul"], cpu)),
+          "houdayer: the card's moves differ from the CPU port's")
+    out["moved"] = int(moves["matmul"][2].sum())
+    out["flipped"] = int(moves["matmul"][3].sum())
+    out["cpu_pairs_compared"] = sub.stop
+    emit(out)
+
+
+def phase_campaign_icm():
+    """The campaign CLI's icm, hybrid and icm_host arms at their defaults
+    on the small chimera family with exact ground states, in process: every
+    instance a hit; icm and hybrid through K4, icm_host through K1."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from nmc_tpu_torch import cli
+    out = {"phase": "campaign_icm"}
+    launches = {"ensemble_round": 0, "colored_sweeps": 0}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_icm_") as tmp:
+        folder = os.path.join(tmp, "family")
+        os.makedirs(folder)
+        gs = _write_chimera_family(folder)
+        for arm in ("icm", "hybrid", "icm_host"):
+            kernel = "colored_sweeps" if arm == "icm_host" else \
+                "ensemble_round"
+            path = os.path.join(tmp, f"{arm}.jsonl")
+            buf = io.StringIO()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["campaign", "--kind", "chimera", "--folder", folder,
+                          "--arm", arm, "--out", path, "--device", DEVICE])
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            with open(path) as f:
+                recs = [json.loads(line) for line in f]
+            text = buf.getvalue()
+            check(arm == "icm_host" or "round_path=K4" in text,
+                  f"campaign {arm} did not take K4")
+            check(counts[kernel] > 0
+                  and all(v == 0 for k, v in counts.items() if k != kernel),
+                  f"campaign {arm} launches {counts}")
+            check(sorted(r["name"] for r in recs) == sorted(gs),
+                  f"campaign {arm}: records do not cover the family")
+            check(all(r["hit"] and abs(r["found_raw"] - gs[r["name"]])
+                      <= 1e-9 for r in recs),
+                  f"campaign {arm} missed a ground state")
+            launches[kernel] += counts[kernel]
+            out[arm] = {"instances": len(recs), "hits": len(recs),
+                        "launches": counts[kernel], "kernel": kernel,
+                        "seconds": seconds,
+                        "hit_sweeps": [r["hit_sweeps"] for r in recs],
+                        "engine": [ln for ln in text.splitlines()
+                                   if ln.startswith("engine:")]}
+    emit(out)
+    return launches
+
+
+def phase_apt_icm(c2048):
+    """The icm CLI at its defaults (8 replicas x 10 sub-replicas, 10000
+    sweeps, 100 swap rounds, --coloring): chimera 8x8 with host ICM through
+    K1, chimera 16x16 with --device-icm through K3. Two sweep launches a
+    round; the last round's f32 best against the f64 energy of the best
+    state; Houdayer moves made."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from nmc_tpu_torch import cli
+    out = {"phase": "apt_icm"}
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_apt_icm_") as tmp:
+        for tag, prob, extra, kernel in (
+                ("chimera512", _flagship()[0], [], "colored_sweeps"),
+                ("chimera2048", c2048[0], ["--device-icm"],
+                 "colored_sweeps_sparse")):
+            J = os.path.join(tmp, f"{tag}.npy")
+            np.save(J, prob.J)
+            metrics = os.path.join(tmp, f"{tag}.jsonl")
+            buf = io.StringIO()
+            reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["icm", "--J", J, "--coloring", "--device", DEVICE,
+                          "--metrics", metrics, *extra])
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+            with open(metrics) as f:
+                rounds = [r for r in map(json.loads, f)
+                          if r.get("phase") == "icm_round"]
+            check(counts[kernel] == 200
+                  and all(v == 0 for k, v in counts.items() if k != kernel),
+                  f"icm {tag}: launches {counts}")
+            err = abs(rounds[-1]["min_energy"] - rec["min_energy"])
+            check(len(rounds) == 100 and err <= 1e-3,
+                  f"icm {tag}: best off its f64 energy by {err}")
+            check(rec["icm_moves"] > 0, f"icm {tag}: no Houdayer move")
+            launches[kernel] = counts[kernel]
+            out[tag] = {"N": prob.n, "kernel": kernel,
+                        "launches": counts[kernel], "seconds": seconds,
+                        "seconds_per_round": seconds / 100,
+                        "device_icm": bool(extra),
+                        "min_energy": rec["min_energy"],
+                        "best_f32_vs_f64_abs_err": err,
+                        "icm_moves": rec["icm_moves"],
+                        "icm_flips": rec["icm_flips"]}
+    emit(out)
+    return launches
 
 
 def _round_work(torch, ens, state, cfg_kw, flips, sweeps_per_round):
@@ -2523,6 +2995,16 @@ def main():
     launches["ensemble_round_sparse"], ens2048 = phase_ensemble_2048()
     launches["ensemble_round"] += phase_campaign()
     phase_round_routing()
+    launches["ensemble_round"] += phase_ensemble_icm_512()
+    k5, icm2048 = phase_ensemble_icm_2048()
+    launches["ensemble_round_sparse"] += k5
+    phase_houdayer(icm2048)
+    del icm2048
+    launches["ensemble_round"] += phase_hybrid_512()
+    for name, count in phase_campaign_icm().items():
+        launches[name] += count
+    for name, count in phase_apt_icm(c2048).items():
+        launches[name] += count
     errs.update(phase_exact_kernels())
     launches.update(phase_exact_40())
     phase_exact_tiers()

@@ -9,14 +9,17 @@ The port covers the problem containers, colouring, generators and
 loaders, energies, the sweep engine with its three colored sweep kernels
 (K1 dense, K2 dense streamed, K3 block-sparse; each with a plain torch
 twin), dense and edge-message LBP, backbone clusters, the NMC driver, the
-APT beta schedule, NPT replica exchange and checkpoints, and the campaign
-engine: `EnsembleNMC` (many instances x a replica ladder, whole rounds
-through the round kernels K4 dense and K5 block-sparse, each with a plain
-torch twin; in-round slotted-edge, edge-message or dense LBP; device label
-swaps), the exact meet-in-the-middle solver (host, torch-tile and fused
-tiers; the fused tier through the table kernels K6 f32 and K7 int8 digit
-planes, each with a plain torch twin) with the chimera tropical DP, and the
-`nmc`/`apt`/`npt`/`campaign`/`exact` CLI.
+APT beta schedule, NPT replica exchange and checkpoints, APT + Houdayer
+ICM (`apt_icm_run`; host or batched device cluster moves), and the
+campaign engines: `EnsembleNMC` (many instances x a replica ladder, whole
+rounds through the round kernels K4 dense and K5 block-sparse, each with a
+plain torch twin; in-round slotted-edge, edge-message or dense LBP; device
+label swaps) and `EnsembleICM` (instances x sub-replicas x a ladder, the
+sweep stage through K4/K5, batched device Houdayer moves), the exact
+meet-in-the-middle solver (host, torch-tile and fused tiers; the fused tier
+through the table kernels K6 f32 and K7 int8 digit planes, each with a
+plain torch twin) with the chimera tropical DP, and the
+`nmc`/`apt`/`npt`/`icm`/`campaign`/`exact` CLI.
 """
 
 from . import device  # noqa: F401  (sets the full-f32 matmul policy)
@@ -26,6 +29,7 @@ from .exact import (exact_energy_bound, solve_exact_device, solve_exact_enum,
                     solve_exact_fused, solve_exact_host)
 from .exact_chimera import solve_exact_chimera
 from .models.apt import APTConfig, APTResult, apt_preprocess
+from .models.apt_icm import APTICMConfig, APTICMResult, apt_icm_run
 from .models.nmc import NMCConfig, NMCResult, nmc_run, nmc_subroutine
 from .models.npt import NPTConfig, NPTResult, npt_run
 from .ops.clusters import (backbone_mask_device, cluster_mask,
@@ -51,7 +55,8 @@ from .ops.sweeps_cuda import (colored_sweeps, colored_sweeps_reference,
                               colored_sweeps_sparse_reference,
                               colored_sweeps_streamed,
                               colored_sweeps_streamed_reference)
-from .parallel import (EnsembleNMC, EnsembleNMCState, ShardedNPTConfig,
+from .parallel import (EnsembleICM, EnsembleICMConfig, EnsembleICMState,
+                       EnsembleNMC, EnsembleNMCState, ShardedNPTConfig,
                        metropolis_label_swap, select_pairs_device)
 
 __version__ = "0.1.0"
@@ -65,10 +70,12 @@ __all__ = [
     "ensemble_round", "ensemble_round_reference", "ensemble_round_sparse",
     "ensemble_round_sparse_reference", "EnsembleRoundResult",
     "EnsembleNMC", "EnsembleNMCState", "ShardedNPTConfig",
+    "EnsembleICM", "EnsembleICMConfig", "EnsembleICMState",
     "metropolis_label_swap", "select_pairs_device",
     "NMCConfig", "NMCResult", "nmc_run", "nmc_subroutine",
     "APTConfig", "APTResult", "apt_preprocess",
     "NPTConfig", "NPTResult", "npt_run",
+    "APTICMConfig", "APTICMResult", "apt_icm_run",
     "loopy_belief_propagation", "lbp_convexified", "lbp_convexified_batch",
     "EdgeGraph", "sparse_lbp", "sparse_lbp_convexified",
     "sparse_lbp_convexified_batch", "convexified_marginal_dense",

@@ -1,10 +1,12 @@
 """Solution-quality campaign over a benchmark family's shipped ground truths.
 
-The counterpart of ``nmc_tpu/campaign.py`` for its batched `pt` and `nmc`
-arms: ALL pending instances of a family run as one `EnsembleNMC` ensemble,
-each instance's best state is checked against its shipped ground-state
-energy between chunks of rounds, and one capped run per instance gives its
-hit or miss at every budget up to the cap (time-to-solution).
+The counterpart of ``nmc_tpu/campaign.py`` for its `pt`, `nmc`, `icm`,
+`hybrid` and `icm_host` arms. The batched arms run ALL pending instances
+of a family as one ensemble (`EnsembleNMC` for pt / nmc, `EnsembleICM` for
+icm and the ICM+NMC hybrid), each instance's best state is checked against
+its shipped ground-state energy between chunks of rounds, and one capped
+run per instance gives its hit or miss at every budget up to the cap
+(time-to-solution). `icm_host` runs `apt_icm_run` instance after instance.
 
 Resumable: results stream to a JSONL file (same keys and format as the JAX
 campaign's); instances already present are skipped. Hits are appended the
@@ -12,13 +14,13 @@ moment they are found, and a `.partial` snapshot of every instance's record
 is replaced after each chunk.
 
     python -m nmc_tpu_torch campaign --kind chimera --folder DIR --arm nmc
-    python -m nmc_tpu_torch campaign --family chimera512 --arm pt --device cuda
+    python -m nmc_tpu_torch campaign --family chimera512 --arm icm --device cuda
 
 `--family` names resolve under the reference checkout, `$NMC_REFERENCE`
 (default `reference` in the working directory). Not ported yet, and
-refused with NotImplementedError: the `icm`, `hybrid`, `icm_host` and
-`spectral` arms, `--init spectral|file`, `--presolve`, `--refine`,
-`--summarize`, `--collect-best` and the contrived family.
+refused with NotImplementedError: the `spectral` arm, `--init
+spectral|file`, `--presolve`, `--refine`, `--summarize`, `--collect-best`
+and the contrived family.
 """
 
 import argparse
@@ -94,7 +96,6 @@ def _later(what, item):
         f"queue 1: {item}); run it with python -m nmc_tpu campaign")
 
 
-_ICM = "EnsembleICM with the Houdayer ops"
 _REST = "the campaign's remaining arms and flags"
 
 
@@ -162,8 +163,9 @@ def _record(name, n, gs_norm, found, factor, hit_at, rounds_done,
 
 
 def solve_ensemble_batch(pending, args, spec, meta, out_path):
-    """ALL pending instances of a family solved as one `EnsembleNMC`
-    ensemble: per-instance ground-state targets checked between chunks of
+    """ALL pending instances of a family solved as one ensemble
+    (`EnsembleNMC` for pt / nmc, `EnsembleICM` for icm / hybrid): the
+    per-instance ground-state targets are checked between chunks of
     rounds; an instance's time to solution is the shared wall clock at its
     first verified hit. Streams one JSONL record per instance."""
     import torch
@@ -198,31 +200,49 @@ def solve_ensemble_batch(pending, args, spec, meta, out_path):
         beta = build_ladder(args.beta_min, args.beta_max, args.replicas)
     num_replicas = len(beta)
     sweeps_per_round = args.num_cycles * 3 * args.sweeps_per_phase
-    cold = args.nmc_cold if args.arm == "nmc" else 0
-    if cold and args.nmc_placement == "near-global":
-        # NMC replicas sample at global_beta whatever their label: attach
-        # them to the rungs closest to global_beta, so the cold end keeps
-        # plain cold sampling and the swap test stays nearly consistent
-        order = np.argsort(np.abs(np.log(beta / args.global_beta)))
-        doNMC = np.zeros(num_replicas, bool)
-        doNMC[order[:cold]] = True
-        doNMC = doNMC.tolist()
+    if args.arm in ("icm", "hybrid"):
+        from .parallel.ensemble_icm import EnsembleICM, EnsembleICMConfig
+        cfg = EnsembleICMConfig(
+            sweeps_per_round=sweeps_per_round,
+            num_subreplicas=args.subreplicas,
+            num_swapping_pairs=max(num_replicas // 4, 1),
+            use_coloring=spec["coloring"],
+            # the hybrid: heated phases on the disagreement sets of the
+            # --nmc-cold coldest rungs' paired chains
+            hybrid_cold=args.nmc_cold if args.arm == "hybrid" else 0,
+            temp_x=args.temp_x, num_cycles=args.num_cycles,
+            houdayer=args.houdayer,
+        )
+        ens = EnsembleICM(probs, beta, cfg, device=device)
+        what = (f"{num_replicas} replicas x {args.subreplicas} "
+                f"sub-replicas, houdayer={ens.houdayer}")
     else:
-        doNMC = [False] * (num_replicas - cold) + [True] * cold
-    cfg = ShardedNPTConfig(
-        sweeps_per_phase=args.sweeps_per_phase,
-        num_cycles=args.num_cycles,
-        num_swapping_pairs=max(num_replicas // 4, 1),
-        global_beta=args.global_beta, temp_x=args.temp_x,
-        threshold_initial=args.threshold_initial,
-        threshold_cutoff=args.threshold_cutoff,
-        use_coloring=spec["coloring"], lbp_mode="auto",
-        lbp_every=args.lbp_every,
-    )
-    ens = EnsembleNMC(probs, beta, doNMC, cfg, device=device)
-    print(f"engine: {I} instances x {num_replicas} replicas, n_pad "
-          f"{ens.n_pad}, round_path={ens.round_path}, device={device}",
-          flush=True)
+        cold = args.nmc_cold if args.arm == "nmc" else 0
+        if cold and args.nmc_placement == "near-global":
+            # NMC replicas sample at global_beta whatever their label:
+            # attach them to the rungs closest to global_beta, so the cold
+            # end keeps plain cold sampling and the swap test stays nearly
+            # consistent
+            order = np.argsort(np.abs(np.log(beta / args.global_beta)))
+            doNMC = np.zeros(num_replicas, bool)
+            doNMC[order[:cold]] = True
+            doNMC = doNMC.tolist()
+        else:
+            doNMC = [False] * (num_replicas - cold) + [True] * cold
+        cfg = ShardedNPTConfig(
+            sweeps_per_phase=args.sweeps_per_phase,
+            num_cycles=args.num_cycles,
+            num_swapping_pairs=max(num_replicas // 4, 1),
+            global_beta=args.global_beta, temp_x=args.temp_x,
+            threshold_initial=args.threshold_initial,
+            threshold_cutoff=args.threshold_cutoff,
+            use_coloring=spec["coloring"], lbp_mode="auto",
+            lbp_every=args.lbp_every,
+        )
+        ens = EnsembleNMC(probs, beta, doNMC, cfg, device=device)
+        what = f"{num_replicas} replicas"
+    print(f"engine: {I} instances x {what}, n_pad {ens.n_pad}, "
+          f"round_path={ens.round_path}, device={device}", flush=True)
     total_rounds = max(args.sweeps // sweeps_per_round, 1)
 
     t0 = time.perf_counter()
@@ -349,6 +369,9 @@ def run_arm(args):
                 seed=args.seed)
     print(f"# campaign {meta}", flush=True)
 
+    if args.arm == "icm_host":
+        solve_icm_host(args, spec, meta, done)
+        return
     only = set(args.only.split(",")) if getattr(args, "only", None) else None
     pending = [(name, prob, gs) for name, prob, gs
                in get_instances(spec, args.instances)
@@ -360,6 +383,71 @@ def run_arm(args):
     solve_ensemble_batch(pending, args, spec, meta, args.out)
 
 
+def solve_icm_host(args, spec, meta, done):
+    """The icm_host arm: `apt_icm_run` instance after instance (normalized,
+    the ground-state target checked every round), one JSONL record each.
+    The ladder is built from the first pending instance (`--ladder apt`
+    honoured)."""
+    import torch
+
+    from .models.apt_icm import APTICMConfig, apt_icm_run
+
+    device = resolve_cli_device(args.device)
+    beta = None
+    for name, prob, gs_raw in get_instances(spec, args.instances):
+        if name in done:
+            print(f"skip {name} (done)", flush=True)
+            continue
+        if beta is None:
+            if args.ladder == "apt":
+                beta = build_apt_ladder(prob, args.beta_min, args.beta_max,
+                                        seed=args.seed,
+                                        use_coloring=spec["coloring"],
+                                        device=device)
+                print(f"APT ladder: {len(beta)} rungs, "
+                      f"beta {beta[0]:.3g}..{beta[-1]:.3g}", flush=True)
+            else:
+                beta = build_ladder(args.beta_min, args.beta_max,
+                                    args.replicas)
+        norm_factor = float(np.max(np.abs(prob.J))) or 1.0
+        gs_norm = gs_raw / norm_factor
+        atol_norm = max(1e-6 * abs(gs_raw), 1e-9) / norm_factor
+        cfg = APTICMConfig(
+            num_sweeps_MCMC=args.sweeps, num_sweeps_read=args.sweeps,
+            num_swap_attempts=args.swap_attempts,
+            num_swapping_pairs=max(len(beta) // 4, 1),
+            num_subreplicas=args.subreplicas,
+            use_coloring=spec["coloring"], normalize=True,
+            device_icm=args.device_icm,
+            target_energy=gs_norm, target_atol=atol_norm,
+        )
+        t0 = time.perf_counter()
+        res = apt_icm_run(prob, beta, cfg,
+                          torch.Generator(device=device).manual_seed(
+                              args.seed), device=device)
+        wall = time.perf_counter() - t0
+        per_swap = args.sweeps // args.swap_attempts
+        rec = dict(
+            name=name, n=prob.n, gs_raw=_num(gs_raw),
+            found_raw=_num(res.min_energy * norm_factor),
+            residual=_num(res.min_energy * norm_factor - gs_raw),
+            hit=bool(res.hit_round is not None),
+            hit_seconds=res.hit_seconds,
+            hit_sweeps=(res.hit_round + 1) * per_swap
+            if res.hit_round is not None else None,
+            rounds_completed=int(res.rounds_completed),
+            rounds_total=args.swap_attempts, per_swap=per_swap,
+            wall_seconds=wall, meta=meta,
+        )
+        with open(args.out, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        res_str = ("n/a" if rec["residual"] is None
+                   else f"{rec['residual']:.4f}")
+        print(f"{name}: hit={rec['hit']} residual={res_str} "
+              f"rounds={rec['rounds_completed']}/{args.swap_attempts} "
+              f"wall={wall:.1f}s", flush=True)
+
+
 def add_campaign_args(p):
     p.add_argument("--family", choices=sorted(FAMILIES))
     p.add_argument("--kind", choices=["chimera", "dcl", "wishart", "contrived"],
@@ -368,7 +456,8 @@ def add_campaign_args(p):
     p.add_argument("--arm",
                    choices=["pt", "nmc", "icm", "hybrid", "icm_host",
                             "spectral"],
-                   help="pt and nmc run here; the others are not ported yet")
+                   help="pt, nmc, icm, hybrid and icm_host run here; "
+                        "spectral is not ported yet")
     p.add_argument("--init", choices=["random", "spectral", "file"],
                    default="random",
                    help="chain initialization (random here; spectral and "
@@ -440,9 +529,7 @@ def _refuse_unported(args):
         raise _later("--collect-best", _REST)
     if args.summarize:
         raise _later("--summarize", _REST)
-    if args.arm in ("icm", "hybrid"):
-        raise _later(f"the {args.arm} arm", _ICM)
-    if args.arm in ("icm_host", "spectral"):
+    if args.arm == "spectral":
         raise _later(f"the {args.arm} arm", _REST)
     if args.init != "random":
         raise _later(f"--init {args.init}", _REST)

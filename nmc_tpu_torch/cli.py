@@ -1,16 +1,18 @@
-"""Command-line entry points of the port: `nmc`, `apt`, `npt`, `campaign` and
-`exact`.
+"""Command-line entry points of the port: `nmc`, `apt`, `npt`, `icm`,
+`campaign` and `exact`.
 
     python -m nmc_tpu_torch nmc --J J.npy --h h.npy --coloring --chains 256
     python -m nmc_tpu_torch nmc --instance path.txt --format chimera --coloring
     python -m nmc_tpu_torch apt --J J.npy --coloring --out-dir Results/data
     python -m nmc_tpu_torch npt --J J.npy --coloring \
         --beta-list Results/data/beta_list_python.npy --nmc-coldest 2
+    python -m nmc_tpu_torch icm --instance path.txt --format chimera --coloring
     python -m nmc_tpu_torch campaign --kind chimera --folder DIR --arm nmc
     python -m nmc_tpu_torch exact DIR/wishart_..._inst_1.txt --backend pallas
 
 Same flags and the same JSON output keys as ``python -m nmc_tpu``'s
-subcommands of those names (`campaign` for its `pt` and `nmc` arms; `exact`
+subcommands of those names (`campaign` for its `pt`, `nmc`, `icm`,
+`hybrid` and `icm_host` arms; `exact`
 with `--device` in place of `--cpu` and `--interpret`). Every subcommand
 takes `--device` (default `cuda`): without a card it fails unless
 `--device cpu` is given.
@@ -150,6 +152,28 @@ def cmd_npt(args):
         "min_energy": res.min_energy,
         "min_energy_unnormalized": res.min_energy * res.norm_factor,
         "acceptance_rate": res.acceptance_rate,
+    }))
+
+
+def cmd_icm(args):
+    from .models.apt_icm import APTICMConfig, apt_icm_run
+
+    prob = _load_problem(args).normalized()[0]
+    beta_list = np.load(args.beta_list) if args.beta_list else \
+        np.linspace(args.beta_start, args.beta_max, args.replicas)
+    cfg = APTICMConfig(
+        num_sweeps_MCMC=args.sweeps, num_sweeps_read=args.sweeps_read,
+        num_swap_attempts=args.swap_attempts,
+        num_subreplicas=args.subreplicas, block_size=args.block_size,
+        use_coloring=args.coloring, device_icm=args.device_icm,
+    )
+    device, generator = _device_and_generator(args)
+    res = apt_icm_run(prob, beta_list, cfg, generator,
+                      metrics=_metrics(args), device=device)
+    print(json.dumps({
+        "Energy": [float(e) for e in res.Energy],
+        "min_energy": res.min_energy,
+        "icm_moves": res.icm_moves, "icm_flips": res.icm_flips,
     }))
 
 
@@ -319,11 +343,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.set_defaults(fn=cmd_npt)
 
+    p = sub.add_parser("icm", help="APT + Houdayer ICM baseline")
+    _add_problem_args(p)
+    p.add_argument("--beta-list")
+    p.add_argument("--replicas", type=int, default=8)
+    p.add_argument("--beta-start", type=float, default=0.3)
+    p.add_argument("--beta-max", type=float, default=5.0)
+    p.add_argument("--sweeps", type=int, default=10_000)
+    p.add_argument("--sweeps-read", type=int, default=1000)
+    p.add_argument("--swap-attempts", type=int, default=100)
+    p.add_argument("--subreplicas", type=int, default=10)
+    p.add_argument("--device-icm", action="store_true", default=None,
+                   help="Houdayer moves on the device (default: above 2048 "
+                        "spins)")
+    p.set_defaults(fn=cmd_icm)
+
     p = sub.add_parser(
         "campaign",
         help="batched solution-quality campaign over a benchmark family "
-             "(pt and nmc arms; per-instance time-to-solution vs shipped "
-             "ground truths)")
+             "(pt, nmc, icm, hybrid and icm_host arms; per-instance "
+             "time-to-solution vs shipped ground truths)")
     from .campaign import add_campaign_args, run_campaign
     add_campaign_args(p)
     p.set_defaults(fn=run_campaign)

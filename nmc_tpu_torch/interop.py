@@ -74,3 +74,33 @@ def ensemble_nmc_state_from_numpy(s, generator: torch.Generator, *,
         round_index=int(np.asarray(get("round_index"))),
         m_best=t("m_best", dtype), e_best=t("e_best", dtype),
         cl=t("cl", torch.bool), do_nmc_slot=t("do_nmc_slot", torch.bool))
+
+
+def ensemble_icm_state_from_numpy(s, generator: torch.Generator, *,
+                                  dtype: Union[str, torch.dtype] = torch.float32,
+                                  device=None):
+    """The port's `EnsembleICMState` from an EnsembleICMState of the JAX
+    package (or any object or mapping with its fields as numpy arrays: m,
+    beta_to_slot, slot_to_beta, round_index, m_best, e_best, icm_moves,
+    icm_flips, cl, dn). Pure ICM's dummy [I, 1, 1, 1] / [I, 1, 1] masks
+    become None, as the port carries no masks there. The JAX key has no
+    counterpart: the draws of the port's rounds come from `generator`."""
+    from .parallel.ensemble_icm import EnsembleICMState
+    get = s.__getitem__ if isinstance(s, Mapping) else (lambda f: getattr(s, f))
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
+
+    def t(f, dt):
+        return torch.as_tensor(np.array(get(f)), dtype=dt, device=device)
+
+    m = t("m", dtype)
+    full = tuple(np.shape(get("cl"))) == tuple(m.shape)
+    return EnsembleICMState(
+        m=m, beta_to_slot=t("beta_to_slot", torch.int64),
+        slot_to_beta=t("slot_to_beta", torch.int64), generator=generator,
+        round_index=int(np.asarray(get("round_index"))),
+        m_best=t("m_best", dtype), e_best=t("e_best", dtype),
+        icm_moves=t("icm_moves", torch.int64),
+        icm_flips=t("icm_flips", torch.int64),
+        cl=t("cl", torch.bool) if full else None,
+        dn=t("dn", torch.bool) if full else None)

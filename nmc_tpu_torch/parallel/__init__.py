@@ -5,9 +5,14 @@ The counterpart of ``nmc_tpu/parallel``, with the names ported so far:
   * the campaign engine `EnsembleNMC` (many instances x a replica ladder x
     full NMC/PT rounds through the whole-round kernels K4/K5):
     `parallel/ensemble_nmc.py`;
-  * its configuration `ShardedNPTConfig`: `parallel/sharded_pt.py`.
+  * its configuration `ShardedNPTConfig`: `parallel/sharded_pt.py`;
+  * the APT + Houdayer ICM ensemble `EnsembleICM` (the campaign's icm and
+    hybrid arms; its sweep stage through K4/K5, batched device Houdayer
+    moves): `parallel/ensemble_icm.py`.
 """
 
+from .ensemble_icm import (EnsembleICM, EnsembleICMConfig, EnsembleICMState,
+                           ICMDraws)
 from .ensemble_nmc import EnsembleNMC, EnsembleNMCState, RoundDraws
 from .sharded_pt import ShardedNPTConfig
 from .swaps import SwapResult, metropolis_label_swap, select_pairs_device
@@ -15,5 +20,6 @@ from .swaps import SwapResult, metropolis_label_swap, select_pairs_device
 __all__ = [
     "ShardedNPTConfig",
     "EnsembleNMC", "EnsembleNMCState", "RoundDraws",
+    "EnsembleICM", "EnsembleICMConfig", "EnsembleICMState", "ICMDraws",
     "SwapResult", "metropolis_label_swap", "select_pairs_device",
 ]

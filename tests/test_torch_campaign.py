@@ -4,9 +4,10 @@ readers and folder iterators, and the device policy of every subcommand.
 The readers and iterators are copies of nmc_tpu's, held equal on files
 written here in the reference's formats. The campaign runs on a small
 family that the test writes in the reference's chimera format, with ground
-states found by enumeration (N = 16): both batched arms hit every instance,
+states found by enumeration (N = 16): every arm hits every instance,
 write records with the JAX campaign's keys, and a second run resumes (skips
-the instances on file). What is not ported yet raises NotImplementedError.
+the instances on file), for the pt, nmc, icm, hybrid and icm_host arms.
+What is not ported yet raises NotImplementedError.
 """
 
 import itertools
@@ -136,37 +137,72 @@ def _campaign(folder, out, arm, *extra):
                      "--nmc-cold", "2", *extra])
 
 
-@pytest.mark.parametrize("arm", ["nmc", "pt"])
+@pytest.mark.parametrize("arm", ["nmc", "pt", "icm", "hybrid", "icm_host"])
 def test_campaign_cli_hits_every_instance_and_resumes(tmp_path, capsys, arm):
+    """The batched arms (pt, nmc through EnsembleNMC; icm, hybrid through
+    EnsembleICM) take K4 and stream their hits; icm_host runs apt_icm_run
+    per instance (2 sweeps per swap round at these flags). A second run
+    skips every instance on file."""
     folder = tmp_path / "family"
     gs = write_chimera_family(folder)
     out = tmp_path / "out" / f"family_{arm}.jsonl"
     _campaign(folder, out, arm, "--trace", "--save-best-states",
               str(tmp_path / "states"))
     text = capsys.readouterr().out
-    assert "round_path=K4" in text and "device=cpu" in text
+    batched = arm != "icm_host"
+    if batched:
+        assert "round_path=K4" in text and "device=cpu" in text
+        assert ("sub-replicas" in text) == (arm in ("icm", "hybrid"))
     assert ensemble_round.launches == 0          # the CPU runs the twin
     recs = [json.loads(line) for line in out.read_text().splitlines()]
     assert sorted(r["name"] for r in recs) == sorted(gs)
+    per_swap = 12 if batched else 2
     for r in recs:
         assert set(r) == RECORD_KEYS
-        assert r["hit"] and r["hit_sweeps"] % 12 == 0
+        assert r["hit"] and r["hit_sweeps"] % per_swap == 0
         assert abs(r["found_raw"] - gs[r["name"]]) <= 1e-9
-        assert r["meta"]["arm"] == arm and r["meta"]["mode"] == "ensemble"
+        assert r["meta"]["arm"] == arm
+        assert r["per_swap"] == per_swap and r["n"] == 16
+        if not batched:
+            continue
+        assert r["meta"]["mode"] == "ensemble"
         assert r["meta"]["streamed_hit"] and r["meta"]["batch"] == 3
-        assert r["per_swap"] == 12 and r["n"] == 16
         state = np.loadtxt(tmp_path / "states" / r["name"])
         loaded = tl.load_chimera(str(folder / r["name"]))
         assert abs(loaded.energy(state) - r["found_raw"]) <= 1e-9
     assert not (tmp_path / "out" / f"family_{arm}.jsonl.partial").exists()
-    assert (tmp_path / "out" / f"family_{arm}.jsonl.trace").exists()
+    assert (tmp_path / "out" / f"family_{arm}.jsonl.trace").exists() \
+        == batched
     _campaign(folder, out, arm)                  # resume: all done
-    assert "all instances done" in capsys.readouterr().out
+    text = capsys.readouterr().out
+    assert ("all instances done" if batched else "skip 003.txt") in text
     assert len(out.read_text().splitlines()) == 3
 
 
+def test_cli_icm_prints_the_jax_cli_keys(tmp_path, capsys):
+    """The `icm` subcommand prints the JAX command's JSON keys; --device
+    defaults to cuda and --device-icm to the size rule."""
+    prob = chimera_graph(2, 2, seed=1)
+    np.save(tmp_path / "J.npy", prob.J)
+    argv = ["icm", "--J", str(tmp_path / "J.npy"), "--coloring",
+            "--block-size", "8", "--replicas", "3", "--sweeps", "12",
+            "--sweeps-read", "6", "--swap-attempts", "3", "--subreplicas",
+            "4"]
+    cli.main([*argv, "--device", "cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    # the JAX command on the same namespace (its main would also set a
+    # global compilation-cache directory)
+    from nmc_tpu import cli as jcli
+    jcli.cmd_icm(cli.build_parser().parse_args(argv))
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out) == set(want) == {"Energy", "min_energy", "icm_moves",
+                                     "icm_flips"}
+    assert len(out["Energy"]) == len(want["Energy"]) == 3
+    args = cli.build_parser().parse_args(["icm"])
+    assert args.device == "cuda" and args.device_icm is None
+
+
 @pytest.mark.parametrize("extra", [
-    ["--arm", "icm"], ["--arm", "hybrid"], ["--arm", "icm_host"],
     ["--arm", "spectral"], ["--arm", "nmc", "--init", "spectral"],
     ["--arm", "nmc", "--init", "file"], ["--arm", "pt", "--presolve"],
     ["--arm", "nmc", "--refine", "tree"], ["--summarize", "x.jsonl"],
@@ -190,7 +226,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert cli.resolve_cli_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("sub", ["nmc", "apt", "npt", "campaign"])
+@pytest.mark.parametrize("sub", ["nmc", "apt", "npt", "icm", "campaign"])
 def test_every_subcommand_takes_device_default_cuda(sub, monkeypatch,
                                                     tmp_path):
     """--device defaults to cuda on every subcommand; without a card that
