@@ -103,6 +103,33 @@ non-zero without printing a result:
                  ICM through K1 and chimera 16x16 with --device-icm through
                  K3: 200 sweep launches each, the best against its f64
                  energy, Houdayer moves made;
+ 12i. spectral — not a main path: the host spectral search at the portfolio's
+                 defaults (the difference-map pool of 2048 starts x 3000
+                 steps, the 2-flip polish of 8) on wishart_planted(40, 0.5)
+                 against spectral_candidates_device on the card at the
+                 same pool: both at the planted energy, every device
+                 candidate 1-flip stable in f64, host and device seconds;
+                 the device candidates without the pool on chimera 16x16;
+ 12j. solve_wishart — `python -m nmc_tpu_torch solve` at its defaults (in
+                 process) on that instance in a wishart folder with its
+                 gs_energies.txt: presolve + spectral, a hit, the JAX
+                 package's record keys, no kernel launch;
+ 12k. solve_contrived — `portfolio_solve` on contrived_wishart_backbone(50,
+                 0.2) (350 spins, core 50), no target, one MCMC round
+                 (uncoloured: the plain route, no kernel): the presolve's
+                 core, energy_raw the f64 energy of the full-space state;
+ 12l. solve_chimera2048 — `solve --kind chimera --sweeps 11520 --dm-starts
+                 0` on chimera_graph(16, 16) in the chimera dialect:
+                 presolve, the icm arm through K5 (20 launches for 20
+                 rounds), the tree stage; each stage's seconds and the MCMC
+                 stage's host spectral seeding;
+ 12m. refine_128 — the `refine` command on chimera_graph(4, 4) from a random
+                 state, its target the exact tropical DP: a hit, moves > 0;
+ 12n. campaign_spectral — the campaign CLI in process: the icm arm with
+                 --init spectral --presolve on phase 12's family (K4), the
+                 spectral arm on three planted wisharts at N = 40, the icm
+                 arm with --init file from the first run's saved states
+                 (K4): every instance a hit;
  13. exact_kernels — K6 (mitm_min) and K7 (mitm_min_i8) against their plain
                  versions at N = 32 (a = 16, TA = 2^15, TB = 2^16) on
                  integer-coupled instances, min and argmin equal element for
@@ -120,6 +147,9 @@ non-zero without printing a result:
                  state and energy, and prints its split (host tables,
                  upload, kernel, verification); the torch-tile tier
                  (--backend device) on the integer one for comparison;
+ 14b. exact_enum — `solve_exact_enum` (host: the g++-built enum.cpp) on
+                 exact_40's float instance: proved, at the energy K6 gave;
+                 nodes and seconds;
  15. exact_tiers — the `exact` command through each tier (host, torch tiles
                  at two tilings, fused kernels, auto) on integer planted
                  wisharts at N = 28-40: the crossover `auto` follows;
@@ -142,8 +172,8 @@ non-zero without printing a result:
                  registers and CTAs per SM; and K2 against K1 (bit for
                  bit, then each timed) on a denser colored layout, 32
                  random matchings at N = 4096.
-Phases 5-8, 10-12, 12c, 12d, 12f-12h and 14 are the main paths: each sets
-the launch counts to 0 just before it and reads them just after. Then one
+Phases 5-8, 10-12, 12c, 12d, 12f-12h, 12j-12n and 14 are the main paths:
+each sets the launch counts to 0 just before it and reads them just after. Then one
 line {"kernels": [...]}, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 
@@ -2142,7 +2172,7 @@ def phase_exact_40():
           == out["int_pallas_off"]["energy_raw"], "K6 and K7 energies differ")
     out["launches"] = launches
     emit(out)
-    return launches
+    return launches, out["float_pallas_auto"]["energy_raw"]
 
 
 def phase_exact_tiers():
@@ -2183,6 +2213,389 @@ def phase_exact_tiers():
                         f"N = {n}: auto took {rec['backend']}, {counts}")
             out["wall_seconds"][n] = walls
     emit(out)
+
+
+# ---- the solve portfolio: spectral search, solve, refine, enumeration --------
+
+# the keys of a `solve` record and of each of its stages, as the JAX
+# package's `solve` command prints them (nmc_tpu/cli.py cmd_solve)
+SOLVE_KEYS = {"name", "n", "kind", "energy_raw", "target_raw", "hit",
+              "wall_seconds", "stages"}
+STAGE_KEYS = {"stage", "energy_raw", "wall_seconds", "hit"}
+STAGE_DETAIL = {"presolve": {"n", "core_n", "constant"},
+                "spectral": {"dm_starts"},
+                "mcmc:icm": {"hit_sweeps", "rounds"},
+                "tree": {"moves", "ils_iters"}}
+REFINE_KEYS = {"name", "kind", "energy_raw", "target_raw", "e_int_start",
+               "e_int", "q", "target_int", "hit", "moves", "ils_iters",
+               "seconds"}
+
+
+def _min_one_flip_dE(J, S):
+    """The least single-flip energy change over the rows of S, in f64:
+    >= 0 (up to the f32 descent's 1e-6 stop) when every row is 1-flip
+    stable."""
+    S = np.asarray(S, np.float64)
+    return float((2.0 * S * (S @ np.asarray(J, np.float64))).min())
+
+
+def _write_chimera(path, prob):
+    """`prob` in the reference's chimera dialect (1-indexed, diagonal lines
+    carry h, the file's values negated on load), by repr so it loads back
+    exactly."""
+    rows = [f"{i + 1} {i + 1} {float(-prob.h[i])!r}" for i in range(prob.n)
+            if prob.h[i]]
+    iu, ju = np.nonzero(np.triu(prob.J, 1))
+    rows += [f"{i + 1} {j + 1} {float(-prob.J[i, j])!r}"
+             for i, j in zip(iu, ju)]
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def _cli(argv):
+    """One command of the port's CLI in process, the launch counts set to 0
+    just before it and read just after. Returns (exit code, the last JSON
+    line, seconds, launches, stdout)."""
+    import contextlib
+    import io
+    import torch
+    from nmc_tpu_torch import cli
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    text = buf.getvalue()
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    return rc, (json.loads(lines[-1]) if lines else None), seconds, counts, \
+        text
+
+
+def _stage_seconds(rec):
+    return {s["stage"]: s["wall_seconds"] for s in rec["stages"]}
+
+
+def _check_solve_record(tag, rec, stages):
+    check(set(rec) == SOLVE_KEYS, f"{tag}: record keys {sorted(rec)}")
+    check([s["stage"] for s in rec["stages"]] == stages,
+          f"{tag}: stages {[s['stage'] for s in rec['stages']]}")
+    for st in rec["stages"]:
+        check(set(st) == STAGE_KEYS | STAGE_DETAIL[st["stage"]],
+              f"{tag}: stage keys {sorted(st)}")
+
+
+def phase_spectral():
+    """The host spectral search at the portfolio's defaults on a planted
+    wishart N = 40 against the torch device search on the card (the
+    difference-map pool at its full width, the device default d = n/2):
+    both reach the planted energy, every device candidate 1-flip stable in
+    f64. Then the device candidates without the pool on chimera 16x16 (the
+    MCMC stage's seeding problem of `solve_chimera2048`), timed."""
+    import torch
+    from nmc_tpu_torch.io.generators import chimera_graph, wishart_planted
+    from nmc_tpu_torch.ops import spectral as sp
+    prob, t, e = wishart_planted(40, 0.5, seed=0)
+    t0 = time.perf_counter()
+    r = sp.spectral_search(prob, dm_starts=2048, dm_iters=3000, dm_dim=None,
+                           polish=8, seed=0)
+    host = time.perf_counter() - t0
+    check(abs(r.best_energy - e) <= 1e-9,
+          f"host spectral search {r.best_energy} misses the planted {e}")
+    out = {"phase": "spectral", "N": 40, "planted_energy": e,
+           "host_seconds": host, "host_best": r.best_energy,
+           "host_candidates": int(r.states.shape[0])}
+    reset_counts()
+    dev = []
+    for seed in (0, 1):      # the first call also sets up cuSOLVER / cuBLAS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S, E = sp.spectral_candidates_device(
+            prob.J, dm_starts=2048, dm_iters=3000, device=DEVICE,
+            generator=torch.Generator(device=DEVICE).manual_seed(seed))
+        S64 = S.double().cpu().numpy()
+        dev.append(time.perf_counter() - t0)
+        dE = _min_one_flip_dE(prob.J, S64)
+        check(dE >= -1e-5, f"device candidate not 1-flip stable: dE {dE}")
+        e_best = float(prob.energy(S64[0]))
+        check(abs(e_best - r.best_energy) <= 1e-9,
+              f"device best {e_best} != host best {r.best_energy}")
+        check(abs(float(E[0]) - e_best) <= 1e-5 * abs(e_best),
+              f"device energy {float(E[0])} against f64 {e_best}")
+    check(not any(read_counts().values()), "the spectral search launched "
+          "a kernel")
+    out.update(device_seconds=dev, device_candidates=int(S.shape[0]),
+               device_best_f64=e_best, min_one_flip_dE_f64=dE,
+               host_over_device=host / dev[1])
+    c = chimera_graph(16, 16, seed=0).normalized()[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Sc, Ec = sp.spectral_candidates_device(c.J, device=DEVICE)
+    Sc64 = Sc.double().cpu().numpy()
+    out["chimera2048_no_pool"] = {
+        "device_seconds": time.perf_counter() - t0,
+        "candidates": int(Sc.shape[0]),
+        "best_f64": float(c.energy(Sc64[0])),
+        "min_one_flip_dE_f64": _min_one_flip_dE(c.J, Sc64)}
+    check(out["chimera2048_no_pool"]["min_one_flip_dE_f64"] >= -1e-5,
+          "chimera 16x16 device candidates not 1-flip stable")
+    emit(out)
+
+
+def phase_solve_wishart():
+    """`python -m nmc_tpu_torch solve` at its defaults on the planted
+    wishart N = 40 in a wishart folder with its gs_energies.txt: the
+    spectral stage hits, so no MCMC and no kernel launch."""
+    import os
+    import tempfile
+    from nmc_tpu_torch.io.generators import wishart_planted
+    prob, t, e = wishart_planted(40, 0.5, seed=0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_solve_") as tmp:
+        paths = _write_wishart_folder(
+            os.path.join(tmp, "wishart_planting_N_40_alpha_0.50"), 40,
+            {"w": (prob.J, t, e)})
+        state = os.path.join(tmp, "s.txt")
+        rc, rec, seconds, counts, _ = _cli(
+            ["solve", paths["w"], "--save-state", state, "--device", DEVICE])
+        s = np.loadtxt(state)
+    _check_solve_record("solve_wishart", rec, ["presolve", "spectral"])
+    check(rc == 0 and rec["hit"] and rec["target_raw"] == e,
+          f"solve_wishart: exit {rc}, {rec}")
+    check(abs(prob.energy(s) - rec["energy_raw"]) <= 1e-12,
+          "solve_wishart: the saved state's energy")
+    check(not any(counts.values()), f"solve_wishart launches {counts}")
+    emit({"phase": "solve_wishart", "N": 40, "hit": rec["hit"],
+          "energy_raw": rec["energy_raw"], "seconds": seconds,
+          "wall_seconds": rec["wall_seconds"],
+          "stage_seconds": _stage_seconds(rec)})
+
+
+def phase_solve_contrived():
+    """`portfolio_solve` on a contrived Wishart backbone at the
+    contrived_n50_a0.20 family's size (50-spin core, 350 spins), no target,
+    one MCMC round: presolve peels the trees, the spectral stage and the
+    spectral-seeded icm arm (uncoloured: the plain route, no kernel) run on
+    the core, and the tree stage is skipped (not a grid)."""
+    import contextlib
+    import io
+    import torch
+    from nmc_tpu_torch.io.generators import contrived_wishart_backbone
+    from nmc_tpu_torch.portfolio import portfolio_solve
+    prob, t, e = contrived_wishart_backbone(50, 0.2, seed=0)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = portfolio_solve(prob, None, name="contrived_n50_a0.20",
+                              sweeps=576, device=DEVICE)
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    stages = [s.stage for s in res.stages]
+    check(stages == ["presolve", "spectral", "mcmc:icm"],
+          f"solve_contrived stages {stages}")
+    core_n = res.stages[0].detail["core_n"]
+    check(core_n < prob.n, f"presolve kept {core_n} of {prob.n}")
+    check(res.state.shape == (prob.n,)
+          and float(prob.energy(res.state)) == res.energy_raw,
+          "solve_contrived: energy_raw is not the f64 energy of the state")
+    check(not any(counts.values()), f"solve_contrived launches {counts}")
+    emit({"phase": "solve_contrived", "N": prob.n, "core_n": core_n,
+          "reduced": {"sweeps": [200000, 576]},
+          "energy_raw": res.energy_raw, "planted_energy": e,
+          "seconds": seconds,
+          "stage_seconds": {s.stage: s.wall_seconds for s in res.stages},
+          "engine": [ln for ln in buf.getvalue().splitlines()
+                     if ln.startswith(("engine:", "spectral seeding"))]})
+
+
+def phase_solve_chimera2048():
+    """`solve --kind chimera --sweeps 11520` on chimera_graph(16, 16) in the
+    chimera dialect (no ground-state file: no target): presolve, the icm
+    arm through K5 (one launch per round, 20 rounds), the tree stage; the
+    spectral stage is skipped (degree 6 <= 16). Each stage's seconds, and
+    the MCMC stage's host spectral seeding apart."""
+    import os
+    import re
+    import tempfile
+    from nmc_tpu_torch.io.generators import chimera_graph
+    prob = chimera_graph(16, 16, seed=0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_c2048_") as tmp:
+        path = os.path.join(tmp, "001.txt")
+        _write_chimera(path, prob)
+        state = os.path.join(tmp, "s.txt")
+        rc, rec, seconds, counts, text = _cli(
+            ["solve", path, "--kind", "chimera", "--sweeps", "11520",
+             "--dm-starts", "0", "--save-state", state, "--device", DEVICE])
+        s = np.loadtxt(state)
+    _check_solve_record("solve_chimera2048", rec,
+                        ["presolve", "mcmc:icm", "tree"])
+    check(rc == 0 and rec["target_raw"] is None, f"exit {rc}")
+    check("round_path=K5" in text, "the MCMC stage did not take K5")
+    rounds = rec["stages"][1]["rounds"]
+    check(rounds == 20 and counts["ensemble_round_sparse"] == rounds
+          and all(v == 0 for k, v in counts.items()
+                  if k != "ensemble_round_sparse"),
+          f"{rounds} rounds, launches {counts}")
+    check(abs(prob.energy(s) - rec["energy_raw"]) <= 1e-9,
+          "solve_chimera2048: the saved state's energy")
+    seeding = re.search(r"spectral seeding: .* in ([0-9.]+)s", text)
+    # not the main path: the MCMC stage's engine alone (one instance x 320
+    # slots), its per-round split and one K5 round by CUDA events
+    import torch
+    _, ens, _ = _icm_ensemble(16, 1)
+    state = ens.run_scanned(
+        ens.init_state(torch.Generator(device=DEVICE).manual_seed(0)), 2)
+    timings = {}
+    state = ens.run_scanned(state, 4, timings=timings)
+    one = {"split_seconds_per_round": {k: v / 4 for k, v in timings.items()},
+           "k5_alone": _icm_kernel_ms(torch, ens, state)}
+    emit({"phase": "solve_chimera2048", "N": prob.n,
+          "reduced": {"sweeps": [200000, 11520], "dm_starts": [2048, 0]},
+          "launches": counts["ensemble_round_sparse"], "rounds": rounds,
+          "energy_raw": rec["energy_raw"], "seconds": seconds,
+          "wall_seconds": rec["wall_seconds"],
+          "stage_seconds": _stage_seconds(rec),
+          "mcmc_seeding_seconds": float(seeding.group(1)) if seeding
+          else None,
+          "tree": {k: rec["stages"][2][k] for k in ("moves", "ils_iters")},
+          "one_instance_engine": one,
+          "engine": [ln for ln in text.splitlines()
+                     if ln.startswith("engine:")]})
+    return counts["ensemble_round_sparse"]
+
+
+def phase_refine_128():
+    """The `refine` command on chimera_graph(4, 4) from a random state,
+    its target the port's exact tropical DP: a hit, with moves."""
+    import os
+    import tempfile
+    from nmc_tpu_torch.exact_chimera import solve_exact_chimera
+    from nmc_tpu_torch.io.generators import chimera_graph
+    prob = chimera_graph(4, 4, seed=0)
+    t0 = time.perf_counter()
+    e_gs, _ = solve_exact_chimera(prob)
+    dp_seconds = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_refine_") as tmp:
+        path = os.path.join(tmp, "001.txt")
+        _write_chimera(path, prob)
+        s0 = os.path.join(tmp, "s0.txt")
+        np.savetxt(s0, np.random.default_rng(0).choice([-1, 1], prob.n),
+                   fmt="%d")
+        out = os.path.join(tmp, "s.txt")
+        rc, rec, seconds, counts, _ = _cli(
+            ["refine", path, "--kind", "chimera", "--state", s0, "--target",
+             repr(e_gs), "--save-state", out, "--device", DEVICE])
+        s = np.loadtxt(out)
+    check(set(rec) == REFINE_KEYS, f"refine keys {sorted(rec)}")
+    check(rc == 0 and rec["hit"] is True and rec["moves"] > 0,
+          f"refine_128: exit {rc}, {rec}")
+    check(float(prob.energy(s)) == e_gs, "refine_128: the saved state")
+    check(not any(counts.values()), f"refine launches {counts}")
+    emit({"phase": "refine_128", "N": prob.n, "target": e_gs,
+          "dp_seconds": dp_seconds, "seconds": seconds,
+          **{k: rec[k] for k in ("e_int_start", "e_int", "moves",
+                                 "ils_iters", "hit")}})
+
+
+def phase_campaign_spectral():
+    """The campaign CLI in process: (1) the icm arm with --init spectral
+    --presolve on the 16-spin chimera family (K4), (2) the spectral arm on
+    a wishart folder at N = 40, (3) the icm arm with --init file from run
+    1's --save-best-states: every instance of each a hit."""
+    import os
+    import tempfile
+    from nmc_tpu_torch.io.generators import wishart_planted
+    out = {"phase": "campaign_spectral"}
+    launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cspec_") as tmp:
+        folder = os.path.join(tmp, "family")
+        os.makedirs(folder)
+        gs = _write_chimera_family(folder)
+        states = os.path.join(tmp, "states")
+        wfolder = os.path.join(tmp, "wishart_planting_N_40_alpha_0.50")
+        winsts = {k: wishart_planted(40, 0.5, seed=k) for k in range(3)}
+        wpaths = _write_wishart_folder(
+            wfolder, 40, {k: (p.J, t, e) for k, (p, t, e) in winsts.items()})
+        wgs = {os.path.basename(wpaths[k]): e
+               for k, (_, _, e) in winsts.items()}
+        runs = (
+            ("icm_spectral_presolve", folder, gs, "ensemble_round",
+             ["--kind", "chimera", "--arm", "icm", "--init", "spectral",
+              "--presolve", "--save-best-states", states]),
+            ("spectral_arm", wfolder, wgs, None,
+             ["--kind", "wishart", "--arm", "spectral", "--spectral-dm",
+              "512", "--spectral-dm-iters", "800"]),
+            ("icm_file", folder, gs, "ensemble_round",
+             ["--kind", "chimera", "--arm", "icm", "--init", "file",
+              "--init-states", states]))
+        for tag, fold, truth, kernel, flags in runs:
+            path = os.path.join(tmp, f"{tag}.jsonl")
+            rc, _, seconds, counts, text = _cli(
+                ["campaign", "--folder", fold, *flags, "--out", path,
+                 "--device", DEVICE])
+            with open(path) as f:
+                recs = [json.loads(line) for line in f]
+            check(sorted(r["name"] for r in recs) == sorted(truth),
+                  f"{tag}: records do not cover the folder")
+            check(all(r["hit"] and abs(r["found_raw"] - truth[r["name"]])
+                      <= 1e-9 for r in recs), f"{tag} missed a ground state")
+            check((kernel is None or counts[kernel] > 0)
+                  and all(v == 0 for k, v in counts.items() if k != kernel),
+                  f"{tag}: launches {counts}")
+            if tag == "icm_spectral_presolve":
+                check("round_path=K4" in text, f"{tag} did not take K4")
+                check(all(r["meta"]["init"] == "spectral"
+                          and r["meta"]["presolve"] == "peel"
+                          for r in recs), f"{tag}: meta")
+            if tag == "icm_file":
+                check(all(r["meta"]["init"] == "file" for r in recs),
+                      f"{tag}: meta")
+            launches += counts["ensemble_round"]
+            out[tag] = {"instances": len(recs), "hits": len(recs),
+                        "kernel": kernel, "launches": counts.get(kernel, 0),
+                        "seconds": seconds,
+                        "hit_sweeps": [r["hit_sweeps"] for r in recs]}
+    emit(out)
+    return launches
+
+
+def phase_exact_enum(k6_energy):
+    """`solve_exact_enum` (host: the g++-built enum.cpp, its incumbent the
+    host spectral search) on exact_40's float instance: a proof, with the
+    energy K6 gave in exact_40; the build, the nodes and the seconds."""
+    from nmc_tpu_torch import native
+    from nmc_tpu_torch.core.problem import IsingProblem
+    from nmc_tpu_torch.exact import solve_exact_enum
+    J, t, e = _exact40()["float"]
+    t0 = time.perf_counter()
+    native.load_enum_library()
+    build = time.perf_counter() - t0
+    nodes = []
+    enumerate_ = native.exact_enumerate
+
+    def counted(*a, **k):
+        res = enumerate_(*a, **k)
+        nodes.append(res[3])
+        return res
+
+    native.exact_enumerate = counted
+    try:
+        t0 = time.perf_counter()
+        e_enum, s, proved = solve_exact_enum(IsingProblem(J, np.zeros(40)))
+        seconds = time.perf_counter() - t0
+    finally:
+        native.exact_enumerate = enumerate_
+    check(proved and e_enum == k6_energy,
+          f"enum: {e_enum} (proved {proved}) against K6's {k6_energy}")
+    check(np.array_equal(s, t) or np.array_equal(s, -t),
+          "enum: not the planted state")
+    emit({"phase": "exact_enum", "N": 40, "proved": bool(proved),
+          "energy_raw": e_enum, "k6_energy_raw": k6_energy,
+          "nodes": nodes[0], "seconds": seconds, "build_seconds": build})
 
 
 def _event_ms(torch, fn):
@@ -3005,8 +3418,16 @@ def main():
         launches[name] += count
     for name, count in phase_apt_icm(c2048).items():
         launches[name] += count
+    phase_spectral()
+    phase_solve_wishart()
+    phase_solve_contrived()
+    launches["ensemble_round_sparse"] += phase_solve_chimera2048()
+    phase_refine_128()
+    launches["ensemble_round"] += phase_campaign_spectral()
     errs.update(phase_exact_kernels())
-    launches.update(phase_exact_40())
+    exact_launches, k6_energy = phase_exact_40()
+    launches.update(exact_launches)
+    phase_exact_enum(k6_energy)
     phase_exact_tiers()
     tp = phase_throughput(card, c2048, r4096, ens512, ens2048)
     for name in ("mitm_min", "mitm_min_i8"):

@@ -18,8 +18,11 @@ label swaps) and `EnsembleICM` (instances x sub-replicas x a ladder, the
 sweep stage through K4/K5, batched device Houdayer moves), the exact
 meet-in-the-middle solver (host, torch-tile and fused tiers; the fused tier
 through the table kernels K6 f32 and K7 int8 digit planes, each with a
-plain torch twin) with the chimera tropical DP, and the
-`nmc`/`apt`/`npt`/`icm`/`campaign`/`exact` CLI.
+plain torch twin) with the chimera tropical DP and the native
+branch-and-bound tier (`solve_exact_enum`), the leaf-peeling presolve, the
+spectral search (host and torch device variants), the induced-tree
+refinement, the staged portfolio solver (`portfolio_solve`), and the
+`nmc`/`apt`/`npt`/`icm`/`campaign`/`solve`/`exact`/`refine` CLI.
 """
 
 from . import device  # noqa: F401  (sets the full-f32 matmul policy)
@@ -27,6 +30,7 @@ from .core.energy import energy, energy_from_fields, local_fields
 from .core.problem import BlockedProblem, IsingProblem, block_problem
 from .exact import (exact_energy_bound, solve_exact_device, solve_exact_enum,
                     solve_exact_fused, solve_exact_host)
+from .beam_chimera import pad_to_chimera_grid
 from .exact_chimera import solve_exact_chimera
 from .models.apt import APTConfig, APTResult, apt_preprocess
 from .models.apt_icm import APTICMConfig, APTICMResult, apt_icm_run
@@ -47,14 +51,24 @@ from .ops.lbp_planes import (EdgeSlotPlanes, build_edge_slot_planes,
                              convexified_marginal_planes, w_slot_from_tiles)
 from .ops.lbp_sparse import (EdgeGraph, sparse_lbp, sparse_lbp_convexified,
                              sparse_lbp_convexified_batch)
+from .ops.presolve import Presolve, peel_leaves
 from .ops.round_cuda import (EnsembleRoundResult, ensemble_round,
                              ensemble_round_reference, ensemble_round_sparse,
                              ensemble_round_sparse_reference)
+from .ops.spectral import (SpectralResult, auto_subspace_dim,
+                           batched_descent_device, batched_descent_host,
+                           difference_map_rounding,
+                           difference_map_rounding_device,
+                           spectral_candidates, spectral_candidates_device,
+                           spectral_search)
 from .ops.sweeps_cuda import (colored_sweeps, colored_sweeps_reference,
                               colored_sweeps_sparse,
                               colored_sweeps_sparse_reference,
                               colored_sweeps_streamed,
                               colored_sweeps_streamed_reference)
+from .portfolio import SolveResult, SolveStage, portfolio_solve
+from .refine import partition_crossover, refine_family, tree_refine_state
+from .tree_moves import tree_refine
 from .parallel import (EnsembleICM, EnsembleICMConfig, EnsembleICMState,
                        EnsembleNMC, EnsembleNMCState, ShardedNPTConfig,
                        metropolis_label_swap, select_pairs_device)
@@ -89,4 +103,12 @@ __all__ = [
     "solve_exact_enum", "exact_energy_bound", "solve_exact_chimera",
     "mitm_min", "mitm_min_reference", "mitm_min_i8",
     "mitm_min_i8_reference",
+    "Presolve", "peel_leaves",
+    "SolveResult", "SolveStage", "portfolio_solve",
+    "tree_refine", "tree_refine_state", "refine_family",
+    "partition_crossover", "pad_to_chimera_grid",
+    "SpectralResult", "spectral_search", "spectral_candidates",
+    "spectral_candidates_device", "auto_subspace_dim",
+    "difference_map_rounding", "difference_map_rounding_device",
+    "batched_descent_host", "batched_descent_device",
 ]

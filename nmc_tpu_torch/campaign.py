@@ -1,12 +1,12 @@
 """Solution-quality campaign over a benchmark family's shipped ground truths.
 
 The counterpart of ``nmc_tpu/campaign.py`` for its `pt`, `nmc`, `icm`,
-`hybrid` and `icm_host` arms. The batched arms run ALL pending instances
-of a family as one ensemble (`EnsembleNMC` for pt / nmc, `EnsembleICM` for
-icm and the ICM+NMC hybrid), each instance's best state is checked against
-its shipped ground-state energy between chunks of rounds, and one capped
-run per instance gives its hit or miss at every budget up to the cap
-(time-to-solution). `icm_host` runs `apt_icm_run` instance after instance.
+`hybrid`, `icm_host` and `spectral` arms. The batched arms run ALL pending
+instances of a family as one ensemble (`EnsembleNMC` for pt / nmc,
+`EnsembleICM` for icm and the ICM+NMC hybrid), each instance's best state
+is checked against its shipped ground-state energy between chunks of
+rounds, and one capped run per instance gives its hit or miss at every
+budget up to the cap (time-to-solution). `icm_host` runs `apt_icm_run` instance after instance.
 
 Resumable: results stream to a JSONL file (same keys and format as the JAX
 campaign's); instances already present are skipped. Hits are appended the
@@ -16,16 +16,24 @@ is replaced after each chunk.
     python -m nmc_tpu_torch campaign --kind chimera --folder DIR --arm nmc
     python -m nmc_tpu_torch campaign --family chimera512 --arm icm --device cuda
 
+The `spectral` arm runs the host spectral search per instance (no MCMC).
+`--presolve` peels the instances' leaves exactly (`ops/presolve.py`) and
+every arm runs on the 2-cores, with records in original raw units;
+`--init spectral|file` seeds the coldest chains from spectral candidates
+or from state files; `--refine tree` runs the induced-tree refinement
+(`refine.refine_family`) over a grid family's remaining misses afterwards.
+
 `--family` names resolve under the reference checkout, `$NMC_REFERENCE`
 (default `reference` in the working directory). Not ported yet, and
-refused with NotImplementedError: the `spectral` arm, `--init
-spectral|file`, `--presolve`, `--refine`, `--summarize`, `--collect-best`
-and the contrived family.
+refused with NotImplementedError: `--summarize`, `--collect-best` and the
+contrived family.
 """
 
 import argparse
+import dataclasses
 import json
 import os
+import re
 import time
 
 import numpy as np
@@ -117,6 +125,20 @@ def _num(x):
     return x if x == x and abs(x) != float("inf") else None
 
 
+def _dm_dim(spec, name, n):
+    """Resolve the --dm-dim knob to an int (or None = the spectral-gap
+    estimate inside ops.spectral): 'alpha' parses `alpha_X.YZ` from the
+    instance name (wishart folder convention) -> d = n - round(alpha*n)."""
+    if spec == "auto":
+        return None
+    if spec == "alpha":
+        m = re.search(r"alpha_(\d+\.?\d*)", name)
+        if not m:
+            return None
+        return max(2, n - int(round(float(m.group(1)) * n)))
+    return int(spec)
+
+
 def build_ladder(beta_min, beta_max, num_replicas):
     """Geometric warm half + geometric cold half (denser near beta_max)."""
     half = num_replicas // 2
@@ -149,12 +171,14 @@ def build_apt_ladder(prob, beta_min, beta_max, seed=0, use_coloring=True,
     return beta
 
 
-def _record(name, n, gs_norm, found, factor, hit_at, rounds_done,
+def _record(name, n, gs_norm, found, factor, const, hit_at, rounds_done,
             total_rounds, sweeps_per_round, wall, meta):
+    """One JSONL record in original raw units: `const` is the energy the
+    presolve folded out (0 without it); residuals do not change."""
     hit = name in hit_at
     return dict(
-        name=name, n=n, gs_raw=_num(gs_norm * factor),
-        found_raw=_num(found * factor),
+        name=name, n=n, gs_raw=_num(gs_norm * factor + const),
+        found_raw=_num(found * factor + const),
         residual=_num((found - gs_norm) * factor), hit=hit,
         hit_seconds=hit_at[name][1] if hit else None,
         hit_sweeps=hit_at[name][0] * sweeps_per_round if hit else None,
@@ -162,12 +186,56 @@ def _record(name, n, gs_norm, found, factor, hit_at, rounds_done,
         per_swap=sweeps_per_round, wall_seconds=wall, meta=meta)
 
 
+def _presolve_pending(pending):
+    """Peel every instance to its 2-core (`ops/presolve.py`). Returns the
+    pending list on the cores, with each target shifted by the folded
+    constant, and each instance's `Presolve` (for back-substitution)."""
+    from .core.problem import IsingProblem
+    from .ops.presolve import peel_leaves
+    reduced, pss = [], []
+    for name, prob, gs_raw in pending:
+        ps = peel_leaves(np.asarray(prob.J), np.asarray(prob.h))
+        core = IsingProblem(ps.J_core, ps.h_core, name=name + ":core")
+        pss.append(ps)
+        reduced.append((name, core,
+                        None if gs_raw is None else gs_raw - ps.constant))
+    return reduced, pss
+
+
+def _full_state(m, core_n, ps):
+    """A normalized padded (core) state -> the +-1 state of the original
+    instance: unpad to the core, then back-substitute the peeled leaves."""
+    s_core = np.where(np.asarray(m)[:core_n] >= 0, 1.0, -1.0)
+    return ps.back_substitute(s_core) if ps is not None else s_core
+
+
+def _file_seeds(args, names, orig_n, n_max):
+    """[I, C, n_max] seeds from --init-states DIR/<name> (one +-1 per line,
+    original spin order), each repeated over the C coldest chains."""
+    C = max(1, args.init_chains)
+    seeds = []
+    for k, nm in enumerate(names):
+        st = np.sign(np.loadtxt(
+            os.path.join(args.init_states, nm)).reshape(-1))
+        if st.size != orig_n[k] or not np.all(np.abs(st) == 1.0):
+            raise ValueError(f"seed state {nm}: expected "
+                             f"{orig_n[k]} +-1 spins, got {st.size}")
+        s = np.ones(n_max)
+        s[:st.size] = st
+        seeds.append(s)
+    return C, np.repeat(np.asarray(seeds)[:, None, :], C, axis=1)
+
+
 def solve_ensemble_batch(pending, args, spec, meta, out_path):
     """ALL pending instances of a family solved as one ensemble
     (`EnsembleNMC` for pt / nmc, `EnsembleICM` for icm / hybrid): the
     per-instance ground-state targets are checked between chunks of
     rounds; an instance's time to solution is the shared wall clock at its
-    first verified hit. Streams one JSONL record per instance."""
+    first verified hit. Streams one JSONL record per instance. With
+    `--presolve` the engines run on the instances' 2-cores (peeled, then
+    padded to the family max, then normalized, then the targets shifted by
+    the folded constant); states map back by unpadding to the core and
+    back-substituting."""
     import torch
 
     from .parallel.ensemble_nmc import EnsembleNMC, _pad_problem
@@ -176,9 +244,21 @@ def solve_ensemble_batch(pending, args, spec, meta, out_path):
     device = resolve_cli_device(args.device)
     names = [name for name, _, _ in pending]
     orig_n = [prob.n for _, prob, _ in pending]
+    consts = np.zeros(len(pending))
+    pss = [None] * len(pending)    # Presolve per instance (back-substitution)
+    if getattr(args, "presolve", False):
+        pending, pss = _presolve_pending(pending)
+        consts = np.array([ps.constant for ps in pss])
+        meta = dict(meta, presolve="peel",
+                    core_n=[p.n for _, p, _ in pending])
+        print(f"presolve: peeled to cores "
+              f"{min(p.n for _, p, _ in pending)}.."
+              f"{max(p.n for _, p, _ in pending)} of n={max(orig_n)}",
+              flush=True)
     # pad to the family max BEFORE normalization so the host-side f64
     # verification sees the engine's shapes (padded spins are free)
-    n_max = max(prob.n for _, prob, _ in pending)
+    core_n = [prob.n for _, prob, _ in pending]
+    n_max = max(core_n)
     probs, factors, gs_norm, atol_norm = [], [], [], []
     for _, prob, gs_raw in pending:
         if prob.n != n_max:
@@ -245,17 +325,64 @@ def solve_ensemble_batch(pending, args, spec, meta, out_path):
           f"round_path={ens.round_path}, device={device}", flush=True)
     total_rounds = max(args.sweeps // sweeps_per_round, 1)
 
+    m0 = None
+    if args.init == "spectral":
+        # seed the coldest chains with spectral-descent candidates of the
+        # normalized, padded problems (rounding and descent are
+        # scale-invariant; padded spins come out +1)
+        from .ops.spectral import spectral_candidates
+        t_s = time.perf_counter()
+        C = args.init_chains
+        m0 = np.stack([
+            spectral_candidates(p.J, p.h if np.any(p.h) else None,
+                                top_k=args.init_top or None,
+                                num_subspace=args.init_subspace,
+                                dm_starts=args.spectral_dm,
+                                dm_iters=args.spectral_dm_iters,
+                                # an alpha-parsed d means nothing on a
+                                # peeled, padded core: the gap estimate
+                                dm_dim=(None if getattr(args, "presolve",
+                                                        False)
+                                        else _dm_dim(args.dm_dim,
+                                                     names[k], p.n)),
+                                seed=args.seed)[0][:C]
+            for k, p in enumerate(probs)])
+        meta = dict(meta, init="spectral", init_chains=C,
+                    init_top=args.init_top,
+                    init_subspace=args.init_subspace,
+                    init_dm=args.spectral_dm)
+        print(f"spectral seeding: {C} chains x {I} instances in "
+              f"{time.perf_counter() - t_s:.1f}s", flush=True)
+    elif args.init == "file":
+        # seed the coldest chains from per-instance state files, so the
+        # chains start inside an earlier run's basin
+        if any(ps is not None for ps in pss):
+            raise ValueError("--init file states are in the original "
+                             "index space; incompatible with --presolve")
+        C, m0 = _file_seeds(args, names, orig_n, n_max)
+        meta = dict(meta, init="file", init_chains=C,
+                    init_states=args.init_states)
+        print(f"file seeding: {C} chains x {I} instances from "
+              f"{args.init_states}", flush=True)
+
     t0 = time.perf_counter()
     generator = torch.Generator(device=device).manual_seed(args.seed)
-    state = ens.init_state(generator)
+    state = ens.init_state(generator, m0=m0)
     rounds_done = 0
     hit_at = {}           # name -> (rounds, seconds)
     streamed = set()      # names whose FINAL row is already on disk
     save_dir = getattr(args, "save_best_states", None)
     saved64 = np.full(I, np.inf)   # energy at the last checkpointed state
     best64 = np.full(I, np.inf)
-    best_m = [None] * I   # normalized padded state at best64 (f64)
+    best_m = [None] * I   # normalized padded (core) state at best64 (f64)
     trace_path = out_path + ".trace" if getattr(args, "trace", False) else None
+
+    def record(i, now, **extra):
+        return _record(names[i], orig_n[i], gs_norm[i], best64[i],
+                       factors[i], consts[i], hit_at, rounds_done,
+                       total_rounds, sweeps_per_round, now,
+                       dict(meta, mode="ensemble", batch=I, **extra))
+
     while rounds_done < total_rounds and len(hit_at) < I:
         k = min(args.chunk_rounds, total_rounds - rounds_done)
         state = ens.run_scanned(state, k)
@@ -276,12 +403,8 @@ def solve_ensemble_batch(pending, args, spec, meta, out_path):
                 # stream the hit to the final file at discovery: a killed
                 # batch keeps its hits and a relaunch skips them
                 with open(out_path, "a") as f:
-                    f.write(json.dumps(_record(
-                        names[i], orig_n[i], gs_norm[i], best64[i],
-                        factors[i], hit_at, rounds_done, total_rounds,
-                        sweeps_per_round, now,
-                        dict(meta, mode="ensemble", batch=I,
-                             streamed_hit=True))) + "\n")
+                    f.write(json.dumps(record(i, now, streamed_hit=True))
+                            + "\n")
                 streamed.add(names[i])
         if trace_path:
             # per-chunk residual curve (raw units)
@@ -297,22 +420,19 @@ def solve_ensemble_batch(pending, args, spec, meta, out_path):
         # a full per-instance snapshot, atomically replaced each chunk
         tmp = out_path + ".partial.tmp"
         with open(tmp, "w") as f:
-            for i, name in enumerate(names):
-                f.write(json.dumps(_record(
-                    name, orig_n[i], gs_norm[i], best64[i], factors[i],
-                    hit_at, rounds_done, total_rounds, sweeps_per_round, now,
-                    dict(meta, mode="ensemble", batch=I,
-                         partial=True))) + "\n")
+            for i in range(I):
+                f.write(json.dumps(record(i, now, partial=True)) + "\n")
         os.replace(tmp, out_path + ".partial")
         if save_dir:
-            # best-state checkpoint: unpadded +-1 state per instance,
-            # atomically replaced whenever its best energy improves
+            # best-state checkpoint: the full-space +-1 state per instance
+            # (unpadded, back-substituted), atomically replaced whenever its
+            # best energy improves; the format --init file reads
             os.makedirs(save_dir, exist_ok=True)
             for i in range(I):
                 if best_m[i] is None or best64[i] >= saved64[i]:
                     continue
                 saved64[i] = best64[i]
-                st = np.where(best_m[i][:orig_n[i]] >= 0, 1.0, -1.0)
+                st = _full_state(best_m[i], core_n[i], pss[i])
                 tmp_s = os.path.join(save_dir, names[i] + ".tmp")
                 np.savetxt(tmp_s, st.astype(np.int8), fmt="%d")
                 os.replace(tmp_s, os.path.join(save_dir, names[i]))
@@ -320,9 +440,7 @@ def solve_ensemble_batch(pending, args, spec, meta, out_path):
 
     results = []
     for i, name in enumerate(names):
-        rec = _record(name, orig_n[i], gs_norm[i], best64[i], factors[i],
-                      hit_at, rounds_done, total_rounds, sweeps_per_round,
-                      wall, dict(meta, mode="ensemble", batch=I))
+        rec = record(i, wall)
         if name not in streamed:   # hit rows were appended at discovery
             with open(out_path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
@@ -330,8 +448,8 @@ def solve_ensemble_batch(pending, args, spec, meta, out_path):
                    else f"{rec['residual']:.4f}")
         print(f"{name}: hit={rec['hit']} residual={res_str} "
               f"rounds={rounds_done}/{total_rounds}", flush=True)
-        state_i = (None if best_m[i] is None else
-                   np.where(best_m[i][:orig_n[i]] >= 0, 1.0, -1.0))
+        state_i = (None if best_m[i] is None
+                   else _full_state(best_m[i], core_n[i], pss[i]))
         results.append(dict(rec, state=state_i))
     if os.path.exists(out_path + ".partial"):
         os.remove(out_path + ".partial")   # superseded by the final records
@@ -369,6 +487,9 @@ def run_arm(args):
                 seed=args.seed)
     print(f"# campaign {meta}", flush=True)
 
+    if args.arm == "spectral":
+        solve_spectral(args, spec, meta, done)
+        return
     if args.arm == "icm_host":
         solve_icm_host(args, spec, meta, done)
         return
@@ -381,6 +502,54 @@ def run_arm(args):
         return
     print(f"batched ensemble solve: {len(pending)} instances", flush=True)
     solve_ensemble_batch(pending, args, spec, meta, args.out)
+
+
+def solve_spectral(args, spec, meta, done):
+    """The spectral arm: the host spectral search (`ops/spectral.py`:
+    eigh, sign rounding, batched 1-flip descent, the difference-map pool
+    and the 2-flip polish) instance after instance, no MCMC; with
+    `--presolve` on the 2-core, its energy shifted back to raw units."""
+    from .ops.spectral import spectral_search
+    meta = dict(meta, sweeps=0, init_top=args.init_top,
+                init_subspace=args.init_subspace,
+                polish=args.spectral_polish,
+                dm=args.spectral_dm, dm_dim=args.dm_dim)
+    for name, prob, gs_raw in get_instances(spec, args.instances):
+        if name in done:
+            continue
+        t0 = time.perf_counter()
+        ps = None
+        if args.presolve:
+            [(_, prob, _)], [ps] = _presolve_pending([(name, prob, None)])
+        r = spectral_search(
+            prob, top_k=args.init_top or None,
+            num_subspace=args.init_subspace,
+            dm_starts=args.spectral_dm,
+            dm_iters=args.spectral_dm_iters,
+            dm_dim=_dm_dim(args.dm_dim, name, prob.n),
+            polish=args.spectral_polish, seed=args.seed)
+        if ps is not None:
+            # shift back to original raw units (exact reduction)
+            r = dataclasses.replace(r, best_energy=r.best_energy + ps.constant)
+        wall = time.perf_counter() - t0
+        hit = (gs_raw is not None and not np.isnan(gs_raw)
+               and r.best_energy <= gs_raw + max(1e-6 * abs(gs_raw), 1e-9))
+        rec = dict(
+            name=name, n=prob.n, gs_raw=_num(gs_raw),
+            found_raw=_num(r.best_energy),
+            residual=_num(r.best_energy - gs_raw)
+            if gs_raw is not None else None,
+            hit=bool(hit),
+            hit_seconds=wall if hit else None, hit_sweeps=0,
+            rounds_completed=1, rounds_total=1,
+            per_swap=0, wall_seconds=wall, meta=meta,
+        )
+        with open(args.out, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        res_str = ("n/a" if rec["residual"] is None
+                   else f"{rec['residual']:.4f}")
+        print(f"{name}: hit={rec['hit']} residual={res_str} "
+              f"wall={wall:.2f}s", flush=True)
 
 
 def solve_icm_host(args, spec, meta, done):
@@ -455,13 +624,14 @@ def add_campaign_args(p):
     p.add_argument("--folder", help="custom instance folder (overrides --family)")
     p.add_argument("--arm",
                    choices=["pt", "nmc", "icm", "hybrid", "icm_host",
-                            "spectral"],
-                   help="pt, nmc, icm, hybrid and icm_host run here; "
-                        "spectral is not ported yet")
+                            "spectral"])
     p.add_argument("--init", choices=["random", "spectral", "file"],
                    default="random",
-                   help="chain initialization (random here; spectral and "
-                        "file are not ported yet)")
+                   help="chain initialization for the batched arms: "
+                        "'spectral' seeds the --init-chains coldest chains "
+                        "per instance with spectral-descent states "
+                        "(ops/spectral.py); 'file' seeds them from "
+                        "--init-states DIR/<instance-name>")
     p.add_argument("--save-best-states", default=None, metavar="DIR",
                    help="checkpoint each instance's best state to DIR/<name> "
                         "every chunk it improves")
@@ -477,11 +647,22 @@ def add_campaign_args(p):
     p.add_argument("--spectral-dm", type=int, default=0)
     p.add_argument("--spectral-dm-iters", type=int, default=500)
     p.add_argument("--presolve", action="store_true",
-                   help="exact leaf-peeling reduction (not ported yet)")
-    p.add_argument("--dm-dim", default="alpha")
+                   help="exact leaf-peeling reduction before any arm "
+                        "(ops/presolve.py): tree-decorated instances run "
+                        "on their 2-core; records stay in original raw "
+                        "units")
+    p.add_argument("--dm-dim", default="alpha",
+                   help="difference-map subspace dimension: 'alpha' = "
+                        "n - round(alpha*n) parsed from the instance name "
+                        "(else the spectral-gap estimate), 'auto' = the "
+                        "spectral-gap estimate, or an integer")
     p.add_argument("--refine", choices=["tree"], default=None,
-                   help="post-run refinement (not ported yet)")
-    p.add_argument("--refine-ils", type=float, default=60.0)
+                   help="after the arm, the induced-tree refinement of a "
+                        "grid family's remaining misses from the saved "
+                        "state pools (refine.refine_family)")
+    p.add_argument("--refine-ils", type=float, default=60.0,
+                   help="per-instance iterated-local-search budget (s) "
+                        "for --refine tree")
     p.add_argument("--summarize", nargs="+", metavar="JSONL",
                    help="summary table of result files (not ported yet)")
     p.add_argument("--best-known", default=None,
@@ -529,14 +710,6 @@ def _refuse_unported(args):
         raise _later("--collect-best", _REST)
     if args.summarize:
         raise _later("--summarize", _REST)
-    if args.arm == "spectral":
-        raise _later(f"the {args.arm} arm", _REST)
-    if args.init != "random":
-        raise _later(f"--init {args.init}", _REST)
-    if args.presolve:
-        raise _later("--presolve", _REST)
-    if args.refine:
-        raise _later(f"--refine {args.refine}", _REST)
 
 
 def run_campaign(args):
@@ -551,6 +724,14 @@ def run_campaign(args):
         tag = args.family or os.path.basename(args.folder.rstrip("/"))
         args.out = f"results/campaign/{tag}_{args.arm}.jsonl"
     run_arm(args)
+    if args.refine == "tree":
+        from .refine import grid_family_folders, refine_family
+        if args.family not in grid_family_folders():
+            print(f"--refine tree: {args.family or args.folder} is not a "
+                  "grid family; skipping", flush=True)
+            return
+        only = args.only.split(",") if args.only else None
+        refine_family(args.family, only=only, ils_seconds=args.refine_ils)
 
 
 def main(argv=None):

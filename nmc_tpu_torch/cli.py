@@ -1,5 +1,5 @@
 """Command-line entry points of the port: `nmc`, `apt`, `npt`, `icm`,
-`campaign` and `exact`.
+`campaign`, `solve`, `exact` and `refine`.
 
     python -m nmc_tpu_torch nmc --J J.npy --h h.npy --coloring --chains 256
     python -m nmc_tpu_torch nmc --instance path.txt --format chimera --coloring
@@ -8,14 +8,15 @@
         --beta-list Results/data/beta_list_python.npy --nmc-coldest 2
     python -m nmc_tpu_torch icm --instance path.txt --format chimera --coloring
     python -m nmc_tpu_torch campaign --kind chimera --folder DIR --arm nmc
+    python -m nmc_tpu_torch solve DIR/wishart_..._inst_1.txt
     python -m nmc_tpu_torch exact DIR/wishart_..._inst_1.txt --backend pallas
+    python -m nmc_tpu_torch refine DIR/001.txt --state s.txt --kind chimera
 
-Same flags and the same JSON output keys as ``python -m nmc_tpu``'s
-subcommands of those names (`campaign` for its `pt`, `nmc`, `icm`,
-`hybrid` and `icm_host` arms; `exact`
-with `--device` in place of `--cpu` and `--interpret`). Every subcommand
-takes `--device` (default `cuda`): without a card it fails unless
-`--device cpu` is given.
+Same flags, JSON output keys and exit codes as ``python -m nmc_tpu``'s
+subcommands of those names (`campaign` without `--summarize` and
+`--collect-best`; `solve` and `exact` with `--device` in place of `--cpu`,
+and `exact` of `--interpret`). Every subcommand takes `--device` (default
+`cuda`): without a card it fails unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -218,6 +219,92 @@ def _detect_instance(path, kind, target):
     return prob, target, kind, base
 
 
+def _strict(x):
+    """Strict JSON: a non-finite float -> null."""
+    return (None if x is None
+            or (isinstance(x, float) and not np.isfinite(x)) else x)
+
+
+def cmd_solve(args):
+    """The staged portfolio (`portfolio_solve`) on one instance, its target
+    from the sibling ground-truth files unless --target; exit 1 when a
+    known target is missed."""
+    from .portfolio import portfolio_solve
+
+    device = resolve_cli_device(args.device)
+    prob, target, kind, base = _detect_instance(args.path, args.kind,
+                                                args.target)
+    arm = args.arm
+    if arm == "auto":
+        # the JAX package's measured family preferences: ICM on chimera
+        # droplets, the ICM+NMC hybrid on DCL, spectral-seeded ICM else
+        arm = {"chimera": "icm", "dcl": "hybrid"}.get(kind, "icm")
+    spectral = ("auto" if not (args.no_spectral or args.force_spectral)
+                else bool(args.force_spectral))
+    res = portfolio_solve(
+        prob, target, name=base, arm=arm, sweeps=args.sweeps,
+        seed=args.seed, presolve=not args.no_presolve,
+        spectral=spectral, dm_starts=args.dm_starts,
+        dm_iters=args.dm_iters, coloring=kind in ("chimera", "dcl"),
+        device=device)
+    rec = dict(
+        name=res.name, n=res.n, kind=kind,
+        energy_raw=_strict(res.energy_raw),
+        target_raw=_strict(res.target_raw), hit=res.hit,
+        wall_seconds=round(res.wall_seconds, 3),
+        stages=[dict(stage=s.stage, energy_raw=_strict(s.energy_raw),
+                     wall_seconds=round(s.wall_seconds, 3), hit=s.hit,
+                     **s.detail) for s in res.stages])
+    line = json.dumps(rec, default=lambda o: None)
+    print(line)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    if args.save_state:
+        np.savetxt(args.save_state, res.state, fmt="%+d")
+    return 0 if (res.hit or res.target_raw is None
+                 or not np.isfinite(res.target_raw)) else 1
+
+
+def cmd_refine(args):
+    """The induced-tree refinement: a family's remaining misses from the
+    state pools (--family), or one instance from a --state file. Exit 1
+    when a target is missed (a family: when nothing attempted hits)."""
+    from .refine import refine_family, tree_refine_state
+
+    # host code, but the port's device policy holds: without a card the
+    # default --device cuda fails, as every subcommand does
+    resolve_cli_device(args.device)
+    if args.family:
+        only = args.only.split(",") if args.only else None
+        hits, total = refine_family(
+            args.family, only=only,
+            skip_covered=not args.include_covered,
+            ils_seconds=args.ils_seconds,
+            extra_random=args.extra_random,
+            deadline=args.deadline, out=args.out)
+        return 0 if total == 0 or hits else 1
+    if args.path is None or args.state is None:
+        args.parser.error("refine needs --family, or an instance path "
+                          "and --state")
+    prob, target, kind, base = _detect_instance(args.path, args.kind,
+                                                args.target)
+    s0 = np.sign(np.loadtxt(args.state).reshape(-1))
+    e_raw, state, info = tree_refine_state(
+        prob, s0, target_raw=target, ils_seconds=args.ils_seconds,
+        extra_random=args.extra_random, deadline=args.deadline)
+    rec = dict(name=base, kind=kind, energy_raw=e_raw,
+               target_raw=target, **info)
+    line = json.dumps(rec, default=lambda o: None)
+    print(line)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    if args.save_state:
+        np.savetxt(args.save_state, state, fmt="%+d")
+    return 0 if info["hit"] in (True, None) else 1
+
+
 def auto_exact_backend(prob, device) -> str:
     """The tier `exact --backend auto` takes: host (numpy) to n = 28; to
     n = 40 the fused kernels on a CUDA card and the torch tiles elsewhere,
@@ -368,6 +455,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=run_campaign)
 
     p = sub.add_parser(
+        "solve",
+        help="one-command staged portfolio solve of a single instance "
+             "(presolve -> spectral/difference-map -> seeded MCMC -> "
+             "induced-tree refinement); ground-truth target detected from "
+             "sibling files")
+    p.add_argument("path", help="instance file (edge-list dialects)")
+    p.add_argument("--kind", default="auto",
+                   choices=["auto", "wishart", "chimera", "dcl",
+                            "contrived"])
+    p.add_argument("--target", type=float, default=None,
+                   help="raw target energy (default: sibling gs files)")
+    p.add_argument("--arm", default="auto",
+                   choices=["auto", "icm", "nmc", "pt", "hybrid"],
+                   help="MCMC arm (auto: chimera->icm, dcl->hybrid, else "
+                        "icm)")
+    p.add_argument("--sweeps", type=int, default=200_000,
+                   help="MCMC budget (0 = no MCMC stage)")
+    p.add_argument("--dm-starts", type=int, default=2048)
+    p.add_argument("--dm-iters", type=int, default=3000)
+    p.add_argument("--no-presolve", action="store_true")
+    p.add_argument("--no-spectral", action="store_true",
+                   help="skip the spectral stage (default: auto, dense "
+                        "cores only)")
+    p.add_argument("--force-spectral", action="store_true",
+                   help="run the spectral stage even on sparse graphs")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--save-state", help="write the best +-1 state here")
+    p.add_argument("--out", help="append the JSON record here")
+    add_device_arg(p)
+    p.set_defaults(fn=cmd_solve)
+
+    p = sub.add_parser(
         "exact",
         help="EXACT ground state by meet-in-the-middle enumeration "
              "(n <= ~50 on one card) — independently verifies shipped "
@@ -401,6 +520,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", help="append the JSON record here")
     add_device_arg(p)
     p.set_defaults(fn=cmd_exact)
+
+    p = sub.add_parser(
+        "refine",
+        help="deterministic induced-tree large-neighborhood descent (exact "
+             "DP over maximal induced cell trees + 2x2-cell-block ILS "
+             "kicks) over a family's remaining misses from the saved "
+             "state pools, or one instance from --state")
+    p.add_argument("path", nargs="?", default=None,
+                   help="single instance file (omit with --family)")
+    p.add_argument("--family", default=None,
+                   help="grid family (chimera*/dcl*): refine every "
+                        "not-yet-covered instance from the state pools")
+    p.add_argument("--only", help="comma-separated instance names")
+    p.add_argument("--include-covered", action="store_true",
+                   help="also refine instances another tier already hit")
+    p.add_argument("--state", help="+-1 state file seeding the single-"
+                                   "instance descent")
+    p.add_argument("--kind", default="auto",
+                   choices=["auto", "chimera", "dcl"])
+    p.add_argument("--target", type=float, default=None,
+                   help="raw target energy (default: sibling gs files)")
+    p.add_argument("--ils-seconds", type=float, default=60.0)
+    p.add_argument("--extra-random", type=int, default=24)
+    p.add_argument("--deadline", type=float, default=None)
+    p.add_argument("--save-state", help="write the refined +-1 state here")
+    p.add_argument("--out", help="append JSONL rows here")
+    add_device_arg(p)
+    p.set_defaults(fn=cmd_refine, parser=p)
     return ap
 
 

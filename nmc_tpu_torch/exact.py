@@ -25,6 +25,9 @@ are):
   K6 in f32, K7 on int8 digit planes): the table never reaches device
   memory, min/argmin are reduced per A row in the kernel. The counterpart
   of the JAX package's `solve_exact_pallas`.
+- `solve_exact_enum`   -- branch-and-bound over the +-1 cube with proof
+  (the g++-built `native/enum.cpp`), seeded by the host spectral search;
+  host code, its cost set by the instance's spectral gap.
 """
 from __future__ import annotations
 
@@ -346,11 +349,64 @@ def solve_exact_fused(prob, *, symmetry: Optional[bool] = None,
     return e64, s
 
 
-def solve_exact_enum(prob, **kwargs):
-    """Exact ground state with proof by native branch-and-bound enumeration.
-    Not ported yet: it needs the port's copy of the native `enum.cpp` and
-    `ops/spectral.py`'s `spectral_search` (ROADMAP, queue 1)."""
-    raise NotImplementedError(
-        "solve_exact_enum is not ported yet: it waits for the port's "
-        "ops/spectral.py and native enum.cpp (ROADMAP queue 1); use "
-        "solve_exact_host, solve_exact_device or solve_exact_fused")
+def solve_exact_enum(prob, *, incumbent: Optional[np.ndarray] = None,
+                     max_nodes: int = 0,
+                     dm_starts: int = 512, dm_iters: int = 800,
+                     seed: int = 0):
+    """Exact ground state (with PROOF) by native branch-and-bound
+    enumeration: host code (numpy, scipy and the port's g++-built
+    `native/enum.cpp`), no card needed.
+
+    E(s) = c0 + 1/2 ||M s||^2 exactly, with M = diag(sqrt(lmax - w)) V^T
+    from the eigendecomposition of J (h != 0 is not supported: fold the
+    fields into an ancilla spin first). A QR of M (heavy pivot columns
+    enumerated first) turns accumulated row norms into exact bounds; the
+    native DFS beats or proves the incumbent (default: the host
+    `spectral_search`'s best). Returns (energy, state, proved): `proved`
+    means the tree was exhausted, so `energy` is the true global minimum.
+    `max_nodes` caps the search (0 = unbounded), returning proved=False
+    when hit.
+    """
+    import scipy.linalg as sla
+
+    from .native import exact_enumerate
+    from .ops.spectral import spectral_search
+
+    J = np.asarray(prob.J, np.float64)
+    h = np.asarray(prob.h, np.float64)
+    if np.any(h):
+        raise ValueError("solve_exact_enum requires h = 0 (spin-flip "
+                         "symmetric form); fold fields into an ancilla "
+                         "spin first")
+    n = J.shape[0]
+    w, v = np.linalg.eigh(J)
+    lmax = float(w[-1])
+    c0 = -0.5 * lmax * n
+    M = np.sqrt(np.maximum(lmax - w, 0.0))[:, None] * v.T
+
+    if incumbent is None:
+        r = spectral_search(prob, dm_starts=dm_starts, dm_iters=dm_iters,
+                            polish=8, seed=seed)
+        incumbent = r.best_state
+    incumbent = np.where(np.asarray(incumbent, np.float64) >= 0, 1., -1.)
+    e_inc = float(prob.energy(incumbent))
+
+    # heavy pivots first in enumeration order (R diagonal increasing)
+    _, _, piv = sla.qr(M, pivoting=True)
+    order = piv[::-1].copy()
+    _, R = sla.qr(M[:, order], mode="economic")
+    A = np.abs(R)
+    W = np.zeros_like(R)
+    for k in range(n):
+        W[k, k + 1:] = np.cumsum(A[k, k:-1])
+
+    r2 = 2.0 * (e_inc - c0)
+    found, z, best_r2, nodes, complete = exact_enumerate(
+        R, W, r2, max_nodes=max_nodes)
+    if found:
+        s = np.empty(n)
+        s[order] = z
+        e = float(prob.energy(s))
+        # enumeration improved the incumbent; exhausted tree = proof
+        return e, s, complete
+    return e_inc, incumbent, complete

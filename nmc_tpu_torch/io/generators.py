@@ -1,8 +1,9 @@
 """Benchmark-instance generators (host side, numpy).
 
-Copies of ``random_sk``, ``ea_2d``, ``wishart_planted`` and
-``chimera_graph`` from ``nmc_tpu/io/generators.py``: the same seed gives a
-bit-equal J, which the tests check.
+Copies of ``random_sk``, ``ea_2d``, ``wishart_planted``,
+``contrived_wishart_backbone``, ``chimera_graph`` and
+``contrived_tree_adjacency`` from ``nmc_tpu/io/generators.py``: the same seed
+gives a bit-equal J, which the tests check.
 """
 
 from __future__ import annotations
@@ -74,6 +75,60 @@ def wishart_planted(n: int, alpha: float, seed: int = 0,
     return prob, t, float(prob.energy(t))
 
 
+def contrived_wishart_backbone(
+    n_backbone: int, alpha: float = 0.2, seed: int = 0,
+    tree_depth: int = 2, cross_links: int = 0, cross_scale: float = 0.1,
+) -> Tuple[IsingProblem, np.ndarray, float]:
+    """Planted dense Wishart core + binary trees per core spin + cross links.
+
+    The dense core is a planted Wishart instance; ferromagnetic trees hang
+    off each core spin; weak random cross links frustrate the periphery.
+    Tree spins align with their parents, so the full planted state (and,
+    without cross links, its energy) is returned for evaluation. The trees
+    are what the leaf-peeling presolve (`ops/presolve.py`) removes.
+    """
+    rng = np.random.default_rng(seed)
+    core, t_core, _ = wishart_planted(n_backbone, alpha, seed=seed + 1)
+
+    per_tree = 2 ** (tree_depth + 1) - 2   # nodes added per backbone spin
+    n = n_backbone + n_backbone * per_tree
+    J = np.zeros((n, n))
+    J[:n_backbone, :n_backbone] = core.J
+
+    t = np.zeros(n)
+    t[:n_backbone] = t_core
+    next_idx = n_backbone
+    for b in range(n_backbone):
+        # breadth-first binary tree rooted at backbone spin b
+        frontier = [b]
+        for _ in range(tree_depth):
+            new_frontier = []
+            for parent in frontier:
+                for _ in range(2):
+                    child = next_idx
+                    next_idx += 1
+                    w = abs(rng.normal()) + 0.5  # ferromagnetic
+                    J[parent, child] = J[child, parent] = w
+                    t[child] = t[parent]
+                    new_frontier.append(child)
+            frontier = new_frontier
+
+    tree_spins = np.arange(n_backbone, n)
+    for _ in range(cross_links):
+        a, b = rng.choice(tree_spins, size=2, replace=False)
+        if J[a, b] == 0 and a != b:
+            w = cross_scale * rng.normal()
+            J[a, b] = J[b, a] = w
+
+    prob = IsingProblem(J, np.zeros(n),
+                        name=f"contrived_{n_backbone}_a{alpha}_s{seed}")
+    if cross_links == 0:
+        gs_energy = float(prob.energy(t))
+    else:
+        gs_energy = float("nan")  # cross links may shift the ground state
+    return prob, t, gs_energy
+
+
 def chimera_graph(m: int, n: Optional[int] = None, t: int = 4,
                   seed: int = 0, pm: bool = True) -> IsingProblem:
     """Chimera topology C_{m,n,t}: an m x n grid of K_{t,t} bipartite cells
@@ -115,3 +170,24 @@ def chimera_graph(m: int, n: Optional[int] = None, t: int = 4,
                     J[right(i, j, k), right(i, j + 1, k)] = w
                     J[right(i, j + 1, k), right(i, j, k)] = w
     return IsingProblem(J, np.zeros(N), name=f"chimera_{m}x{n}x{t}_s{seed}")
+
+
+def contrived_tree_adjacency(n_backbone: int, levels: int) -> np.ndarray:
+    """0/1 adjacency of the reference's contrived topology: a complete
+    n_backbone-node core plus a `levels`-deep binary tree rooted at each
+    core node, nodes numbered per core node, level by level."""
+    total = n_backbone * (2 ** (levels + 1) - 1)
+    A = np.zeros((total, total))
+    A[:n_backbone, :n_backbone] = 1.0 - np.eye(n_backbone)
+    curr = n_backbone
+    for i in range(n_backbone):
+        queue = [i]
+        for _ in range(levels):
+            nxt = []
+            for parent in queue:
+                A[parent, curr] = A[curr, parent] = 1
+                A[parent, curr + 1] = A[curr + 1, parent] = 1
+                nxt.extend([curr, curr + 1])
+                curr += 2
+            queue = nxt
+    return A

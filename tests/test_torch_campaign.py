@@ -7,7 +7,11 @@ family that the test writes in the reference's chimera format, with ground
 states found by enumeration (N = 16): every arm hits every instance,
 write records with the JAX campaign's keys, and a second run resumes (skips
 the instances on file), for the pt, nmc, icm, hybrid and icm_host arms.
-What is not ported yet raises NotImplementedError.
+The spectral arm's records equal JAX's; `--init spectral` seeds JAX's
+candidates, `--init file` the files' states; `--presolve` runs on the
+2-cores of tree-decorated instances with records in raw units; `--refine
+tree` skips a folder run. What is not ported yet (`--summarize`,
+`--collect-best`, the contrived family) raises NotImplementedError.
 """
 
 import itertools
@@ -202,10 +206,28 @@ def test_cli_icm_prints_the_jax_cli_keys(tmp_path, capsys):
     assert args.device == "cuda" and args.device_icm is None
 
 
+def write_contrived_folder(folder, count=3):
+    """`count` tree-decorated planted instances
+    (`contrived_wishart_backbone(4, 0.5)`: 28 spins, 24 of them on trees)
+    in the wishart dialect, named as the wishart folders are, with their
+    planted energies in gs_energies.txt. Returns {name: energy}."""
+    from nmc_tpu_torch.io.generators import contrived_wishart_backbone
+    folder.mkdir(parents=True)
+    gs, lines = {}, []
+    for k in range(count):
+        prob, t, _ = contrived_wishart_backbone(4, alpha=0.5, seed=k)
+        name = f"wishart_planting_N_28_alpha_0.50_inst_{k + 1}.txt"
+        iu, ju = np.nonzero(np.triu(prob.J, 1))
+        (folder / name).write_text("".join(
+            f"{i} {j} {float(-prob.J[i, j])!r}\n" for i, j in zip(iu, ju)))
+        gs[name] = float(tl.load_wishart(str(folder / name)).energy(t))
+        lines.append(f"{name}\t{gs[name]!r}\n")
+    (folder / "gs_energies.txt").write_text("".join(lines))
+    return gs
+
+
 @pytest.mark.parametrize("extra", [
-    ["--arm", "spectral"], ["--arm", "nmc", "--init", "spectral"],
-    ["--arm", "nmc", "--init", "file"], ["--arm", "pt", "--presolve"],
-    ["--arm", "nmc", "--refine", "tree"], ["--summarize", "x.jsonl"],
+    ["--summarize", "x.jsonl"],
     ["--collect-best", "x.jsonl", "--out", "y.json"],
     ["--arm", "nmc", "--kind", "contrived"],
 ])
@@ -244,3 +266,162 @@ def test_every_subcommand_takes_device_default_cuda(sub, monkeypatch,
         sub, [sub, "--J", str(tmp_path / "J.npy"), "--coloring"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(argv)
+
+
+def _jax_campaign(argv):
+    """nmc_tpu's campaign on the port's parsed flags, without its
+    compilation-cache setup (which writes outside the test's directory)."""
+    import nmc_tpu.utils.compcache as jcc
+    ns = cli.build_parser().parse_args(argv)
+    ns.cpu = False
+    enable = jcc.enable_compilation_cache
+    jcc.enable_compilation_cache = lambda *a, **k: None
+    try:
+        jcamp.run_campaign(ns)
+    finally:
+        jcc.enable_compilation_cache = enable
+
+
+def _records(path):
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+@pytest.mark.parametrize("presolve", [False, True])
+def test_spectral_arm_records_equal_jax(tmp_path, capsys, presolve):
+    """The spectral arm is deterministic host code: the port's records are
+    JAX's, record for record (wall clocks apart); with --presolve on the
+    2-cores, energies shifted back to raw units."""
+    folder = tmp_path / "wishart_planting_N_28_alpha_0.50"
+    gs = write_contrived_folder(folder)
+    argv = ["campaign", "--kind", "wishart", "--folder", str(folder),
+            "--arm", "spectral", "--spectral-dm", "32",
+            "--spectral-dm-iters", "60", "--device", "cpu"]
+    if presolve:
+        argv.append("--presolve")
+    cli.main([*argv, "--out", str(tmp_path / "t.jsonl")])
+    _jax_campaign([*argv, "--out", str(tmp_path / "j.jsonl")])
+    mine, theirs = _records(tmp_path / "t.jsonl"), _records(tmp_path /
+                                                           "j.jsonl")
+    assert [r["name"] for r in mine] == sorted(gs) == \
+        [r["name"] for r in theirs]
+    for a, b in zip(mine, theirs):
+        assert set(a) == RECORD_KEYS
+        for r in (a, b):
+            r.pop("wall_seconds"), r.pop("hit_seconds")
+        assert a == b
+        assert a["gs_raw"] == gs[a["name"]] and a["meta"]["sweeps"] == 0
+        assert a["n"] == (4 if presolve else 28)
+    assert all(r["hit"] for r in mine)
+    capsys.readouterr()
+
+
+def _spy_init_state(monkeypatch, cls):
+    seen = []
+    real = cls.init_state
+
+    def spy(self, generator, m0=None):
+        seen.append(None if m0 is None else np.array(m0))
+        return real(self, generator, m0=m0)
+
+    monkeypatch.setattr(cls, "init_state", spy)
+    return seen
+
+
+@pytest.mark.parametrize("arm", ["nmc", "icm"])
+def test_init_spectral_seeds_equal_jax(tmp_path, capsys, monkeypatch, arm):
+    """--init spectral seeds the --init-chains coldest chains with JAX's
+    spectral_candidates(...)[0][:C] of the normalized (padded) problems;
+    the run hits every instance and says how it was seeded."""
+    from nmc_tpu.ops.spectral import spectral_candidates
+    from nmc_tpu_torch.parallel import EnsembleICM, EnsembleNMC
+    folder = tmp_path / "family"
+    gs = write_chimera_family(folder)
+    seen = _spy_init_state(monkeypatch,
+                           EnsembleICM if arm == "icm" else EnsembleNMC)
+    out = tmp_path / "o.jsonl"
+    _campaign(folder, out, arm, "--init", "spectral", "--init-chains", "3")
+    assert "spectral seeding: 3 chains x 3 instances" in \
+        capsys.readouterr().out
+    want = []
+    for name, prob, _ in jev.chimera_folder_instances(str(folder)):
+        p, _ = prob.normalized()
+        want.append(spectral_candidates(p.J, p.h if np.any(p.h) else None,
+                                        seed=0)[0][:3])
+    np.testing.assert_array_equal(seen[0], np.stack(want))
+    recs = _records(out)
+    assert sorted(r["name"] for r in recs) == sorted(gs)
+    assert all(r["hit"] and r["meta"]["init"] == "spectral"
+               and r["meta"]["init_chains"] == 3 for r in recs)
+
+
+@pytest.mark.parametrize("arm", ["icm", "pt"])
+def test_presolve_records_raw_units_and_states_reverify(tmp_path, capsys,
+                                                        arm):
+    """--presolve: the engines run on the 4-spin cores of 28-spin
+    instances; records are in original raw units, every instance hits its
+    planted energy, and each saved full-space state re-verifies in f64."""
+    folder = tmp_path / "wishart_planting_N_28_alpha_0.50"
+    gs = write_contrived_folder(folder)
+    out = tmp_path / "o.jsonl"
+    cli.main(["campaign", "--kind", "wishart", "--folder", str(folder),
+              "--arm", arm, "--presolve", "--device", "cpu", "--out",
+              str(out), "--replicas", "4", "--subreplicas", "2",
+              "--sweeps-per-phase", "4", "--num-cycles", "1", "--sweeps",
+              "48", "--save-best-states", str(tmp_path / "states")])
+    assert "presolve: peeled to cores 4..4 of n=28" in capsys.readouterr().out
+    recs = _records(out)
+    assert sorted(r["name"] for r in recs) == sorted(gs)
+    for r in recs:
+        assert r["n"] == 28 and r["gs_raw"] == pytest.approx(gs[r["name"]],
+                                                             abs=1e-9)
+        assert r["hit"] and r["meta"]["presolve"] == "peel"
+        assert r["meta"]["core_n"] == [4, 4, 4]
+        state = np.loadtxt(tmp_path / "states" / r["name"])
+        prob = tl.load_wishart(str(folder / r["name"]))
+        assert state.shape == (28,)
+        assert abs(prob.energy(state) - r["found_raw"]) <= 1e-9
+
+
+def test_init_file_seeds_and_refuses_presolve(tmp_path, capsys, monkeypatch):
+    """--init file seeds the coldest chains with each instance's state file
+    (repeated over --init-chains) and hits at once from ground states; a
+    file of the wrong length raises, and so does --presolve with it."""
+    from nmc_tpu_torch.parallel import EnsembleNMC
+    folder = tmp_path / "family"
+    gs = write_chimera_family(folder)
+    states = tmp_path / "states"
+    states.mkdir()
+    truths = jl.read_otn2d_groundstates(str(folder /
+                                            "groundstates_otn2d.txt"))
+    for name, (_, spins) in truths.items():
+        np.savetxt(states / name, spins, fmt="%d")
+    seen = _spy_init_state(monkeypatch, EnsembleNMC)
+    out = tmp_path / "o.jsonl"
+    _campaign(folder, out, "pt", "--init", "file", "--init-states",
+              str(states), "--init-chains", "2")
+    assert "file seeding: 2 chains x 3 instances" in capsys.readouterr().out
+    for k, name in enumerate(sorted(gs)):
+        want = truths[name][1]
+        np.testing.assert_array_equal(seen[0][k], np.stack([want, want]))
+    recs = _records(out)
+    assert all(r["hit"] and r["rounds_completed"] == 2
+               and r["meta"]["init"] == "file" for r in recs)
+    with pytest.raises(ValueError, match="incompatible with --presolve"):
+        _campaign(folder, tmp_path / "p.jsonl", "pt", "--init", "file",
+                  "--init-states", str(states), "--presolve")
+    np.savetxt(states / "001.txt", np.ones(8), fmt="%d")
+    with pytest.raises(ValueError, match="expected 16"):
+        _campaign(folder, tmp_path / "q.jsonl", "pt", "--init", "file",
+                  "--init-states", str(states))
+
+
+def test_refine_tree_after_a_folder_run_skips(tmp_path, capsys):
+    """--refine tree runs after the arm, on grid families only: a --folder
+    run prints the JAX campaign's skip line."""
+    folder = tmp_path / "family"
+    gs = write_chimera_family(folder)
+    out = tmp_path / "o.jsonl"
+    _campaign(folder, out, "nmc", "--refine", "tree")
+    text = capsys.readouterr().out
+    assert f"--refine tree: {folder} is not a grid family; skipping" in text
+    assert len(_records(out)) == len(gs)

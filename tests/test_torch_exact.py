@@ -208,8 +208,10 @@ def test_entry_points_default_to_cuda_and_enum_waits(monkeypatch):
     for fn in (tex.solve_exact_device, tex.solve_exact_fused):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(prob)
-    with pytest.raises(NotImplementedError, match="enum"):
-        tex.solve_exact_enum(prob)
+    # the enumeration tier is host code (numpy, scipy, the g++-built
+    # enum.cpp): it needs no card and proves the optimum
+    e, s, proved = tex.solve_exact_enum(prob, dm_starts=16, dm_iters=40)
+    assert proved and e == tex.solve_exact_host(prob)[0]
 
 
 @pytest.mark.parametrize("rows,cols,fields", [(1, 2, True), (2, 1, True),
