@@ -130,6 +130,25 @@ non-zero without printing a result:
                  spectral arm on three planted wisharts at N = 40, the icm
                  arm with --init file from the first run's saved states
                  (K4): every instance a hit;
+ 12o. beam_parity — not a main path: the device beam's DP (`run_beam`,
+                 torch's stable sorts) on the card against the same code on
+                 CPU tensors, bit for bit in (E_fin, parents, combos), on
+                 +-J chimera 4x4 at beam 2^12 and 8x8 at 2^10, split 1 and
+                 2; the unpruned 4 x 3 grid at beam 2^16 (Gaussian
+                 couplings on the 1/75 grid): e_int equal to the exact
+                 tropical DP's;
+ 12p. beam_2048 — `python -m nmc_tpu_torch beam` (in process, on the card)
+                 on a chimera 16x16 with couplings on the 1/75 grid: --beam
+                 16 and 17 (split 2) with --no-refine, and 16 with window-8
+                 strip refinement; each record's energy the f64 energy of
+                 its saved state, no kernel launch, peak device memory;
+                 then the device DP alone at 2^16 and 2^17: ms per cell
+                 and the stable sorts' share (CUDA events);
+ 12q. evaluate_512 — `python -m nmc_tpu_torch evaluate --coloring` (in
+                 process) on three +-J chimera 8x8 in a chimera folder
+                 whose targets the device beam wrote, at its defaults and
+                 at 100000 sweeps (a hit required there): K1, finite
+                 energies, the hit rates;
  13. exact_kernels — K6 (mitm_min) and K7 (mitm_min_i8) against their plain
                  versions at N = 32 (a = 16, TA = 2^15, TB = 2^16) on
                  integer-coupled instances, min and argmin equal element for
@@ -172,7 +191,8 @@ non-zero without printing a result:
                  registers and CTAs per SM; and K2 against K1 (bit for
                  bit, then each timed) on a denser colored layout, 32
                  random matchings at N = 4096.
-Phases 5-8, 10-12, 12c, 12d, 12f-12h, 12j-12n and 14 are the main paths:
+Phases 5-8, 10-12, 12c, 12d, 12f-12h, 12j-12n, 12p, 12q and 14 are the
+main paths:
 each sets the launch counts to 0 just before it and reads them just after. Then one
 line {"kernels": [...]}, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
@@ -2563,6 +2583,213 @@ def phase_campaign_spectral():
     return launches
 
 
+BEAM_KEYS = {"name", "n", "kind", "rows", "cols", "beam", "energy_raw",
+             "exact", "strip_moves", "wall_seconds", "shipped_target",
+             "reaches_shipped"}
+
+
+def _chimera_q(rows, cols, q, seed):
+    """chimera_graph(rows, cols)'s edges with Gaussian couplings rounded to
+    multiples of 1/q (q = 75: the droplet families' grid), no fields."""
+    from nmc_tpu_torch.core.problem import IsingProblem
+    from nmc_tpu_torch.io.generators import chimera_graph
+    A = np.triu(chimera_graph(rows, cols, seed=seed).J != 0, 1)
+    g = np.random.default_rng(seed + 1000).normal(size=A.shape)
+    J = A * np.round(g * q) / q
+    return IsingProblem(J + J.T, np.zeros(A.shape[0]))
+
+
+def phase_beam_parity():
+    """Not a main path: the device beam's DP (`run_beam`, torch's stable
+    sorts) on the card against the same function on CPU tensors, bit for
+    bit in (E_fin, parents, combos), on +-J chimera 4x4 at beam 2^12 and
+    8x8 at 2^10, split 1 and 2; then the unpruned 4-row by 3-column grid
+    (16^4 boundary states) at beam 2^16, Gaussian couplings on the 1/75
+    grid: `e_int` equal to the exact tropical DP's optimum."""
+    import torch
+    from nmc_tpu_torch import beam_chimera_cuda as bc
+    from nmc_tpu_torch.exact_chimera import solve_exact_chimera
+    from nmc_tpu_torch.io.generators import chimera_graph
+    out = {"phase": "beam_parity", "cases": []}
+    for size, log2 in ((4, 12), (8, 10)):
+        prob = chimera_graph(size, size, seed=size)
+        Jq, hq, _ = bc.quantize_problem(prob)
+        trans = torch.from_numpy(bc._int_cell_tables(Jq, hq, size, size))
+        for split in (1, 2):
+            t0 = time.perf_counter()
+            dev = bc.run_beam(trans.to(DEVICE), size, size, 1 << log2, split)
+            dev = [x.cpu() for x in dev]
+            t1 = time.perf_counter()
+            host = bc.run_beam(trans, size, size, 1 << log2, split)
+            t2 = time.perf_counter()
+            for name, a, b in zip(("E_fin", "parents", "combos"), dev,
+                                  host):
+                check(a.dtype == b.dtype and torch.equal(a, b),
+                      f"beam_parity {size}x{size} 2^{log2} split {split}: "
+                      f"{name} differs from the CPU run")
+            out["cases"].append({"grid": size, "beam": 1 << log2,
+                                 "split": split, "equal": True,
+                                 "device_seconds": t1 - t0,
+                                 "cpu_seconds": t2 - t1})
+    prob = _chimera_q(4, 3, 75, seed=3)
+    e_ref, _ = solve_exact_chimera(prob, rows=4, cols=3)
+    e, s, info = bc.solve_beam_chimera_cuda(prob, rows=4, cols=3,
+                                            beam=1 << 16, device=DEVICE)
+    check(info["q"] == 75 and info["e_int"] == int(round(e_ref * 75)),
+          f"beam_parity 4x3: e_int {info['e_int']} against the exact "
+          f"{e_ref * 75}")
+    check(abs(float(prob.energy(s)) - e) <= 1e-9, "beam_parity 4x3: state")
+    out["unpruned_4x3"] = {"beam": 1 << 16, "e_int": info["e_int"],
+                           "exact_e_int": int(round(e_ref * 75)),
+                           "energy": e}
+    emit(out)
+
+
+def phase_beam_2048():
+    """The `beam` CLI on the card on a generated chimera 16x16 (Gaussian
+    couplings on the 1/75 grid) in the chimera dialect: --beam 16
+    --no-refine, --beam 17 --no-refine (split 2), --beam 16 with window-8
+    strip refinement (the strips' sub-solver the device beam at 2^15). Each
+    record's energy is the f64 energy of its saved state, the refined one
+    at or below the beam's; no kernel launches. Then the device DP alone
+    (`run_beam`) at 2^16 and 2^17: ms per cell, the share of its stable
+    sorts (CUDA events around each `torch.sort` call of the run), peak
+    device memory, its optimum equal to the CLI record's energy."""
+    import os
+    import tempfile
+    import torch
+    from nmc_tpu_torch import beam_chimera_cuda as bc
+    prob = _chimera_q(16, 16, 75, seed=0)
+    out = {"phase": "beam_2048", "N": prob.n}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_beam_") as tmp:
+        path = os.path.join(tmp, "001.txt")
+        _write_chimera(path, prob)
+        for tag, flags in (("beam16", ["--beam", "16", "--no-refine"]),
+                           ("beam17", ["--beam", "17", "--no-refine"]),
+                           ("beam16_refined", ["--beam", "16"])):
+            state = os.path.join(tmp, f"{tag}.txt")
+            torch.cuda.reset_peak_memory_stats()
+            rc, rec, seconds, counts, _ = _cli(
+                ["beam", path, "--kind", "chimera", *flags,
+                 "--save-state", state, "--device", DEVICE])
+            peak = torch.cuda.max_memory_allocated()
+            s = np.loadtxt(state)
+            check(rc == 0 and set(rec) == BEAM_KEYS,
+                  f"{tag}: exit {rc}, keys {sorted(rec)}")
+            check((rec["rows"], rec["cols"]) == (16, 16)
+                  and np.isfinite(rec["energy_raw"]),
+                  f"{tag}: {rec}")
+            check(abs(float(prob.energy(s)) - rec["energy_raw"]) <= 1e-9,
+                  f"{tag}: the saved state's f64 energy")
+            check(not any(counts.values()), f"{tag}: launches {counts}")
+            out[tag] = {"energy_raw": rec["energy_raw"],
+                        "strip_moves": rec["strip_moves"],
+                        "wall_seconds": rec["wall_seconds"],
+                        "seconds": seconds, "peak_bytes": peak}
+        check(out["beam16_refined"]["energy_raw"]
+              <= out["beam16"]["energy_raw"] + 1e-9,
+              "beam_2048: refinement raised the energy")
+    Jq, hq, q = bc.quantize_problem(prob)
+    t0 = time.perf_counter()
+    trans = bc._int_cell_tables(Jq, hq, 16, 16)
+    tables_seconds = time.perf_counter() - t0
+    trans = torch.from_numpy(trans).to(DEVICE)
+    sort, marks = torch.sort, []
+
+    def timed_sort(*args, **kwargs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        res = sort(*args, **kwargs)
+        ev[1].record()
+        marks.append(ev)
+        return res
+
+    for log2 in (16, 17):
+        M = 1 << log2
+        marks.clear()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        torch.sort = timed_sort
+        try:
+            ev[0].record()
+            E_fin, _, _ = bc.run_beam(trans, 16, 16, M, bc.auto_split(M))
+            ev[1].record()
+        finally:
+            torch.sort = sort
+        torch.cuda.synchronize()
+        beam_ms = ev[0].elapsed_time(ev[1])
+        sort_ms = sum(a.elapsed_time(b) for a, b in marks)
+        e_int = int(E_fin.min())
+        check(e_int == round(out[f"beam{log2}"]["energy_raw"] * q),
+              f"beam 2^{log2}: run_beam's optimum {e_int} / {q}")
+        out[f"timed{log2}"] = {
+            "split": bc.auto_split(M), "q": q, "sorts": len(marks),
+            "ms_per_cell": beam_ms / 256,
+            "sort_ms_per_cell": sort_ms / 256,
+            "sort_share": sort_ms / beam_ms,
+            "tables_seconds": tables_seconds,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    emit(out)
+
+
+def phase_evaluate_512():
+    """The `evaluate` CLI with --coloring on a generated chimera512 folder:
+    three +-J chimera 8x8 instances in the chimera dialect, their targets
+    in groundstates_otn2d.txt from the device beam at 2^16 (an upper bound
+    on the ground state). First at its defaults (12 replicas, 2000 sweeps
+    in 20 swap rounds), then at 100000 sweeps in 1000 swap rounds, where
+    at least one instance must reach its target. Every sweep through K1;
+    one report line per instance, finite energies in raw units. Returns
+    K1's launches."""
+    import os
+    import tempfile
+    from nmc_tpu_torch.beam_chimera_cuda import solve_beam_chimera_cuda
+    from nmc_tpu_torch.io.generators import chimera_graph
+    out, launches = {"phase": "evaluate_512", "N": 512}, 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        lines = []
+        for k in range(3):
+            prob = chimera_graph(8, 8, seed=k)
+            name = f"{k + 1:03d}.txt"
+            _write_chimera(os.path.join(tmp, name), prob)
+            e, s, _ = solve_beam_chimera_cuda(prob, beam=1 << 16,
+                                              device=DEVICE)
+            bits = " ".join(str(int(x)) for x in (s + 1) // 2)
+            lines.append(f"{name} : {e!r} {bits}\n")
+        with open(os.path.join(tmp, "groundstates_otn2d.txt"), "w") as f:
+            f.writelines(lines)
+        for tag, budget in (("defaults", []),
+                            ("sweeps_100000", ["--sweeps", "100000",
+                                               "--swap-attempts", "1000"])):
+            rc, rep, seconds, counts, _ = _cli(
+                ["evaluate", "--folder", tmp, "--family", "chimera",
+                 "--coloring", "--device", DEVICE, *budget])
+            insts = rep["instances"]
+            check(rc is None and [i["name"] for i in insts]
+                  == ["001.txt", "002.txt", "003.txt"],
+                  f"evaluate {tag}: {rep}")
+            check(all(np.isfinite(i["found_energy"]) and i["sweeps_used"] == 0
+                      for i in insts), f"evaluate {tag}: energies")
+            check(counts["colored_sweeps"] > 0
+                  and all(v == 0 for k, v in counts.items()
+                          if k != "colored_sweeps"),
+                  f"evaluate {tag}: launches {counts}")
+            check(tag == "defaults" or any(i["hit"] for i in insts),
+                  f"evaluate {tag}: no instance reached its target")
+            launches += counts["colored_sweeps"]
+            out[tag] = {"launches": counts["colored_sweeps"],
+                        "seconds": seconds,
+                        "hit_rate": rep["summary"]["hit_rate"],
+                        "found_minus_target": [
+                            i["found_energy"] - i["gs_energy"]
+                            for i in insts],
+                        "seconds_per_instance": [i["seconds"]
+                                                 for i in insts]}
+    emit(out)
+    return launches
+
+
 def phase_exact_enum(k6_energy):
     """`solve_exact_enum` (host: the g++-built enum.cpp, its incumbent the
     host spectral search) on exact_40's float instance: a proof, with the
@@ -3424,6 +3651,9 @@ def main():
     launches["ensemble_round_sparse"] += phase_solve_chimera2048()
     phase_refine_128()
     launches["ensemble_round"] += phase_campaign_spectral()
+    phase_beam_parity()
+    phase_beam_2048()
+    launches["colored_sweeps"] += phase_evaluate_512()
     errs.update(phase_exact_kernels())
     exact_launches, k6_energy = phase_exact_40()
     launches.update(exact_launches)

@@ -21,8 +21,11 @@ through the table kernels K6 f32 and K7 int8 digit planes, each with a
 plain torch twin) with the chimera tropical DP and the native
 branch-and-bound tier (`solve_exact_enum`), the leaf-peeling presolve, the
 spectral search (host and torch device variants), the induced-tree
-refinement, the staged portfolio solver (`portfolio_solve`), and the
-`nmc`/`apt`/`npt`/`icm`/`campaign`/`solve`/`exact`/`refine` CLI.
+refinement, the staged portfolio solver (`portfolio_solve`), the chimera
+beam tier (host `solve_beam_chimera` with strip refinement, and the int32
+device beam `solve_beam_chimera_cuda` over torch's stable sorts), the
+evaluation harness, and the `nmc`/`apt`/`npt`/`icm`/`evaluate`/`campaign`/
+`solve`/`exact`/`beam`/`refine`/`generate` CLI.
 """
 
 from . import device  # noqa: F401  (sets the full-f32 matmul policy)
@@ -30,7 +33,9 @@ from .core.energy import energy, energy_from_fields, local_fields
 from .core.problem import BlockedProblem, IsingProblem, block_problem
 from .exact import (exact_energy_bound, solve_exact_device, solve_exact_enum,
                     solve_exact_fused, solve_exact_host)
-from .beam_chimera import pad_to_chimera_grid
+from .beam_chimera import (pad_to_chimera_grid, refine_strips,
+                           solve_beam_chimera, solve_beam_chimera_multi)
+from .beam_chimera_cuda import solve_beam_chimera_cuda
 from .exact_chimera import solve_exact_chimera
 from .models.apt import APTConfig, APTResult, apt_preprocess
 from .models.apt_icm import APTICMConfig, APTICMResult, apt_icm_run
@@ -107,6 +112,8 @@ __all__ = [
     "SolveResult", "SolveStage", "portfolio_solve",
     "tree_refine", "tree_refine_state", "refine_family",
     "partition_crossover", "pad_to_chimera_grid",
+    "solve_beam_chimera", "solve_beam_chimera_multi",
+    "solve_beam_chimera_cuda", "refine_strips",
     "SpectralResult", "spectral_search", "spectral_candidates",
     "spectral_candidates_device", "auto_subspace_dim",
     "difference_map_rounding", "difference_map_rounding_device",

@@ -23,10 +23,15 @@ every arm runs on the 2-cores, with records in original raw units;
 or from state files; `--refine tree` runs the induced-tree refinement
 (`refine.refine_family`) over a grid family's remaining misses afterwards.
 
+The contrived family ships no exact ground truths: its targets come from
+a best-known JSON (`--best-known`, default `best_known.json` in the
+folder), which `--collect-best` builds from campaign JSONLs; without one
+its records carry no target and every run takes the full budget.
+`--summarize` prints a table of result files (hit rate, TTS and miss
+residual quantiles).
+
 `--family` names resolve under the reference checkout, `$NMC_REFERENCE`
-(default `reference` in the working directory). Not ported yet, and
-refused with NotImplementedError: `--summarize`, `--collect-best` and the
-contrived family.
+(default `reference` in the working directory).
 """
 
 import argparse
@@ -98,19 +103,11 @@ FAMILIES = {
 }
 
 
-def _later(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to nmc_tpu_torch yet (ROADMAP.md, open items "
-        f"queue 1: {item}); run it with python -m nmc_tpu campaign")
-
-
-_REST = "the campaign's remaining arms and flags"
-
-
 def get_instances(spec, limit):
     from . import evaluation as ev
     if spec["kind"] == "contrived":
-        raise _later("the contrived family (best-known targets)", _REST)
+        return ev.contrived_folder_instances(
+            spec["folder"], limit=limit, best_known=spec.get("best_known"))
     it = {"chimera": ev.chimera_folder_instances,
           "dcl": ev.dcl_folder_instances,
           "wishart": ev.wishart_folder_instances}[spec["kind"]]
@@ -462,6 +459,8 @@ def run_arm(args):
                     coloring=args.kind in ("chimera", "dcl"))
     else:
         spec = dict(FAMILIES[args.family])
+    if getattr(args, "best_known", None):
+        spec["best_known"] = args.best_known
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     done = set()
     if os.path.exists(args.out):
@@ -664,12 +663,14 @@ def add_campaign_args(p):
                    help="per-instance iterated-local-search budget (s) "
                         "for --refine tree")
     p.add_argument("--summarize", nargs="+", metavar="JSONL",
-                   help="summary table of result files (not ported yet)")
+                   help="render a summary table from campaign result files "
+                        "instead of running")
     p.add_argument("--best-known", default=None,
-                   help="JSON of instance-name -> raw target energy")
+                   help="JSON file of instance-name -> raw target energy "
+                        "(for families without shipped ground truths)")
     p.add_argument("--collect-best", nargs="+", metavar="JSONL", default=None,
-                   help="merge campaign JSONLs into a best-known JSON (not "
-                        "ported yet)")
+                   help="merge campaign JSONLs into a best-known JSON "
+                        "(written to --out) instead of running")
     p.add_argument("--instances", type=int, default=20)
     p.add_argument("--out", default=None)
     p.add_argument("--replicas", type=int, default=32)
@@ -705,17 +706,83 @@ def add_campaign_args(p):
     add_device_arg(p)
 
 
-def _refuse_unported(args):
-    if args.collect_best:
-        raise _later("--collect-best", _REST)
-    if args.summarize:
-        raise _later("--summarize", _REST)
+def collect_best(paths, out_path):
+    """Merge campaign JSONLs into {name: best found_raw}: the best-known
+    targets file that `contrived_folder_instances` reads."""
+    best = {}
+    if out_path and os.path.exists(out_path):
+        with open(out_path) as f:
+            best = {k: float(v) for k, v in json.load(f).items()}
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                r = json.loads(line)
+                e = r.get("found_raw")
+                if e is None or e != e:
+                    continue
+                name = r["name"]
+                if name not in best or e < best[name]:
+                    best[name] = float(e)
+    with open(out_path, "w") as f:
+        json.dump(best, f, indent=1, sort_keys=True)
+    print(f"wrote {len(best)} best-known targets to {out_path}")
+    return best
+
+
+def summarize(paths):
+    """Render a per-(family, arm) summary table from campaign JSONL files:
+    hit rate, TTS quantiles over hits, residual quantiles over misses."""
+    from .utils.plotting import miss_residuals
+
+    rows = []
+    for path in paths:
+        with open(path) as f:
+            rs = [json.loads(line) for line in f]
+        if not rs:
+            continue
+        meta = rs[0].get("meta", {})
+        hits = [r for r in rs if r["hit"]]
+        tts = sorted(r["hit_seconds"] for r in hits)
+        miss = miss_residuals(rs)
+
+        def q(xs, p):
+            return xs[min(int(p * len(xs)), len(xs) - 1)] if xs else None
+
+        rows.append(dict(
+            run=os.path.splitext(os.path.basename(path))[0],
+            family=meta.get("family", os.path.basename(path)),
+            arm=meta.get("arm", "?"), n=rs[0]["n"], instances=len(rs),
+            hits=len(hits),
+            sweeps_budget=meta.get("sweeps"),
+            wall=round(rs[0].get("wall_seconds", 0), 1),
+            tts_p50=q(tts, 0.5), tts_p90=q(tts, 0.9),
+            miss_res_p50=q(miss, 0.5), miss_res_max=q(miss, 1.0),
+        ))
+    fmt = ("| {run} | {arm} | {n} | {hits}/{instances} | "
+           "{sweeps_budget} | {wall} | {tts_p50} | {tts_p90} | "
+           "{miss_res_p50} | {miss_res_max} |")
+    print("| run | arm | N | GS hits | sweep budget | wall (s) | "
+          "TTS p50 (s) | TTS p90 (s) | miss residual p50 (%) | max (%) |")
+    print("|---|---|---|---|---|---|---|---|---|---|")
+    for r in rows:
+        r = {k: (round(v, 2) if isinstance(v, float) else v)
+             for k, v in r.items()}
+        print(fmt.format(**{k: ("—" if v is None else v)
+                            for k, v in r.items()}))
+    return rows
 
 
 def run_campaign(args):
-    _refuse_unported(args)
+    if args.collect_best:
+        if not args.out:
+            raise SystemExit("--collect-best requires --out")
+        collect_best(args.collect_best, args.out)
+        return
+    if args.summarize:
+        summarize(args.summarize)
+        return
     if not args.arm:
-        raise SystemExit("provide --arm")
+        raise SystemExit("provide --arm (or --summarize)")
     if not args.family and not args.folder:
         raise SystemExit("provide --family or --folder + --kind")
     if args.folder and not args.kind:

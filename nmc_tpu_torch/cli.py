@@ -1,5 +1,5 @@
 """Command-line entry points of the port: `nmc`, `apt`, `npt`, `icm`,
-`campaign`, `solve`, `exact` and `refine`.
+`evaluate`, `campaign`, `solve`, `exact`, `beam`, `refine` and `generate`.
 
     python -m nmc_tpu_torch nmc --J J.npy --h h.npy --coloring --chains 256
     python -m nmc_tpu_torch nmc --instance path.txt --format chimera --coloring
@@ -11,12 +11,16 @@
     python -m nmc_tpu_torch solve DIR/wishart_..._inst_1.txt
     python -m nmc_tpu_torch exact DIR/wishart_..._inst_1.txt --backend pallas
     python -m nmc_tpu_torch refine DIR/001.txt --state s.txt --kind chimera
+    python -m nmc_tpu_torch beam DIR/001.txt --beam 16
+    python -m nmc_tpu_torch evaluate --folder DIR --family chimera --coloring
+    python -m nmc_tpu_torch generate --kind sk --n 1000 --out inst.txt
 
 Same flags, JSON output keys and exit codes as ``python -m nmc_tpu``'s
-subcommands of those names (`campaign` without `--summarize` and
-`--collect-best`; `solve` and `exact` with `--device` in place of `--cpu`,
-and `exact` of `--interpret`). Every subcommand takes `--device` (default
-`cuda`): without a card it fails unless `--device cpu` is given.
+subcommands of those names (`solve`, `exact` and `beam` with `--device` in
+place of `--cpu`, `exact` of `--interpret`; `beam` runs JAX's `--device`
+route on a card and its host routes with `--device cpu`). Every subcommand
+but `generate` (host-only file writing) takes `--device` (default `cuda`):
+without a card it fails unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -176,6 +180,24 @@ def cmd_icm(args):
         "min_energy": res.min_energy,
         "icm_moves": res.icm_moves, "icm_flips": res.icm_flips,
     }))
+
+
+def cmd_evaluate(args):
+    from . import evaluation as ev
+
+    device = resolve_cli_device(args.device)
+    folder_fns = {"wishart": ev.wishart_folder_instances,
+                  "chimera": ev.chimera_folder_instances,
+                  "dcl": ev.dcl_folder_instances}
+    instances = list(folder_fns[args.family](args.folder, limit=args.limit))
+    solver = ev.make_pt_solver(
+        num_replicas=args.replicas, beta_min=args.beta_start,
+        beta_max=args.beta_max, sweeps=args.sweeps,
+        swap_attempts=args.swap_attempts, block_size=args.block_size,
+        use_coloring=args.coloring, nmc_coldest=args.nmc_coldest,
+        key_seed=args.seed, device=device)
+    report = ev.evaluate_solver(instances, solver, tolerance=args.tolerance)
+    print(report.to_json())
 
 
 def _detect_instance(path, kind, target):
@@ -376,6 +398,104 @@ def cmd_exact(args):
     return 0
 
 
+def _beam_on_host(device) -> bool:
+    """`beam` takes JAX's host routes only when the caller names the CPU."""
+    return device.type == "cpu"
+
+
+def cmd_beam(args):
+    """Deterministic tropical beam contraction (+ exact strip refinement)
+    for chimera-raster instances; DCL rasters are padded automatically.
+    On a card the int32 beam DP runs there, and so does the strips'
+    sub-solver (JAX's `--device` route); `--device cpu` runs JAX's host
+    routes: the multi-orientation beam in numpy, then the strips."""
+    import time
+
+    from .beam_chimera import (pad_to_chimera_grid, refine_strips,
+                               solve_chimera_pipeline)
+
+    device = resolve_cli_device(args.device)
+    prob, target, kind, base = _detect_instance(args.path, args.kind,
+                                                None)
+    solve_prob, rows, cols, n_orig = pad_to_chimera_grid(prob)
+    t0 = time.perf_counter()
+    if not _beam_on_host(device):
+        from .beam_chimera_cuda import solve_beam_chimera_cuda
+        e, s, info = solve_beam_chimera_cuda(solve_prob, rows=rows,
+                                             cols=cols,
+                                             beam=1 << args.beam,
+                                             device=device)
+        if args.refine:
+            sub = (lambda sp, R, w: solve_beam_chimera_cuda(
+                sp, rows=R, cols=w, beam=1 << max(4, args.beam - 1),
+                device=device)[:2])
+            e, s, moves = refine_strips(solve_prob, s, rows=rows,
+                                        cols=cols,
+                                        window=args.window or 8,
+                                        sub_solver=sub)
+            info = dict(info, strip_moves=moves)
+    elif args.refine:
+        e, s, info = solve_chimera_pipeline(
+            solve_prob, rows=rows, cols=cols, beam=1 << args.beam,
+            orientations=args.orientations, window=args.window)
+    else:
+        from .beam_chimera import solve_beam_chimera_multi
+        e, s, info = solve_beam_chimera_multi(
+            solve_prob, rows=rows, cols=cols, beam=1 << args.beam,
+            orientations=args.orientations)
+    wall = time.perf_counter() - t0
+    e = float(prob.energy(np.asarray(s)[:n_orig]))
+    tol = 1e-6 * max(1.0, abs(target)) if target is not None else None
+    rec = dict(name=base, n=prob.n, kind=kind, rows=rows, cols=cols,
+               beam=args.beam, energy_raw=e,
+               exact=bool(info.get("exact", False)),
+               strip_moves=info.get("strip_moves"),
+               wall_seconds=round(wall, 3),
+               shipped_target=target if (target is None
+                                         or np.isfinite(target)) else None,
+               reaches_shipped=(None if target is None
+                                or not np.isfinite(target)
+                                else bool(e <= target + tol)))
+    line = json.dumps(rec)
+    print(line)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    if args.save_state:
+        np.savetxt(args.save_state, np.asarray(s)[:n_orig], fmt="%+d")
+    return 0
+
+
+def cmd_generate(args):
+    from .io import generators, writers
+
+    kind = args.kind
+    if kind == "sk":
+        prob = generators.random_sk(args.n, seed=args.seed)
+        gs = None
+    elif kind == "ea2d":
+        prob = generators.ea_2d(args.L, seed=args.seed)
+        gs = None
+    elif kind == "ea3d":
+        prob = generators.ea_3d(args.L, seed=args.seed)
+        gs = None
+    elif kind == "wishart":
+        prob, t, gs = generators.wishart_planted(args.n, args.alpha,
+                                                 seed=args.seed)
+    elif kind == "contrived":
+        prob, t, gs = generators.contrived_wishart_backbone(
+            args.n, args.alpha, seed=args.seed)
+    else:
+        # contrived-ref: the reference-faithful pipeline
+        # (contrived_instance_generator.py)
+        prob = generators.contrived_wishart_backbone_reference(
+            args.n, alpha=args.alpha, seed=args.seed)
+        gs = None
+    writers.save_edgelist(args.out, prob)
+    print(json.dumps({"n": prob.n, "edges": prob.num_edges,
+                      "gs_energy": gs, "out": args.out}))
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="nmc_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -444,6 +564,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Houdayer moves on the device (default: above 2048 "
                         "spins)")
     p.set_defaults(fn=cmd_icm)
+
+    p = sub.add_parser("evaluate",
+                       help="ground-truth hit-rate over a benchmark folder")
+    p.add_argument("--folder", required=True)
+    p.add_argument("--family", default="wishart",
+                   choices=["wishart", "chimera", "dcl"])
+    p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--replicas", type=int, default=12)
+    p.add_argument("--beta-start", type=float, default=0.3)
+    p.add_argument("--beta-max", type=float, default=4.0)
+    p.add_argument("--sweeps", type=int, default=2000)
+    p.add_argument("--swap-attempts", type=int, default=20)
+    p.add_argument("--nmc-coldest", type=int, default=0)
+    p.add_argument("--tolerance", type=float, default=1e-6)
+    p.add_argument("--block-size", type=int, default=128)
+    p.add_argument("--coloring", action="store_true")
+    p.add_argument("--seed", type=int, default=0)
+    add_device_arg(p)
+    p.set_defaults(fn=cmd_evaluate)
 
     p = sub.add_parser(
         "campaign",
@@ -522,6 +661,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_exact)
 
     p = sub.add_parser(
+        "beam",
+        help="deterministic tropical beam contraction for chimera-"
+             "raster instances (C4..C16, DCL) + exact strip refinement")
+    p.add_argument("path", help="instance file (edge-list dialects)")
+    p.add_argument("--kind", default="auto",
+                   choices=["auto", "wishart", "chimera", "dcl",
+                            "contrived"])
+    p.add_argument("--beam", type=int, default=16,
+                   help="log2 of the beam width")
+    p.add_argument("--orientations", type=int, default=1,
+                   help="grid orientations of the host beam (--device cpu)")
+    p.add_argument("--no-refine", dest="refine", action="store_false",
+                   help="skip the strip-refinement stage")
+    p.add_argument("--window", type=int, default=None,
+                   help="refinement strip width in cells (default auto; 8 "
+                        "on a card)")
+    p.add_argument("--save-state", help="write the best state here")
+    p.add_argument("--out", help="append the JSON record here")
+    add_device_arg(p)
+    p.set_defaults(fn=cmd_beam)
+
+    p = sub.add_parser(
         "refine",
         help="deterministic induced-tree large-neighborhood descent (exact "
              "DP over maximal induced cell trees + 2x2-cell-block ILS "
@@ -548,6 +709,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", help="append JSONL rows here")
     add_device_arg(p)
     p.set_defaults(fn=cmd_refine, parser=p)
+
+    p = sub.add_parser("generate", help="write benchmark instances")
+    p.add_argument("--kind", required=True,
+                   choices=["sk", "ea2d", "ea3d", "wishart", "contrived",
+                            "contrived-ref"])
+    p.add_argument("--n", type=int, default=100)
+    p.add_argument("--L", type=int, default=8)
+    p.add_argument("--alpha", type=float, default=0.5)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", required=True)
+    p.set_defaults(fn=cmd_generate)
     return ap
 
 

@@ -1,8 +1,9 @@
 """Benchmark-instance generators (host side, numpy).
 
-Copies of ``random_sk``, ``ea_2d``, ``wishart_planted``,
-``contrived_wishart_backbone``, ``chimera_graph`` and
-``contrived_tree_adjacency`` from ``nmc_tpu/io/generators.py``: the same seed
+Copies of ``random_sk``, ``ea_2d``, ``ea_3d``, ``wishart_planted``,
+``contrived_wishart_backbone``, ``chimera_graph``,
+``contrived_tree_adjacency``, ``contrived_wishart_backbone_reference`` and
+``emit_contrived_ensemble`` from ``nmc_tpu/io/generators.py``: the same seed
 gives a bit-equal J, which the tests check.
 """
 
@@ -48,6 +49,29 @@ def ea_2d(L: int, seed: int = 0, pm: bool = True,
                 w = float(rng.choice([-1.0, 1.0])) if pm else float(rng.normal())
                 J[a, b] = J[b, a] = w
     return IsingProblem(J, np.zeros(n), name=f"ea2d_{L}_seed{seed}")
+
+
+def ea_3d(L: int, seed: int = 0, pm: bool = False,
+          periodic: bool = True) -> IsingProblem:
+    """3D Edwards-Anderson glass on an L^3 (torus) lattice (16^3 config)."""
+    rng = np.random.default_rng(seed)
+    n = L ** 3
+    J = np.zeros((n, n))
+
+    def site(i, j, k):
+        return ((i % L) * L + (j % L)) * L + (k % L)
+
+    for i in range(L):
+        for j in range(L):
+            for k in range(L):
+                for (di, dj, dk) in [(0, 0, 1), (0, 1, 0), (1, 0, 0)]:
+                    ii, jj, kk = i + di, j + dj, k + dk
+                    if not periodic and (ii >= L or jj >= L or kk >= L):
+                        continue
+                    a, b = site(i, j, k), site(ii, jj, kk)
+                    w = float(rng.choice([-1.0, 1.0])) if pm else float(rng.normal())
+                    J[a, b] = J[b, a] = w
+    return IsingProblem(J, np.zeros(n), name=f"ea3d_{L}_seed{seed}")
 
 
 def wishart_planted(n: int, alpha: float, seed: int = 0,
@@ -191,3 +215,140 @@ def contrived_tree_adjacency(n_backbone: int, levels: int) -> np.ndarray:
                 curr += 2
             queue = nxt
     return A
+
+
+def contrived_wishart_backbone_reference(
+    n_backbone: int = 50,
+    levels: int = 2,
+    alpha: float = 0.20,
+    seed: int = 1346,
+    *,
+    core: Optional[IsingProblem] = None,
+    max_h: float = 0.2,
+    max_outside_weight: float = 1.0,
+    max_backbone_weight: float = 10.0,
+    num_cross_connections: int = 50,
+    num_remove_edges: int = 0,
+    remove_after_core: bool = False,
+) -> IsingProblem:
+    """Reference-faithful contrived instance pipeline (the reference's
+    contrived_wishart_backbone/contrived_instance_generator.py:240-305):
+    complete core + binary
+    trees; tree and core->tree edges weighted uniform
+    [-max_outside_weight, max_outside_weight]; the whole matrix
+    symmetrized with an elementwise MAX (tree-tree edge weights are
+    therefore max-of-two-uniforms — a positive-leaning reference quirk,
+    assign_random_weights:93); `num_cross_connections` uniform-weight
+    links between random NON-core nodes (any tree to any tree,
+    add_cross_connections:96-131); optional random core edge removal
+    (remove_random_backbone_edges:133-161) — note the reference removes
+    BEFORE overwriting the core block with the scaled Wishart instance,
+    so removed core edges are reinstated (quirk preserved;
+    remove_after_core=True applies the removal last instead); core block
+    overwritten with max_backbone_weight * J_core / max|J_core| (main:297);
+    h uniform in +-(2 * max_h * max_backbone_weight) on every node
+    (main:298).
+
+    `core`: a planted Wishart problem in loader convention (J = true
+    couplings); generated via wishart_planted(n_backbone, alpha) when None
+    — the reference loads the same construction from its shipped
+    wishart_planting_N_*_alpha_* files.
+    """
+    rng = np.random.default_rng(seed)
+    A = contrived_tree_adjacency(n_backbone, levels)
+    total = A.shape[0]
+    nb = n_backbone
+
+    J = np.zeros_like(A)
+    # core block: parity-signed uniform magnitudes (overwritten below, but
+    # kept so the edge-removal quirk operates on the same matrix state)
+    for i in range(nb):
+        for j in range(i + 1, nb):
+            w = rng.uniform(-max_backbone_weight, max_backbone_weight)
+            w = -abs(w) if (i + j) % 2 == 0 else abs(w)
+            J[i, j] = J[j, i] = w
+    # core -> tree: symmetric uniform [-max_outside, max_outside]
+    rw = rng.uniform(-max_outside_weight, max_outside_weight,
+                     (nb, total - nb)) * A[:nb, nb:]
+    J[:nb, nb:] = rw
+    J[nb:, :nb] = rw.T
+    # tree -> tree: independent draws per direction, then elementwise-max
+    # symmetrization (the reference's np.maximum(adj, adj.T) quirk)
+    J[nb:, nb:] = rng.uniform(-max_outside_weight, max_outside_weight,
+                              (total - nb, total - nb)) * A[nb:, nb:]
+    J = np.maximum(J, J.T)
+
+    # cross connections between random non-core nodes
+    links = set()
+    while len(links) < num_cross_connections:
+        a = int(rng.integers(nb, total))
+        b = int(rng.integers(nb, total))
+        if a != b and (a, b) not in links and (b, a) not in links:
+            w = rng.uniform(-max_outside_weight, max_outside_weight)
+            J[a, b] = J[b, a] = w
+            links.add((a, b))
+
+    def _remove(Jm):
+        removed = set()
+        while len(removed) < num_remove_edges:
+            a = int(rng.integers(0, nb))
+            b = int(rng.integers(0, nb))
+            if a != b and Jm[a, b] != 0 and (a, b) not in removed \
+                    and (b, a) not in removed:
+                Jm[a, b] = Jm[b, a] = 0.0
+                removed.add((a, b))
+        return Jm
+
+    if num_remove_edges and not remove_after_core:
+        J = _remove(J)
+
+    if core is None:
+        core = wishart_planted(nb, alpha, seed=seed + 7)[0]
+    Jc = np.asarray(core.J, dtype=float)
+    J[:nb, :nb] = max_backbone_weight * Jc / np.max(np.abs(Jc))
+
+    if num_remove_edges and remove_after_core:
+        J = _remove(J)
+
+    h = (rng.random(total) - 0.5) * 2 * max_h * max_backbone_weight
+    return IsingProblem(
+        J, h, name=f"contrived_ref_N{nb}_a{alpha:.2f}_s{seed}")
+
+
+def emit_contrived_ensemble(
+    out_dir: str, instances: int, base_seed: int = 1345, *,
+    n_backbone: int = 50, levels: int = 2, alpha: float = 0.20,
+    cores_folder: Optional[str] = None, **kwargs,
+) -> list:
+    """Write an instance ensemble with the reference's directory/file
+    naming (contrived_instance_generator.py:255-305):
+    <out_dir>/wishart_planting_N_{n}_alpha_{a:.2f}_contrived_tree/
+    ..._inst_{i}_contrived_tree.txt. When `cores_folder` points at a
+    shipped wishart_planting_N_*_alpha_* folder, instance i's core is
+    loaded from its inst_{i} file, exactly like the reference's main().
+    Returns the written paths."""
+    import os
+
+    from .loaders import load_wishart
+    from .writers import save_edgelist
+
+    sub = os.path.join(
+        out_dir, f"wishart_planting_N_{n_backbone}_alpha_{alpha:.2f}"
+                 f"_contrived_tree")
+    os.makedirs(sub, exist_ok=True)
+    paths = []
+    for inst in range(1, instances + 1):
+        core = None
+        if cores_folder is not None:
+            fname = (f"wishart_planting_N_{n_backbone}_alpha_{alpha:.2f}"
+                     f"_inst_{inst}.txt")
+            core = load_wishart(os.path.join(cores_folder, fname))
+        prob = contrived_wishart_backbone_reference(
+            n_backbone, levels, alpha, seed=base_seed + inst, core=core,
+            **kwargs)
+        path = os.path.join(
+            sub, f"wishart_planting_N_{n_backbone}_alpha_{alpha:.2f}"
+                 f"_inst_{inst}_contrived_tree.txt")
+        save_edgelist(path, prob)
+        paths.append(path)
+    return paths

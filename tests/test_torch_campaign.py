@@ -10,8 +10,9 @@ the instances on file), for the pt, nmc, icm, hybrid and icm_host arms.
 The spectral arm's records equal JAX's; `--init spectral` seeds JAX's
 candidates, `--init file` the files' states; `--presolve` runs on the
 2-cores of tree-decorated instances with records in raw units; `--refine
-tree` skips a folder run. What is not ported yet (`--summarize`,
-`--collect-best`, the contrived family) raises NotImplementedError.
+tree` skips a folder run. `--collect-best` and `--summarize` print and
+write what JAX's do on the same result files, and the contrived family's
+records (no target, then targets from `--best-known`) equal JAX's.
 """
 
 import itertools
@@ -226,17 +227,114 @@ def write_contrived_folder(folder, count=3):
     return gs
 
 
-@pytest.mark.parametrize("extra", [
-    ["--summarize", "x.jsonl"],
-    ["--collect-best", "x.jsonl", "--out", "y.json"],
-    ["--arm", "nmc", "--kind", "contrived"],
-])
-def test_unported_arms_and_flags_raise(tmp_path, extra):
-    argv = ["campaign", "--folder", str(tmp_path), "--kind", "chimera",
-            "--device", "cpu", "--out", str(tmp_path / "o.jsonl"), *extra]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(argv)
-    assert not (tmp_path / "o.jsonl").exists()
+def _campaign_jsonls(tmp_path):
+    """Two campaign result files: hits, misses with residuals, a record
+    with NaN (contrived: no target) gs and residual, and a NaN found_raw."""
+    nan = float("nan")
+    meta = dict(family="chimera_x", arm="nmc", sweeps=64)
+    a = [dict(name="001.txt", n=16, gs_raw=-20.0, found_raw=-20.0,
+              residual=0.0, hit=True, hit_seconds=0.5, wall_seconds=3.25,
+              meta=meta),
+         dict(name="002.txt", n=16, gs_raw=-18.0, found_raw=-17.0,
+              residual=1.0, hit=False, hit_seconds=None, wall_seconds=3.25,
+              meta=meta),
+         dict(name="003.txt", n=16, gs_raw=-30.0, found_raw=-29.0,
+              residual=1.0, hit=False, hit_seconds=None, wall_seconds=3.25,
+              meta=meta),
+         dict(name="004.txt", n=16, gs_raw=-12.0, found_raw=-12.0,
+              residual=0.0, hit=True, hit_seconds=1.75, wall_seconds=3.25,
+              meta=meta)]
+    b = [dict(name="t_1.txt", n=28, gs_raw=nan, found_raw=-40.5,
+              residual=nan, hit=False, hit_seconds=None, wall_seconds=1.0,
+              meta=dict(family="contrived_n4", arm="spectral", sweeps=0)),
+         dict(name="001.txt", n=16, gs_raw=-20.0, found_raw=-21.0,
+              residual=-1.0, hit=True, hit_seconds=0.25, wall_seconds=1.0,
+              meta=meta),
+         dict(name="t_2.txt", n=28, gs_raw=nan, found_raw=nan, residual=nan,
+              hit=False, hit_seconds=None, wall_seconds=1.0, meta=meta)]
+    paths = []
+    for tag, recs in (("a", a), ("b", b)):
+        path = tmp_path / f"{tag}_nmc.jsonl"
+        path.write_text("".join(json.dumps(r) + "\n" for r in recs))
+        paths.append(str(path))
+    (tmp_path / "empty.jsonl").write_text("")
+    return paths + [str(tmp_path / "empty.jsonl")]
+
+
+def test_collect_best_equals_jax(tmp_path, capsys):
+    """`campaign --collect-best` (in place of the refusal it replaces): the
+    minimum found_raw per name over the files, NaN skipped, merged into an
+    existing best-known file; the same JSON and line as JAX's."""
+    paths = _campaign_jsonls(tmp_path)
+    for tag in ("t", "j"):
+        (tmp_path / f"{tag}.json").write_text(json.dumps(
+            {"002.txt": -17.5, "001.txt": -19.0}))
+    cli.main(["campaign", "--collect-best", *paths, "--out",
+              str(tmp_path / "t.json"), "--device", "cpu"])
+    mine = capsys.readouterr().out
+    _jax_campaign(["campaign", "--collect-best", *paths, "--out",
+                   str(tmp_path / "j.json")])
+    theirs = capsys.readouterr().out
+    assert mine.replace("t.json", "j.json") == theirs
+    assert (tmp_path / "t.json").read_text() == \
+        (tmp_path / "j.json").read_text()
+    assert json.loads((tmp_path / "t.json").read_text()) == {
+        "001.txt": -21.0, "002.txt": -17.5, "003.txt": -29.0,
+        "004.txt": -12.0, "t_1.txt": -40.5}
+    with pytest.raises(SystemExit, match="requires --out"):
+        cli.main(["campaign", "--collect-best", *paths])
+
+
+def test_summarize_equals_jax(tmp_path, capsys):
+    """`campaign --summarize` (in place of the refusal it replaces): the
+    same table and rows as JAX's, NaN-target records skipped in the miss
+    residuals, no instance run."""
+    paths = _campaign_jsonls(tmp_path)
+    cli.main(["campaign", "--summarize", *paths, "--device", "cpu"])
+    mine = capsys.readouterr().out
+    _jax_campaign(["campaign", "--summarize", *paths])
+    assert mine == capsys.readouterr().out
+    rows = tcamp.summarize(paths)
+    assert rows == jcamp.summarize(paths)
+    assert [(r["hits"], r["instances"]) for r in rows] == [(2, 4), (1, 3)]
+    assert rows[0]["tts_p50"] == 1.75 and rows[1]["miss_res_p50"] is None
+    capsys.readouterr()
+
+
+def test_contrived_family_records_equal_jax(tmp_path, capsys):
+    """`campaign --kind contrived` (in place of the refusal it replaces) on
+    a folder written by `emit_contrived_ensemble`: without a best-known
+    file no target (every record a miss with null gs_raw); with
+    `--best-known` from `--collect-best` every instance a hit. Spectral
+    arm records equal to JAX's, wall clocks apart."""
+    from nmc_tpu_torch.io.generators import emit_contrived_ensemble
+    paths = emit_contrived_ensemble(str(tmp_path), 3, n_backbone=4,
+                                    levels=2, alpha=0.5,
+                                    num_cross_connections=4)
+    folder = paths[0].rsplit("/", 1)[0]
+    argv = ["campaign", "--kind", "contrived", "--folder", folder, "--arm",
+            "spectral", "--spectral-dm", "32", "--spectral-dm-iters", "60"]
+    best = str(tmp_path / "best.json")
+    for tag, extra in (("0", []), ("1", ["--best-known", best])):
+        out_t, out_j = tmp_path / f"t{tag}.jsonl", tmp_path / f"j{tag}.jsonl"
+        cli.main([*argv, *extra, "--device", "cpu", "--out", str(out_t)])
+        _jax_campaign([*argv, *extra, "--out", str(out_j)])
+        mine, theirs = _records(out_t), _records(out_j)
+        assert [r["name"] for r in mine] == [
+            p.rsplit("/", 1)[1] for p in paths] == \
+            [r["name"] for r in theirs]
+        for a, b in zip(mine, theirs):
+            assert set(a) == RECORD_KEYS and a["n"] == 28
+            for r in (a, b):
+                r.pop("wall_seconds"), r.pop("hit_seconds")
+            assert a == b
+        if tag == "0":
+            assert all(r["gs_raw"] is None and not r["hit"] for r in mine)
+            cli.main(["campaign", "--collect-best", str(out_t), "--out",
+                      best, "--device", "cpu"])
+        else:
+            assert all(r["hit"] for r in mine)
+    capsys.readouterr()
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -248,21 +346,27 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert cli.resolve_cli_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("sub", ["nmc", "apt", "npt", "icm", "campaign"])
+@pytest.mark.parametrize("sub", ["nmc", "apt", "npt", "icm", "campaign",
+                                 "beam", "evaluate"])
 def test_every_subcommand_takes_device_default_cuda(sub, monkeypatch,
                                                     tmp_path):
     """--device defaults to cuda on every subcommand; without a card that
     default fails instead of running on the CPU."""
-    args = cli.build_parser().parse_args([sub])
+    fam = str(tmp_path / "fam")
+    base = {"beam": [sub, fam + "/001.txt"],
+            "evaluate": [sub, "--folder", fam]}.get(sub, [sub])
+    args = cli.build_parser().parse_args(base)
     assert args.device == "cuda"
-    assert cli.build_parser().parse_args([sub, "--device", "cpu"]).device \
+    assert cli.build_parser().parse_args([*base, "--device", "cpu"]).device \
         == "cpu"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     np.save(tmp_path / "J.npy", random_sk(8, seed=1).J)
     write_chimera_family(tmp_path / "fam", count=1)
     argv = {"campaign": ["campaign", "--kind", "chimera", "--folder",
-                         str(tmp_path / "fam"), "--arm", "pt", "--out",
-                         str(tmp_path / "o.jsonl")]}.get(
+                         fam, "--arm", "pt", "--out",
+                         str(tmp_path / "o.jsonl")],
+            "beam": [*base, "--kind", "chimera"],
+            "evaluate": [*base, "--family", "chimera"]}.get(
         sub, [sub, "--J", str(tmp_path / "J.npy"), "--coloring"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(argv)
