@@ -35,6 +35,18 @@ non-zero without printing a result:
                  chimera 8x8 and 16x16; K1 (several replicas per CTA) = K2
                  = K3 bit for bit with their own Philox draws on +-J and
                  Gaussian chimera 8x8; the Boltzmann TV of K2 and K3;
+  4b. sequential_kernel — the sequential route (`sequential_sweeps`: the
+                 same body over J in blocks of one spin, the XLA sweep
+                 run_sweeps(within_block="sequential") on the card) with
+                 injected uniforms, recorded: bit for bit against its plain
+                 twin run_sweeps on +-J SK-1000 (n_pad 1024) at R = 64, within
+                 `_compare`'s tolerance on an uncoloured Gaussian chimera
+                 8x8 at R = 256, bit for bit against the plain sweeps over
+                 its layout on both, the recorded M against the twin's; its
+                 Philox draws against the Boltzmann law of a 4-cycle; ms per
+                 call of the route and the plain version beside the bound
+                 at EnsemblePT's launch (Gaussian SK-1000, R = 64 x 16) and
+                 on the chimera (R = 256 x 16);
   5. nmc_512   — nmc_run on chimera 8x8, 256 chains, reduced depth, through
                  K1 (launch count of that run); plus the NMC cycle loop at a
                  small size on the card against the CPU path;
@@ -191,8 +203,24 @@ non-zero without printing a result:
                  registers and CTAs per SM; and K2 against K1 (bit for
                  bit, then each timed) on a denser colored layout, 32
                  random matchings at N = 4096.
-Phases 5-8, 10-12, 12c, 12d, 12f-12h, 12j-12n, 12p, 12q and 14 are the
-main paths:
+Then, after 12h, three phases of the single-card modules on the sequential
+route:
+ 12h2. compat — the reference-compatible shims on the card on
+                 chimera_graph(4, 4) (128 spins), uncoloured: NMC.run,
+                 APT_preprocessor.run, NPT.run on its ladder and
+                 APT_ICM.run at reduced sweeps, each through
+                 sequential_sweeps and no other kernel; shapes, seconds,
+                 launches, the PNGs written or warned about (no matplotlib);
+ 12h3. ensemble_pt — EnsemblePT on 100 SK-1000 instances x 64 replicas
+                 (BASELINE config 5 on one card), 1 + 2 rounds of 32
+                 sweeps, one launch per instance and round; seconds per
+                 round; best energies against the f64 energies of the best
+                 states;
+ 12h4. native_clusters — not a main path: the g++-built union-find
+                 against scipy on 3200 disagreement pairs at chimera 16x16:
+                 equal partitions, both times.
+Phases 5-8, 10-12, 12c, 12d, 12f-12h, 12h2, 12h3, 12j-12n, 12p, 12q and
+14 are the main paths:
 each sets the launch counts to 0 just before it and reads them just after. Then one
 line {"kernels": [...]}, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
@@ -206,7 +234,9 @@ time patched copies of the round kernels', the exact kernels' and the
 sweep body's sources against the kernels as they are, in turns
 (ROUND_ABLATIONS, EXACT_ABLATIONS, SWEEP_ABLATIONS; the last also each
 replicas-per-CTA and width pair of K1 at R = 256 x 500 and 2048 x 1024,
-each CTA width of K2/K3 at their launch shapes, and block steps);
+each CTA width of K2/K3 at their launch shapes, block steps, and the
+sequential route at EnsemblePT's launch and on the uncoloured chimera,
+with a variant that never skips a step's gather);
 `--sweep-times` times K1-K3 alone at their launch and throughput shapes
 with the chip_smoke.py and package of CHECKOUT (default: this one), to
 compare two checkouts in turns on one card.
@@ -253,6 +283,7 @@ def _wrappers():
     return {"colored_sweeps": sc.colored_sweeps,
             "colored_sweeps_streamed": sc.colored_sweeps_streamed,
             "colored_sweeps_sparse": sc.colored_sweeps_sparse,
+            "sequential_sweeps": sc.sequential_sweeps,
             "ensemble_round": rc.ensemble_round,
             "ensemble_round_sparse": rc.ensemble_round_sparse,
             "mitm_min": ec.mitm_min, "mitm_min_i8": ec.mitm_min_i8}
@@ -433,9 +464,9 @@ def _kernel_fns(name, eng, threads=None):
 
 def _bit_equal(a, b):
     """Every output of two sweep results equal element for element (==, so
-    a zero's sign aside)."""
+    a zero's sign aside; unrecorded states None in both)."""
     import torch
-    return all(torch.equal(x, y) for x, y in zip(a, b))
+    return all(x is y is None or torch.equal(x, y) for x, y in zip(a, b))
 
 
 def _gaussian_chimera(size, seed=5):
@@ -3033,6 +3064,16 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0,
         fns = (functools.partial(sc.colored_sweeps, nbrs=eng.sweep_nbrs),
                sc.colored_sweeps_reference)
         P, threads = sc.k1_launch(R, n_pad, sc._num_sms(DEVICE))
+    elif name == "sequential_sweeps":
+        from nmc_tpu_torch.ops.sweeps import run_sweeps
+        one = torch.ones((), device=DEVICE)
+
+        def call(fn, m, T):
+            return fn(eng.J_rows, eng.J_diag, eng.h, m.m, m.phi, gen,
+                      betas[:T], one, eng.active[None], num_sweeps=T)
+        fns = (functools.partial(sc.sequential_sweeps, nbrs=eng.sweep_nbrs),
+               functools.partial(run_sweeps, within_block="sequential"))
+        P, threads = sc.k1_launch(R, n_pad, sc._num_sms(DEVICE))
     else:
         fns = _kernel_fns(name, eng)
         ones = torch.ones(R, device=DEVICE)
@@ -3091,7 +3132,9 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0,
     k_ms = min(times["kernel"])
     p_ms = min(times["plain"]) if with_plain else None
     regs, ctas = sc.sweep_occupancy(n_pad, threads, P)
-    return {"name": name, "R": R, "sweeps": sweeps, "iters": iters, "N": N,
+    steps = int(eng.sweep_nbrs.step_ptr.shape[0]) - 1
+    return {"name": name, "R": R, "steps_per_sweep": steps,
+            "kernel_us_per_step": 1e3 * k_ms / (sweeps * steps), "sweeps": sweeps, "iters": iters, "N": N,
             "n_pad": n_pad, "threads": threads, "replicas_per_cta": P,
             "registers": regs, "ctas_per_sm": ctas, "beta": beta, "ms": times,
             "kernel_ms_per_call": k_ms, "plain_ms_per_call": p_ms,
@@ -3174,6 +3217,307 @@ def _dense_layout(torch):
                                   "kernel_ms_per_call", "bound_ms",
                                   "flips_per_attempt", "ms")}
     return out
+
+
+# ---- the sequential route and the modules on it ------------------------------
+
+# BASELINE config 5: 100 SK-1000 instances x 64 replicas on one card
+SK_N, SK_INSTANCES, SK_REPLICAS = 1000, 100, 64
+# the sequential route's timed shape: EnsemblePT's launch (R = 64, one
+# round of 32 sweeps); the plain version's per-spin loop takes ~0.1 s a
+# sweep there, so it is timed at 16
+SEQ_SHAPE = (SK_REPLICAS, 16)
+
+
+def _sk_pm(n, seed):
+    """SK with +-1 couplings and no fields (every sum exact in f32)."""
+    from nmc_tpu_torch.core.problem import IsingProblem
+    rng = np.random.default_rng(seed)
+    J = np.triu(rng.choice([-1.0, 1.0], size=(n, n)), 1)
+    return IsingProblem(J + J.T, np.zeros(n))
+
+
+def _sequential_cases():
+    """(tag, problem, R, +-1): +-J SK-1000 (n_pad 1024, one spin a step)
+    and Gaussian chimera 8x8 without colouring (n_pad 512)."""
+    from nmc_tpu_torch.io.generators import chimera_graph
+    return (("sk1000_pm", _sk_pm(SK_N, 0), SK_REPLICAS, True),
+            ("chimera512_gauss", chimera_graph(8, 8, seed=5, pm=False)
+             .normalized()[0], 256, False))
+
+
+def phase_sequential_kernel():
+    """The sequential route (`sequential_sweeps`, the sweep body over the
+    one-spin-block layout) against its plain twin `run_sweeps(within_block=
+    "sequential")` with injected uniforms, 8 sweeps from beta 0.3 to 3,
+    recorded: bit for bit on +-J SK-1000 (R = 64), within `_compare`'s
+    tolerance on Gaussian chimera 8x8 (R = 256); bit for bit against
+    `neighbor_sweeps_reference` over its layout on both; the recorded M
+    against the twin's; its own Philox draws against the Boltzmann law of
+    a 4-cycle; ms per call of the route and the plain version beside the
+    bound at EnsemblePT's launch (its first instance, Gaussian SK-1000,
+    R = 64; 16 sweeps) and on the chimera case (R = 256, 16 sweeps)."""
+    import torch
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    from nmc_tpu_torch.ops.engine import SweepEngine
+    from nmc_tpu_torch.ops.sweeps import run_sweeps
+    out = {"phase": "sequential_kernel"}
+    max_err = 0.0
+    timing = {}
+    for tag, prob, R, pm in _sequential_cases():
+        eng = SweepEngine(prob, device=DEVICE)
+        check(eng.sweep_kernel == "sequential_sweeps",
+              f"{tag}: route {eng.sweep_kernel}")
+        n_pad, T = eng.n_pad, 8
+        gen = torch.Generator(device=DEVICE).manual_seed(3)
+        m0 = eng.init_states(gen, R)
+        phi0 = eng.fields(m0)
+        u = torch.rand((T, R, n_pad), generator=gen, device=DEVICE)
+        beta = torch.linspace(0.3, 3.0, T, device=DEVICE)
+        one = torch.ones((), device=DEVICE)
+        mask = eng.active.expand(R, n_pad)
+        args = (eng.J_rows, eng.J_diag, eng.h, m0, phi0, None, beta, one,
+                mask)
+        k = sc.sequential_sweeps(*args, num_sweeps=T, record_m=True,
+                                 uniforms=u, nbrs=eng.sweep_nbrs)
+        torch.cuda.synchronize()
+        p = run_sweeps(*args, num_sweeps=T, within_block="sequential",
+                       record_m=True, uniforms=u)
+        nb = sc.neighbor_sweeps_reference(
+            eng.sweep_nbrs, eng.h, m0, phi0, None, beta,
+            torch.ones(R, device=DEVICE), mask, num_sweeps=T, uniforms=u,
+            record_m=True)
+        check(_bit_equal(k, nb), f"{tag}: kernel != its layout's plain sweeps")
+        check(torch.equal(k.M[-1], k.m), f"{tag}: M[-1] is not the last state")
+        res = {"n_pad": n_pad, "R": R, "sweeps": T,
+               "steps_per_sweep": int(eng.sweep_nbrs.step_ptr.shape[0]) - 1,
+               "entries": int(eng.sweep_nbrs.src.shape[0]),
+               "bit_equal_layout_twin": True}
+        if pm:
+            check(_bit_equal(k, p), f"{tag}: kernel != run_sweeps bit for bit")
+            res["bit_equal_run_sweeps"] = True
+        else:
+            res["vs_run_sweeps"], err = _compare(torch, tag, k, p,
+                                                 eng.J_full, eng.h, m0, mask)
+            same = ~(k.m != p.m).any(dim=1)
+            check(torch.equal(k.M[:, same], p.M[:, same]),
+                  f"{tag}: recorded states differ from run_sweeps'")
+            max_err = max(max_err, err)
+        res["flipped_spins"] = int((k.m != m0).sum())
+        out[tag] = res
+        timing[tag] = (prob, eng)
+
+    def run(eng, m, gen, beta, sweeps):
+        return sc.sequential_sweeps(
+            eng.J_rows, eng.J_diag, eng.h, m, eng.fields(m), gen,
+            torch.full((sweeps,), beta, device=DEVICE),
+            torch.ones((), device=DEVICE), eng.active[None],
+            num_sweeps=sweeps).m
+    tv = _boltzmann_tv(torch, run)
+    check(tv < 0.05, f"sequential_sweeps Philox TV {tv} >= 0.05")
+    out["boltzmann_tv"] = tv
+    from nmc_tpu_torch.io.generators import random_sk
+    prob = random_sk(SK_N, seed=0)
+    tp = _throughput_one(torch, "sequential_sweeps", prob,
+                         SweepEngine(prob, device=DEVICE), *SEQ_SHAPE, 1)
+    out["throughput_sk1000"] = tp
+    prob, eng = timing["chimera512_gauss"]
+    out["throughput_chimera512"] = _throughput_one(
+        torch, "sequential_sweeps", prob, eng, 256, 16, 1)
+    emit(out)
+    return max_err, tp
+
+
+def phase_compat():
+    """The reference-compatible shims on the card on chimera_graph(4, 4)
+    (128 spins, the reference's chimera128 size), uncoloured (the shims'
+    layout), at reduced sweeps: NMC.run, APT_preprocessor.run, NPT.run on
+    its ladder and APT_ICM.run, each through the sequential route and no
+    other kernel; shapes, seconds, launches, and the PNG files written or
+    warned about (the card's machine may lack matplotlib)."""
+    import os
+    import tempfile
+    import warnings
+    from nmc_tpu_torch.compat import APT_ICM, NMC, NPT, APT_preprocessor
+    from nmc_tpu_torch.io.generators import chimera_graph
+    prob = chimera_graph(4, 4, seed=7, pm=False)
+    n = prob.n
+    out = {"phase": "compat", "n": n}
+    total = 0
+    cwd = os.getcwd()
+
+    def timed(tag, fn, pngs):
+        nonlocal total
+        reset_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            result = fn()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        check(counts["sequential_sweeps"] > 0
+              and all(v == 0 for k, v in counts.items()
+                      if k != "sequential_sweeps"),
+              f"compat {tag}: launches {counts}")
+        total += counts["sequential_sweeps"]
+        warned = [str(w.message) for w in caught
+                  if "not written" in str(w.message)]
+        written = [f for f in pngs if os.path.exists(f)]
+        check(len(written) == len(pngs) or len(warned) == 1,
+              f"compat {tag}: PNGs {written}, warnings {warned}")
+        out[tag] = {"seconds": seconds,
+                    "launches": counts["sequential_sweeps"],
+                    "pngs_written": written, "warned": warned}
+        return result
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_compat_") as tmp:
+        os.chdir(tmp)
+        try:
+            nmc = NMC(prob.J, prob.h, device=DEVICE).seed(0)
+            M, e, e_min = timed("nmc", lambda: nmc.run(
+                num_sweeps_initial=1000, num_sweeps_per_NMC_phase=500,
+                num_NMC_cycles=2, global_beta=3.0, lambda_start=3.0,
+                max_iterations=200, tolerance=1e-8),
+                ["NMC_spins.png", "NMC_energy.png"])
+            check(M.shape == (n, 3000) and e.shape == (3000,)
+                  and np.isfinite(e).all() and e_min == e.min(),
+                  f"NMC.run shapes {M.shape}, {e.shape}")
+            check(abs(float(prob.normalized()[0].energy(M[:, int(np.argmin(
+                e))])) - e_min) <= 1e-3, "NMC.run: energy off its state")
+            out["nmc"]["shapes"] = [list(M.shape), list(e.shape)]
+            out["nmc"]["min_energy"] = e_min
+            apt = APT_preprocessor(prob.J, prob.h, device=DEVICE).seed(1)
+            beta, sigma = timed("apt_preprocessor", lambda: apt.run(
+                num_sweeps_MCMC=500, num_sweeps_read=250, num_rng=64,
+                alpha=1.5, beta_max=5.0), ["beta_sigma.png"])
+            check(len(beta) >= 3 and np.all(np.diff(beta) > 0)
+                  and os.path.exists("beta_list_python.npy"),
+                  f"APT ladder {beta}")
+            out["apt_preprocessor"]["ladder"] = beta
+            R = min(len(beta), 8)
+            npt = NPT(prob.J, prob.h, device=DEVICE).seed(2)
+            M, E = timed("npt", lambda: npt.run(
+                beta, R, [False] * (R - 2) + [True] * 2,
+                num_sweeps_MCMC=2000, num_sweeps_read=1000,
+                num_swap_attempts=10, num_cycles=1, lambda_start=3.0,
+                max_iterations=200, tolerance=1e-8), ["NPT_energy.png"])
+            check(M.shape == (R * n, 200) and E.shape == (R,)
+                  and np.isfinite(E).all(), f"NPT.run shapes {M.shape}")
+            out["npt"]["shapes"] = [list(M.shape), list(E.shape)]
+            norm = np.abs(prob.J).max()
+            icm = APT_ICM(prob.J / norm, prob.h / norm, device=DEVICE).seed(3)
+            M, E = timed("apt_icm", lambda: icm.run(
+                beta, R, num_sweeps_MCMC=2000, num_sweeps_read=1000,
+                num_swap_attempts=10), ["APT_ICM_energy..png"])
+            check(M.shape == (n * R, 2000) and E.shape == (R,)
+                  and np.isfinite(E).all(), f"APT_ICM.run shapes {M.shape}")
+            out["apt_icm"]["shapes"] = [list(M.shape), list(E.shape)]
+        finally:
+            os.chdir(cwd)
+    emit(out)
+    return total
+
+
+def phase_ensemble_pt():
+    """EnsemblePT on BASELINE config 5 on one card: 100 SK-1000 instances x
+    64 replicas (J 0.42 GB in f32), a geometric ladder from 0.1 to 3, 32
+    sweeps a round through the sequential route (one launch per instance
+    and round), one round to warm up and then 2 timed; seconds per round,
+    launches, and each best energy against the f64 energy of its best
+    state."""
+    import torch
+    from nmc_tpu_torch.io.generators import random_sk
+    from nmc_tpu_torch.parallel import EnsembleConfig, EnsemblePT
+    t0 = time.perf_counter()
+    probs = [random_sk(SK_N, seed=s) for s in range(SK_INSTANCES)]
+    cfg = EnsembleConfig(num_replicas=SK_REPLICAS)
+    ens = EnsemblePT(probs, np.geomspace(0.1, 3.0, SK_REPLICAS), cfg,
+                     device=DEVICE)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    check(ens.sweep_kernel == "sequential_sweeps", "EnsemblePT route")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    state = ens.init_state(gen)
+    reset_counts()
+    t0 = time.perf_counter()
+    state = ens.run(state, 1)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    rounds = 2
+    t0 = time.perf_counter()
+    state = ens.run(state, rounds)
+    torch.cuda.synchronize()
+    per_round = (time.perf_counter() - t0) / rounds
+    launches = read_counts()
+    check(launches["sequential_sweeps"] == SK_INSTANCES * (rounds + 1)
+          and all(v == 0 for k, v in launches.items()
+                  if k != "sequential_sweeps"),
+          f"EnsemblePT launches {launches}")
+    best_m, best_e = ens.best_states(state), ens.best_energies(state)
+    check(best_m.shape == (SK_INSTANCES, SK_N) and np.isfinite(best_e).all()
+          and np.isin(best_m, [-1.0, 1.0]).all(), "EnsemblePT bests")
+    e64 = np.array([p.energy(m) for p, m in zip(probs, best_m)])
+    err = float(np.abs(e64 - best_e).max())
+    check(err <= 1e-3, f"best energies off their f64 energies by {err}")
+    perms = state.beta_to_slot.sort(dim=1).values.cpu().numpy()
+    check((perms == np.arange(SK_REPLICAS)).all(), "label maps not perms")
+    emit({"phase": "ensemble_pt", "instances": SK_INSTANCES, "n": SK_N,
+          "n_pad": ens.n_pad, "replicas": SK_REPLICAS,
+          "sweeps_per_round": cfg.sweeps_per_round, "setup_seconds": setup,
+          "warmup_round_seconds": warm, "seconds_per_round": per_round,
+          "launches": launches["sequential_sweeps"],
+          "J_bytes": int(ens.J_rows.numel() * 4),
+          "layout_bytes": int(sum(
+              t.numel() * t.element_size() for nb in ens.sweep_nbrs
+              for t in nb if isinstance(t, torch.Tensor))),
+          "best_energy_mean": float(best_e.mean()),
+          "best_vs_f64_max_abs_err": err})
+    return launches["sequential_sweeps"]
+
+
+def phase_native_clusters():
+    """Not a main path: the native union-find (`connected_components_masked`,
+    g++-built cluster.cpp) against scipy's connected_components over the
+    same CSR adjacency, on 3200 disagreement pairs at chimera 16x16 (2048
+    spins; disagreement 5-60%): equal partitions, and both times."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+    from nmc_tpu_torch import native
+    from nmc_tpu_torch.io.generators import chimera_graph
+    prob = chimera_graph(16, 16, seed=0)
+    adj = native.CSRAdjacency(prob.J)
+    native.load_cluster_library()
+    rng = np.random.default_rng(0)
+    n, pairs = prob.n, 3200
+    s1 = np.where(rng.random((pairs, n)) < 0.5, -1.0, 1.0)
+    frac = rng.uniform(0.05, 0.6, size=(pairs, 1))
+    s2 = np.where(rng.random((pairs, n)) < frac, -s1, s1)
+    active = (s1 * s2) < 0
+    J_mask = csr_matrix((np.ones_like(adj.indices, dtype=np.int8),
+                         adj.indices, adj.indptr), shape=(n, n))
+    t0 = time.perf_counter()
+    ours = [native.connected_components_masked(adj, a) for a in active]
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = []
+    for a in active:
+        diff = np.flatnonzero(a)
+        ncomp, labels = connected_components(J_mask[diff][:, diff],
+                                             directed=False)
+        ref.append([diff[labels == c] for c in range(ncomp)])
+    t_scipy = time.perf_counter() - t0
+    comps = 0
+    for a, b in zip(ours, ref):
+        b = sorted(b, key=lambda c: c[0])
+        check(len(a) == len(b) and all(np.array_equal(x, y)
+                                       for x, y in zip(a, b)),
+              "union-find partition differs from scipy's")
+        comps += len(a)
+    emit({"phase": "native_clusters", "n": n, "pairs": pairs,
+          "components": comps, "native_seconds": t_native,
+          "scipy_seconds": t_scipy, "native_ms_per_pair":
+              1e3 * t_native / pairs, "scipy_ms_per_pair":
+              1e3 * t_scipy / pairs})
 
 
 def phase_throughput(card, c2048, r4096, ens512, ens2048):
@@ -3463,6 +3807,8 @@ _SW_W_ONCE = [("kP > 1 ? __ldg(a.w + e) : 0.f", "__ldg(a.w + e)"),
 _SW_W_WHEN_FLIPPED = [
     ("      const float w = kP > 1 ? __ldg(a.w + e) : 0.f;\n", ""),
     ("kP > 1 ? w : __ldg(a.w + e)", "__ldg(a.w + e)")]
+_SW_NO_SKIP = ("        if (!__syncthreads_or(flipped)) continue;",
+               "        __syncthreads_or(flipped);")
 _SW_FULL_SM = ("__launch_bounds__(kWidth) colored_sweeps_nbr_kernel",
                "__launch_bounds__(kWidth, 2048 / kWidth) "
                "colored_sweeps_nbr_kernel")
@@ -3471,9 +3817,9 @@ SWEEP_ABLATIONS = {
     "no_sweep_energy": [_SW_NO_ENERGY],
     "no_gather_philox_energy": [_SW_NO_GATHER, _SW_NO_PHILOX, _SW_NO_ENERGY],
     "w_load_once": _SW_W_ONCE, "w_load_when_flipped": _SW_W_WHEN_FLIPPED,
-    "full_sm_bounds": [_SW_FULL_SM]}
+    "full_sm_bounds": [_SW_FULL_SM], "no_skip_idle": [_SW_NO_SKIP]}
 _SWEEP_SAME_ARITHMETIC = ("w_load_once", "w_load_when_flipped",
-                          "full_sm_bounds")
+                          "full_sm_bounds", "no_skip_idle")
 # K1's ablation shapes on chimera 8x8: its main-path launch shape and the
 # throughput shape (bench.py's R = 2048 x 1024 sweeps)
 K1_ABLATION_SHAPES = ((256, 500), (2048, 1024))
@@ -3485,13 +3831,20 @@ def sweep_ablation(turns=7):
     and their throughput shape R = 2048 x 256: per shape each (replicas
     per CTA, width) that fits (K1: P in 1, 2, 4, 8 x widths 128-1024 of at
     least 32 P; K2/K3: P = 1 at each of their widths), then block steps at
-    the rule's shape, from a burnt-in state at beta 2 (Philox). On the
+    the rule's shape; and the sequential route at its rule's shape on
+    EnsemblePT's instance (SEQ_SHAPE's R, 32 sweeps) and on the uncoloured
+    Gaussian chimera 8x8 (R = 256 x 16); all from a burnt-in state at beta
+    2 (Philox). On the
     kernel as is, and on the variants that keep its arithmetic, every case
     of a shape equals the kernel as is at the rule's shape bit for bit on 4
     sweeps of injected uniforms."""
     import torch
+    from nmc_tpu_torch.io.generators import random_sk
     from nmc_tpu_torch.ops import sweeps_cuda as sc
+    from nmc_tpu_torch.ops.engine import SweepEngine
     c512, c2048, r4096 = _flagship()[1], _chimera2048()[1], _regular3()[1]
+    sk = SweepEngine(random_sk(SK_N, seed=0), device=DEVICE)
+    chim = SweepEngine(_sequential_cases()[1][1], device=DEVICE)
     sms = sc._num_sms(DEVICE)
     shapes = ([("colored_sweeps", c512, R, T) for R, T in K1_ABLATION_SHAPES]
               + [("colored_sweeps_sparse", c2048, R, T)
@@ -3499,7 +3852,9 @@ def sweep_ablation(turns=7):
               + [("colored_sweeps_sparse", c2048, *SWEEP_THROUGHPUT)]
               + [("colored_sweeps_streamed", r4096, R, T)
                  for R, T, _, _ in LAUNCH_SHAPES["colored_sweeps_streamed"]]
-              + [("colored_sweeps_streamed", r4096, *SWEEP_THROUGHPUT)])
+              + [("colored_sweeps_streamed", r4096, *SWEEP_THROUGHPUT)]
+              + [("sequential_sweeps", sk, SEQ_SHAPE[0], 32),
+                 ("sequential_sweeps", chim, 256, 16)])
     block_steps = {id(eng): sc.sweep_neighbors_from_dense(
         eng.J_rows, steps=range(eng.blocked.num_blocks + 1))
         for eng in (c512, c2048, r4096)}
@@ -3519,6 +3874,14 @@ def sweep_ablation(turns=7):
                     eng.active[None], num_sweeps=T,
                     block_size=eng.blocked.block_size, threads=threads,
                     replicas_per_cta=P, nbrs=nbrs, **kw)
+        elif name == "sequential_sweeps":
+            one = torch.ones((), device=DEVICE)
+
+            def run(state, T, **kw):
+                return sc.sequential_sweeps(
+                    eng.J_rows, eng.J_diag, eng.h, state.m, state.phi, gen,
+                    betas[:T], one, eng.active[None], num_sweeps=T,
+                    threads=threads, replicas_per_cta=P, nbrs=nbrs, **kw)
         else:
             kernel = functools.partial(
                 sc.colored_sweeps_sparse, *_tiles(eng)) if name == \
@@ -3554,8 +3917,14 @@ def sweep_ablation(turns=7):
 
     for name, eng, R, T in shapes:
         kind = {"colored_sweeps": "K1", "colored_sweeps_sparse": "K3",
-                "colored_sweeps_streamed": "K2"}[name]
+                "colored_sweeps_streamed": "K2",
+                "sequential_sweeps": "SEQ"}[name]
         shape = f"{kind} R={R}x{T}"
+        if name == "sequential_sweeps":
+            cases[shape] = case(shape, name, eng, R, T,
+                                *sc.k1_launch(R, eng.n_pad, sms),
+                                eng.sweep_nbrs)
+            continue
         if name == "colored_sweeps":
             rule = sc.k1_launch(R, eng.n_pad, sms)
             grid = [(P, w) for P in sc.K1_REPLICAS_PER_CTA
@@ -3626,6 +3995,7 @@ def main():
     c2048, r4096 = _chimera2048(), _regular3()
     errs = {"colored_sweeps": phase_kernel()}
     errs.update(phase_streamed_kernels(c2048, r4096))
+    errs["sequential_sweeps"], seq_tp = phase_sequential_kernel()
     launches = {"colored_sweeps": phase_nmc_512(),
                 "colored_sweeps_sparse": phase_nmc_2048(c2048)}
     launches["colored_sweeps_sparse"] += phase_npt_2048(c2048)
@@ -3645,6 +4015,9 @@ def main():
         launches[name] += count
     for name, count in phase_apt_icm(c2048).items():
         launches[name] += count
+    launches["sequential_sweeps"] = phase_compat()
+    launches["sequential_sweeps"] += phase_ensemble_pt()
+    phase_native_clusters()
     phase_spectral()
     phase_solve_wishart()
     phase_solve_contrived()
@@ -3660,6 +4033,7 @@ def main():
     phase_exact_enum(k6_energy)
     phase_exact_tiers()
     tp = phase_throughput(card, c2048, r4096, ens512, ens2048)
+    tp["sequential_sweeps"] = seq_tp
     for name in ("mitm_min", "mitm_min_i8"):
         errs[name] = max(errs[name], tp[name]["max_abs_err"])
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
@@ -3671,6 +4045,9 @@ def main():
                "colored_sweeps_sparse": (
                    "nmc_tpu_torch/csrc/colored_sweeps_nbr.cu",
                    "nmc_tpu/ops/sweeps_pallas.py:493"),
+               "sequential_sweeps": (
+                   "nmc_tpu_torch/csrc/colored_sweeps_nbr.cu",
+                   "nmc_tpu/ops/sweeps.py:71"),
                "ensemble_round": ("nmc_tpu_torch/csrc/ensemble_round.cu",
                                   "nmc_tpu/ops/round_pallas.py:458"),
                "ensemble_round_sparse": (

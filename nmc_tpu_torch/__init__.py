@@ -25,7 +25,13 @@ refinement, the staged portfolio solver (`portfolio_solve`), the chimera
 beam tier (host `solve_beam_chimera` with strip refinement, and the int32
 device beam `solve_beam_chimera_cuda` over torch's stable sorts), the
 evaluation harness, and the `nmc`/`apt`/`npt`/`icm`/`evaluate`/`campaign`/
-`solve`/`exact`/`beam`/`refine`/`generate` CLI.
+`solve`/`exact`/`beam`/`refine`/`generate` CLI. The sequential
+fixed-order sweep of uncoloured layouts (the drivers' default) runs on the
+card through the same sweep body (`sequential_sweeps`); `EnsemblePT` runs
+instance ensembles of PT ladders; the reference-compatible class shims
+(NMC, NPT, APT_preprocessor, APT_ICM, with the faithful host kernel) live
+in nmc_tpu_torch.compat, the figures in utils/plotting.py and the native
+union-find in nmc_tpu_torch.native.
 """
 
 from . import device  # noqa: F401  (sets the full-f32 matmul policy)
@@ -70,12 +76,14 @@ from .ops.sweeps_cuda import (colored_sweeps, colored_sweeps_reference,
                               colored_sweeps_sparse,
                               colored_sweeps_sparse_reference,
                               colored_sweeps_streamed,
-                              colored_sweeps_streamed_reference)
+                              colored_sweeps_streamed_reference,
+                              sequential_sweeps)
 from .portfolio import SolveResult, SolveStage, portfolio_solve
 from .refine import partition_crossover, refine_family, tree_refine_state
 from .tree_moves import tree_refine
-from .parallel import (EnsembleICM, EnsembleICMConfig, EnsembleICMState,
-                       EnsembleNMC, EnsembleNMCState, ShardedNPTConfig,
+from .parallel import (EnsembleConfig, EnsembleICM, EnsembleICMConfig,
+                       EnsembleICMState, EnsembleNMC, EnsembleNMCState,
+                       EnsemblePT, EnsembleState, ShardedNPTConfig,
                        metropolis_label_swap, select_pairs_device)
 
 __version__ = "0.1.0"
@@ -86,9 +94,11 @@ __all__ = [
     "SweepEngine", "colored_sweeps", "colored_sweeps_reference",
     "colored_sweeps_streamed", "colored_sweeps_streamed_reference",
     "colored_sweeps_sparse", "colored_sweeps_sparse_reference",
+    "sequential_sweeps",
     "ensemble_round", "ensemble_round_reference", "ensemble_round_sparse",
     "ensemble_round_sparse_reference", "EnsembleRoundResult",
     "EnsembleNMC", "EnsembleNMCState", "ShardedNPTConfig",
+    "EnsemblePT", "EnsembleConfig", "EnsembleState",
     "EnsembleICM", "EnsembleICMConfig", "EnsembleICMState",
     "metropolis_label_swap", "select_pairs_device",
     "NMCConfig", "NMCResult", "nmc_run", "nmc_subroutine",

@@ -11,8 +11,9 @@ randomly chosen non-overlapping adjacent temperature pairs are Metropolis
 tested once per sub-replica.
 
 Two Houdayer paths, `device_icm` (None: the device above 2048 spins):
-  * host: `ops/clusters.disagreement_clusters_adj` over a `CSRAdjacency`
-    built once, the cluster drawn by `host_rng`;
+  * host: `ops/clusters.disagreement_clusters_adj` (the native C++
+    union-find) over a `CSRAdjacency` built once, the cluster drawn by
+    `host_rng`;
   * device: one batched `houdayer_move_sparse` call over the problem's
     edge list (`EdgeGraph`) for all R * S // 2 pairs.
 

@@ -14,9 +14,10 @@ follows from the same arithmetic.)
 
 Houdayer clusters: the connected components of the J-adjacency subgraph
 induced on the spins where two states disagree (s1_i * s2_i == -1).
-  * host (numpy, scipy): `disagreement_clusters` over dense J and
+  * host: `disagreement_clusters` over dense J (scipy) and
     `disagreement_clusters_adj` over a `CSRAdjacency` built once per
-    problem, both listing the components by smallest member;
+    problem (the native C++ union-find, `native/cluster.cpp`), both
+    listing the components by smallest member;
   * device (torch), batched over a leading pair axis [P, n]: min-label
     propagation to the fixed point (`_label_fixpoint`), where each
     disagreeing spin ends with the smallest spin index of its component
@@ -47,6 +48,7 @@ import torch
 from scipy.sparse import csr_matrix
 from scipy.sparse.csgraph import connected_components
 
+from ..native import CSRAdjacency, connected_components_masked
 
 def find_clusters(
     J: np.ndarray,
@@ -169,35 +171,18 @@ def disagreement_clusters(
     return [diff[labels == c] for c in range(ncomp)]
 
 
-class CSRAdjacency:
-    """Reusable CSR adjacency of a (symmetric) J, built once per problem."""
-
-    def __init__(self, J):
-        Jc = csr_matrix(np.asarray(
-            J.toarray() if hasattr(J, "toarray") else J) != 0)
-        Jc.sort_indices()
-        self.indptr = Jc.indptr.astype(np.int64)
-        self.indices = Jc.indices.astype(np.int32)
-        self.n = Jc.shape[0]
-
-
 def disagreement_clusters_adj(adj: CSRAdjacency, s1, s2) -> List[np.ndarray]:
-    """Houdayer clusters over a prebuilt `CSRAdjacency`: O(active nodes +
-    incident edges) per call instead of re-densifying J. The same partition
-    in the same order (by smallest member) as `disagreement_clusters` and
-    as the JAX package's native union-find."""
+    """Houdayer clusters over a prebuilt `CSRAdjacency` by the native C++
+    union-find (`native.connected_components_masked`, as the JAX package
+    calls it): O(active nodes + incident edges) per call instead of
+    re-densifying J. The same partition in the same order (by smallest
+    member) as `disagreement_clusters`."""
     s1 = np.asarray(s1).reshape(-1)
     s2 = np.asarray(s2).reshape(-1)
     active = (s1 * s2) < 0
     if not active.any():
         return []
-    diff = np.flatnonzero(active)
-    J_mask = csr_matrix(
-        (np.ones_like(adj.indices, dtype=np.int8), adj.indices, adj.indptr),
-        shape=(adj.n, adj.n))
-    sub = J_mask[diff][:, diff]
-    ncomp, labels = connected_components(sub, directed=False)
-    return [diff[labels == c] for c in range(ncomp)]
+    return connected_components_masked(adj, active)
 
 
 # ---- Houdayer disagreement clusters: device, batched over pairs ----------

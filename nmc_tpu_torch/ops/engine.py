@@ -4,9 +4,8 @@ Owns the device copies of a BlockedProblem and runs batched sweeps in
 ORIGINAL spin order (permutation and padding handled internally); the
 counterpart of ``nmc_tpu/ops/engine.py``.
 
-Routing of a colored, block-Jacobi, fixed-order run without state
-recording, as in the JAX engine (`sweep_kernel` names the choice, made once
-at setup from the layout):
+Routing of a colored, block-Jacobi, fixed-order run, as in the JAX engine
+(`sweep_kernel` names the choice, made once at setup from the layout):
   * n_pad <= 1536: `colored_sweeps` (K1, whose Pallas kernel holds dense J);
   * above, when every row block touches at most nB/2 column tiles of J:
     `colored_sweeps_sparse` (K3, the block-sparse tiles, built at setup);
@@ -17,9 +16,18 @@ built once at setup from J and passed on every call; K1 gets a scalar
 beta_spin when nothing is heated and the active row as a one-row mask when
 no update mask is given, so that it reads neither as [R, n_pad]. Each
 wrapper launches its CUDA kernel on a CUDA device and runs its plain torch
-version (from J or the tiles) on the CPU. Everything else (sequential
-within-block scans, recorded states) runs `ops/sweeps.run_sweeps` in plain
-torch, as JAX ran it through XLA.
+version (from J or the tiles) on the CPU.
+
+An uncoloured f32 layout with the sequential fixed-order sweep (the
+drivers' default, which JAX ran through XLA) takes `sequential_sweeps`:
+the same kernel body over the layout of J in blocks of one spin
+(`sequential_neighbors`, built at setup as `sweep_nbrs`), whose steps are
+runs of mutually uncoupled consecutive spins. Recorded runs (`record_m`)
+stay on these routes: the kernel writes the state after every sweep.
+The other uncoloured runs (f64, as the kernels are f32 like JAX's Pallas
+route; random block order; block-Jacobi) and random block order on a
+coloured layout run `ops/sweeps.run_sweeps` in plain torch, a route fixed
+at setup.
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ from ..core.problem import (BlockedProblem, IsingProblem, block_problem,
 from ..device import resolve_device, resolve_dtype
 from .sweeps import SweepResult, anneal_schedule, run_sweeps
 from .sweeps_cuda import (colored_sweeps, colored_sweeps_sparse,
-                          colored_sweeps_streamed, steps_are_independent,
+                          colored_sweeps_streamed, sequential_neighbors,
+                          sequential_sweeps, steps_are_independent,
                           sweep_neighbors_from_dense)
 
 # Largest n_pad the dense colored kernel K1 serves; above it the JAX package
@@ -106,6 +115,10 @@ class SweepEngine:
                                          device=dev)
         self.stream_tiles = self.sweep_nbrs = self.sweep_kernel = None
         if not blocked.colored:
+            if (self.within_block == "sequential" and block_order == "fixed"
+                    and dt == torch.float32):
+                self.sweep_kernel = "sequential_sweeps"
+                self.sweep_nbrs = sequential_neighbors(self.J_rows)
             return
         if blocked.n_pad <= K1_MAX_N_PAD:
             self.sweep_kernel = "colored_sweeps"
@@ -220,15 +233,18 @@ class SweepEngine:
 
         phi = self.fields(m0)
 
-        kernel_path = (self.sweep_kernel is not None
-                       and self.within_block == "jacobi"
-                       and self.block_order == "fixed"
-                       and not record_m)
-        if kernel_path:
+        if self.sweep_kernel == "sequential_sweeps":
+            res = sequential_sweeps(
+                self.J_rows, self.J_diag, self.h, m0, phi, generator,
+                beta_sweep, bs, mask, num_sweeps=num_sweeps,
+                record_m=record_m, uniforms=uniforms, nbrs=self.sweep_nbrs)
+        elif (self.sweep_kernel is not None
+              and self.within_block == "jacobi"
+              and self.block_order == "fixed"):
             res = self._run_kernel(m0, phi, generator, beta_sweep, bs, mask,
                                    beta_replica, beta_spin is not None,
                                    update_mask is not None, num_sweeps,
-                                   uniforms)
+                                   uniforms, record_m)
         else:
             res = run_sweeps(
                 self.J_rows, self.J_diag, self.h, m0, phi, generator,
@@ -246,7 +262,8 @@ class SweepEngine:
         )
 
     def _run_kernel(self, m0, phi, generator, beta_sweep, bs, mask,
-                    beta_replica, has_bs, has_mask, num_sweeps, uniforms):
+                    beta_replica, has_bs, has_mask, num_sweeps, uniforms,
+                    record_m):
         """The colored sweep kernel chosen at setup (`sweep_kernel`)."""
         mask_arg = mask if has_mask else self.active.reshape(1, self.n_pad)
         if self.sweep_kernel == "colored_sweeps":
@@ -254,7 +271,7 @@ class SweepEngine:
                 self.J_full, self.h, m0, phi, generator, beta_sweep, bs,
                 mask_arg, num_sweeps=num_sweeps,
                 block_size=self.blocked.block_size, uniforms=uniforms,
-                nbrs=self.sweep_nbrs)
+                nbrs=self.sweep_nbrs, record_m=record_m)
         else:
             # the streamed kernels' parameters, as the JAX engine passes them
             R = m0.shape[0]
@@ -268,11 +285,14 @@ class SweepEngine:
                 cres = colored_sweeps_sparse(
                     col_idx, J_tiles, self.h, m0, phi, generator, beta_sweep,
                     beta_row, mask_arg, bs_arg, num_sweeps=num_sweeps,
-                    uniforms=uniforms, nbrs=self.sweep_nbrs)
+                    uniforms=uniforms, nbrs=self.sweep_nbrs,
+                    record_m=record_m)
             else:
                 cres = colored_sweeps_streamed(
                     self.J_rows, self.h, m0, phi, generator, beta_sweep,
                     beta_row, mask_arg, bs_arg, num_sweeps=num_sweeps,
-                    uniforms=uniforms, nbrs=self.sweep_nbrs)
+                    uniforms=uniforms, nbrs=self.sweep_nbrs,
+                    record_m=record_m)
         return SweepResult(m=cres.m, phi=cres.phi, m_best=cres.m_best,
-                           e_best=cres.e_best, energies=cres.energies, M=None)
+                           e_best=cres.e_best, energies=cres.energies,
+                           M=cres.M if record_m else None)

@@ -12,12 +12,16 @@ not Pallas):
       - 'jacobi': all block spins at once, which is EXACT Gibbs whenever the
         block is an independent set (graph-colored blocks).
     After each block, phi += dm @ J[block, :].
+  * Blocks go in index order ('fixed') or, with block_order='random', in a
+    fresh permutation per sweep (drawn after the sweep's uniforms, as JAX
+    splits each sweep key into a uniform key and a permutation key).
   * Heating and freezing are a per-spin beta multiplier and an update mask.
   * Per-sweep energies come from phi: E = -0.5 * m.(phi + h), and the
     per-replica argmin-energy state is tracked as a running best.
 
 Randomness comes either from a `torch.Generator` (one [R, n_pad] uniform
-draw per sweep) or from injected uniforms [T, R, n_pad] in blocked layout,
+draw per sweep, then the block permutation under 'random') or from
+injected uniforms [T, R, n_pad] in blocked layout and block orders [T, nB],
 which lets tests replay another implementation's draws exactly.
 
 Heat-bath rule: m_k <- +1 with probability (1 + tanh(beta_k * phi_k)) / 2.
@@ -75,19 +79,25 @@ def run_sweeps(
     block_order: str = "fixed",
     record_m: bool = False,
     uniforms: Optional[torch.Tensor] = None,   # [T, R, n_pad] injected draws
+    block_orders: Optional[torch.Tensor] = None,  # [T, nB] injected orders
 ) -> SweepResult:
     """Run `num_sweeps` Gibbs sweeps for a batch of replicas."""
     if within_block not in ("jacobi", "sequential"):
         raise ValueError(f"unknown within_block={within_block!r}")
-    if block_order != "fixed":
-        raise NotImplementedError(
-            "block_order='random' is not ported yet (ROADMAP queue 1)")
+    if block_order not in ("fixed", "random"):
+        raise ValueError(f"unknown block_order={block_order!r}")
     nB, B, n_pad = J_rows.shape
     R = m0.shape[0]
     dtype, device = m0.dtype, m0.device
     if uniforms is not None and tuple(uniforms.shape) != (num_sweeps, R, n_pad):
         raise ValueError(f"uniforms must be [{num_sweeps}, {R}, {n_pad}], "
                          f"got {tuple(uniforms.shape)}")
+    if block_orders is not None:
+        block_orders = torch.as_tensor(block_orders).tolist()
+        if (len(block_orders) != num_sweeps
+                or any(sorted(o) != list(range(nB)) for o in block_orders)):
+            raise ValueError(f"block_orders must hold {num_sweeps} "
+                             f"permutations of {nB} blocks")
 
     beta_sweep = torch.as_tensor(beta_sweep, dtype=dtype,
                                  device=device).expand(num_sweeps)
@@ -109,7 +119,7 @@ def run_sweeps(
     for t in range(num_sweeps):
         u = _uniforms(generator, uniforms, t, (R, n_pad), dtype, device)
         beta_t = beta_sweep[t]
-        for b in range(nB):
+        for b in _block_order(block_order, block_orders, generator, t, nB):
             s = b * B
             xb = phi[:, s:s + B]
             mb = m[:, s:s + B]
@@ -142,6 +152,20 @@ def run_sweeps(
             M[t] = m
     return SweepResult(m=m, phi=phi, m_best=m_best, e_best=e_best,
                        energies=energies, M=M)
+
+
+def _block_order(block_order, block_orders, generator, t, nB):
+    """Sweep t's block order: index order, an injected order, or a fresh
+    permutation from `generator`."""
+    if block_order == "fixed":
+        return range(nB)
+    if block_orders is not None:
+        return block_orders[t]
+    if generator is None:
+        raise ValueError("block_order='random' needs a torch.Generator or "
+                         "injected block_orders")
+    return torch.randperm(nB, generator=generator,
+                          device=generator.device).tolist()
 
 
 def anneal_schedule(num_sweeps: int, beta: float, initial_beta: float,

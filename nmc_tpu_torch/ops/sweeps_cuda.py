@@ -1,9 +1,9 @@
-"""Colored-block Gibbs sweeps: the CUDA kernels' wrappers and their plain twins.
+"""Gibbs sweeps on the card: the CUDA kernels' wrappers and their plain twins.
 
 The counterparts of the three sweep kernels of
 ``nmc_tpu/ops/sweeps_pallas.py``, each running T sweeps of block-Jacobi
 heat-bath Gibbs on a graph-coloured layout with the replica state kept on
-chip for the whole launch:
+chip for the whole launch, and of one XLA function:
 
   * `colored_sweeps` (K1, ``pallas_colored_sweeps``): dense J [n_pad, n_pad],
     beta = beta_t * beta_spin, mask [R, n_pad];
@@ -12,13 +12,20 @@ chip for the whole launch:
     beta_spin optional, mask [1 | R, n_pad];
   * `colored_sweeps_sparse` (K3, ``pallas_colored_sweeps_sparse``): K2 over
     each row block's nonzero column tiles (col_idx [nB, K], J_tiles
-    [nB, K, B, B] from `block_sparse_tiles`).
+    [nB, K, B, B] from `block_sparse_tiles`);
+  * `sequential_sweeps` (the sequential fixed-order sweep of
+    ``nmc_tpu/ops/sweeps.py:run_sweeps``, which JAX ran through XLA): the
+    same body over the layout of an uncoloured J in blocks of ONE spin
+    (`sequential_neighbors`), whose steps are runs of consecutive
+    mutually uncoupled spins, so that drawing a step at once is the
+    spin-by-spin sweep draw for draw; its plain twin is
+    `run_sweeps(within_block="sequential")`.
 
 They take the Pallas kernels' arrays and return the same outputs; a
 `torch.Generator` stands in for the seed, and optional injected uniforms
 [T, R, n_pad] replace the kernels' Philox draws.
 
-All three launch one kernel body (csrc/colored_sweeps_nbr.cu) that reads
+All four launch one kernel body (csrc/colored_sweeps_nbr.cu) that reads
 the couplings only through a `SweepNeighbors` layout: the row blocks cut
 into steps (maximal runs of blocks with no coupling between two of them: a
 coloured layout's colour classes), per step the targets coupled to it and
@@ -37,6 +44,10 @@ beta_row = 1 (beta_t * 1 == beta_t), and a mask that repeats one row
 with the kernel's steps and association (for the tests and chip_smoke.py;
 no route calls it).
 
+Each takes `record_m=True` to also return the state after every sweep
+(M [T, R, n_pad], written by the kernel; the result is then a
+`SweepResult`).
+
 On a CPU tensor a wrapper runs its `*_reference`, the same function in plain
 torch (K1's from dense J row blocks, the TPU kernel's function), and
 launches nothing. On a CUDA tensor it launches the kernel or raises. Each
@@ -54,7 +65,7 @@ import torch
 
 from ..core.energy import energy_from_fields
 from ._build import bind, load_library
-from .sweeps import _uniforms, heat_bath_update, run_sweeps
+from .sweeps import SweepResult, _uniforms, heat_bath_update, run_sweeps
 
 _LIB_NBR = "colored_sweeps_nbr"
 # Dynamic shared memory one CTA may use on Hopper (227 KB).
@@ -79,10 +90,17 @@ class ColoredSweepResult(NamedTuple):
     energies: torch.Tensor  # [T, R]
 
 
+def _result(m, phi, m_best, e_best, energies, M=None):
+    """A ColoredSweepResult, or with recorded states M a SweepResult."""
+    if M is None:
+        return ColoredSweepResult(m, phi, m_best, e_best, energies)
+    return SweepResult(m, phi, m_best, e_best, energies, M)
+
+
 def colored_sweeps_reference(
     J, h, m0, phi0, generator, beta_sweep, beta_spin, update_mask, *,
     num_sweeps: int, block_size: int = 128,
-    uniforms: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None, record_m: bool = False,
 ) -> ColoredSweepResult:
     """Plain-torch colored sweeps: the block-Jacobi engine on J's row blocks."""
     n_pad = J.shape[0]
@@ -91,9 +109,8 @@ def colored_sweeps_reference(
     res = run_sweeps(
         J.reshape(n_pad // block_size, block_size, n_pad), None, h, m0, phi0,
         generator, beta_sweep, beta_spin, update_mask, num_sweeps=num_sweeps,
-        within_block="jacobi", uniforms=uniforms)
-    return ColoredSweepResult(m=res.m, phi=res.phi, m_best=res.m_best,
-                              e_best=res.e_best, energies=res.energies)
+        within_block="jacobi", uniforms=uniforms, record_m=record_m)
+    return _result(*res)
 
 
 class SweepNeighbors(NamedTuple):
@@ -152,12 +169,23 @@ def sweep_steps(adj) -> List[int]:
     inside one block (an uncoloured layout) stay in its step, drawn all at
     once as in the block-by-block sweep."""
     adj = np.asarray(adj, dtype=bool)
-    adj = adj | adj.T
+    b, c = np.nonzero(adj)
+    return _pair_steps(torch.as_tensor(b), torch.as_tensor(c), adj.shape[0])
+
+
+def _pair_steps(b, c, nB) -> List[int]:
+    """`sweep_steps` of the pattern given as block pairs (b[e] couples to
+    c[e]), without an [nB, nB] array: block c opens a step when the latest
+    block before it that it couples to lies in the open step."""
+    lo, hi = torch.minimum(b, c).long(), torch.maximum(b, c).long()
+    keep = lo < hi
+    last = torch.full((nB,), -1, dtype=torch.int64, device=lo.device)
+    last.scatter_reduce_(0, hi[keep], lo[keep], reduce="amax")
     bounds = [0]
-    for c in range(1, adj.shape[0]):
-        if adj[c, bounds[-1]:c].any():
-            bounds.append(c)
-    return bounds + [adj.shape[0]]
+    for col, prev in enumerate(last.tolist()):
+        if col and prev >= bounds[-1]:
+            bounds.append(col)
+    return bounds + [nB]
 
 
 def _sweep_neighbors(k, j, w, nB, B, steps) -> SweepNeighbors:
@@ -166,9 +194,7 @@ def _sweep_neighbors(k, j, w, nB, B, steps) -> SweepNeighbors:
     n_pad = nB * B
     device = k.device
     if steps is None:
-        adj = np.zeros((nB, nB), dtype=bool)
-        adj[(k // B).cpu().numpy(), (j // B).cpu().numpy()] = True
-        steps = sweep_steps(adj)
+        steps = _pair_steps(k // B, j // B, nB)
     steps = list(steps)
     if steps[0] != 0 or steps[-1] != nB or np.any(np.diff(steps) <= 0):
         raise ValueError(f"steps {steps} do not cut {nB} blocks")
@@ -209,6 +235,15 @@ def sweep_neighbors_from_tiles(col_idx, J_tiles, *,
     j = torch.as_tensor(col_idx, device=b.device).long()[b, t] * B + jj
     return _sweep_neighbors(b * B + kk, j, J_tiles[b, t, kk, jj], nB, B,
                             steps)
+
+
+def sequential_neighbors(J_rows) -> SweepNeighbors:
+    """The layout of `sequential_sweeps`: an uncoloured J's row blocks
+    [nB, B, n_pad] cut into blocks of one spin, so that each step is a
+    maximal run of consecutive spins with no coupling between two of them
+    (`steps_are_independent` holds)."""
+    n_pad = J_rows.shape[-1]
+    return sweep_neighbors_from_dense(J_rows.reshape(n_pad, 1, n_pad))
 
 
 def steps_are_independent(nbrs: SweepNeighbors) -> bool:
@@ -270,7 +305,8 @@ def warp0_energy(h, m, phi):
 
 def _row_beta_sweeps(phi_update, ranges, h, m0, phi0, generator, beta_sweep,
                      beta_row, mask, beta_spin, num_sweeps, uniforms,
-                     energy=energy_from_fields) -> ColoredSweepResult:
+                     energy=energy_from_fields,
+                     record_m=False) -> ColoredSweepResult:
     """The streamed kernels' sweep loop in plain torch: per spin range
     (s0, s1) of `ranges` (a block, or a step), all its spins draw at once
     with beta = (beta_t * beta_row) * beta_spin in that order, then
@@ -297,6 +333,8 @@ def _row_beta_sweeps(phi_update, ranges, h, m0, phi0, generator, beta_sweep,
     m_best = m0.clone()
     e_best = torch.full((R,), float("inf"), dtype=dtype, device=device)
     energies = torch.empty((num_sweeps, R), dtype=dtype, device=device)
+    M = (torch.empty((num_sweeps, R, n_pad), dtype=dtype, device=device)
+         if record_m else None)
     for t in range(num_sweeps):
         u = _uniforms(generator, uniforms, t, (R, n_pad), dtype, device)
         beta_tr = beta_sweep[t] * beta_row                       # [R, 1]
@@ -313,14 +351,15 @@ def _row_beta_sweeps(phi_update, ranges, h, m0, phi0, generator, beta_sweep,
         m_best = torch.where(better[:, None], m, m_best)
         e_best = torch.where(better, e, e_best)
         energies[t] = e
-    return ColoredSweepResult(m=m, phi=phi, m_best=m_best, e_best=e_best,
-                              energies=energies)
+        if record_m:
+            M[t] = m
+    return _result(m, phi, m_best, e_best, energies, M)
 
 
 def colored_sweeps_streamed_reference(
     J_blocks, h, m0, phi0, generator, beta_sweep, beta_row, mask,
     beta_spin=None, *, num_sweeps: int,
-    uniforms: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None, record_m: bool = False,
 ) -> ColoredSweepResult:
     """Plain-torch K2: phi += dm @ J_blocks[b] after each block."""
     nB, B, _ = J_blocks.shape
@@ -330,7 +369,7 @@ def colored_sweeps_streamed_reference(
 
     return _row_beta_sweeps(dense, _block_ranges(nB, B), h, m0, phi0,
                             generator, beta_sweep, beta_row, mask, beta_spin,
-                            num_sweeps, uniforms)
+                            num_sweeps, uniforms, record_m=record_m)
 
 
 def _block_ranges(nB, B):
@@ -340,7 +379,7 @@ def _block_ranges(nB, B):
 def colored_sweeps_sparse_reference(
     col_idx, J_tiles, h, m0, phi0, generator, beta_sweep, beta_row, mask,
     beta_spin=None, *, num_sweeps: int,
-    uniforms: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None, record_m: bool = False,
 ) -> ColoredSweepResult:
     """Plain-torch K3: after each block, out = dm @ [tile_0 | ... | tile_K-1]
     and phi[:, col block col_idx[b, k]] += out[:, k-th B columns], in tile
@@ -357,13 +396,13 @@ def colored_sweeps_sparse_reference(
 
     return _row_beta_sweeps(sparse, _block_ranges(nB, B), h, m0, phi0,
                             generator, beta_sweep, beta_row, mask, beta_spin,
-                            num_sweeps, uniforms)
+                            num_sweeps, uniforms, record_m=record_m)
 
 
 def neighbor_sweeps_reference(
     nbrs, h, m0, phi0, generator, beta_sweep, beta_row, mask,
     beta_spin=None, *, num_sweeps: int,
-    uniforms: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None, record_m: bool = False,
 ) -> ColoredSweepResult:
     """Plain-torch K2/K3 over a `SweepNeighbors` layout with the kernel's
     steps and association: per step every spin draws at once, then per
@@ -404,16 +443,18 @@ def neighbor_sweeps_reference(
 
     return _row_beta_sweeps(gather, ranges, h, m0, phi0, generator,
                             beta_sweep, beta_row, mask, beta_spin, num_sweeps,
-                            uniforms, energy=warp0_energy)
+                            uniforms, energy=warp0_energy, record_m=record_m)
 
 
 # argument kinds of each C entry point, in order ('p' pointer, 'i' int); the
-# CUDA stream follows as one more pointer. All three take the neighbour
-# layout (6 pointers) and the same sweep arguments; K1 also the replicas
-# per CTA.
-_SIGNATURES = {"colored_sweeps_f32": "p" * 20 + "i" * 8,
-               "colored_sweeps_streamed_f32": "p" * 20 + "i" * 7,
-               "colored_sweeps_sparse_f32": "p" * 20 + "i" * 7}
+# CUDA stream follows as one more pointer. All four take the neighbour
+# layout (6 pointers) and the same sweep arguments (M last of the
+# pointers, null unless recorded); K1 and the sequential sweeps also the
+# replicas per CTA.
+_SIGNATURES = {"colored_sweeps_f32": "p" * 21 + "i" * 8,
+               "colored_sweeps_streamed_f32": "p" * 21 + "i" * 7,
+               "colored_sweeps_sparse_f32": "p" * 21 + "i" * 7,
+               "sequential_sweeps_f32": "p" * 21 + "i" * 8}
 
 
 def _bind(lib, fn: str = "colored_sweeps_f32"):
@@ -477,13 +518,15 @@ def _seed(generator, uniforms, shape, device):
     return seed.to(device, non_blocking=True)
 
 
-def _outputs(m0, num_sweeps):
-    R = m0.shape[0]
+def _outputs(m0, num_sweeps, record_m=False):
+    R, n_pad = m0.shape
     f32 = dict(dtype=torch.float32, device=m0.device)
-    return ColoredSweepResult(
+    return SweepResult(
         m=torch.empty_like(m0), phi=torch.empty_like(m0),
         m_best=torch.empty_like(m0), e_best=torch.empty((R,), **f32),
-        energies=torch.empty((num_sweeps, R), **f32))
+        energies=torch.empty((num_sweeps, R), **f32),
+        M=(torch.empty((num_sweeps, R, n_pad), **f32) if record_m
+           else None))
 
 
 def _ptr(x):
@@ -516,6 +559,7 @@ def colored_sweeps(
     nbrs: Optional[SweepNeighbors] = None,     # J's layout (built if None)
     threads: Optional[int] = None,             # CTA width (k1_launch)
     replicas_per_cta: Optional[int] = None,    # P (k1_launch)
+    record_m: bool = False,                    # also return M [T, R, n_pad]
 ) -> ColoredSweepResult:
     """T colored heat-bath sweeps (K1); the CUDA kernel on CUDA tensors, the
     plain torch version on CPU tensors (which ignores `nbrs`, `threads` and
@@ -523,7 +567,8 @@ def colored_sweeps(
     if m0.device.type == "cpu":
         return colored_sweeps_reference(
             J, h, m0, phi0, generator, beta_sweep, beta_spin, update_mask,
-            num_sweeps=num_sweeps, block_size=block_size, uniforms=uniforms)
+            num_sweeps=num_sweeps, block_size=block_size, uniforms=uniforms,
+            record_m=record_m)
     _require_cuda(m0, "colored_sweeps")
     device = m0.device
     n_pad = J.shape[0]
@@ -535,6 +580,16 @@ def colored_sweeps(
         nbrs = sweep_neighbors_from_dense(
             J.reshape(n_pad // block_size, block_size, n_pad))
     beta_row, beta_spin = _k1_betas(beta_spin, R, n_pad, device)
+    P, width = _k1_shape(R, n_pad, device, replicas_per_cta, threads)
+    out = _launch_nbr("colored_sweeps_f32", nbrs, block_size, h, m0, phi0,
+                      generator, beta_sweep, beta_row, update_mask, beta_spin,
+                      num_sweeps, uniforms, width, P, record_m=record_m)
+    colored_sweeps.launches += 1
+    return _result(*out)
+
+
+def _k1_shape(R, n_pad, device, replicas_per_cta, threads):
+    """(P, width) of a K1-shaped launch: `k1_launch`'s unless given."""
     P, width = k1_launch(R, n_pad, _num_sms(device))
     P = P if replicas_per_cta is None else replicas_per_cta
     width = width if threads is None else threads
@@ -543,11 +598,7 @@ def colored_sweeps(
         raise ValueError(f"K1 takes replicas_per_cta in {K1_REPLICAS_PER_CTA} "
                          f"and threads in {K1_WIDTHS}, at least 32 per "
                          f"replica; got {P} and {width}")
-    out = _launch_nbr("colored_sweeps_f32", nbrs, block_size, h, m0, phi0,
-                      generator, beta_sweep, beta_row, update_mask, beta_spin,
-                      num_sweeps, uniforms, width, P)
-    colored_sweeps.launches += 1
-    return out
+    return P, width
 
 
 def _k1_betas(beta_spin, R, n_pad, device):
@@ -614,10 +665,12 @@ def _shared_bytes_nbr(n_pad, replicas=1):
 
 
 def _launch_nbr(fn, nbrs, B, h, m0, phi0, generator, beta_sweep, beta_row,
-                mask, beta_spin, num_sweeps, uniforms, threads, replicas=None):
+                mask, beta_spin, num_sweeps, uniforms, threads, replicas=None,
+                record_m=False) -> SweepResult:
     """Check the arguments and launch entry point `fn` over the layout:
     K2 or K3 (replicas None: one replica per CTA, `threads` per CTA, default
-    `sweep_threads`), or K1 with `replicas` per CTA and `threads` given."""
+    `sweep_threads`), or K1 or the sequential sweeps with `replicas` per
+    CTA and `threads` given. M is None unless `record_m`."""
     device = m0.device
     R, n_pad = m0.shape
     _check_sweep_neighbors(nbrs, n_pad, B, device)
@@ -634,7 +687,7 @@ def _launch_nbr(fn, nbrs, B, h, m0, phi0, generator, beta_sweep, beta_row,
     seed = _seed(generator, uniforms, (num_sweeps, R, n_pad), device)
 
     lib = _bind(load_library(_LIB_NBR), fn)
-    out = _outputs(m0, num_sweeps)
+    out = _outputs(m0, num_sweeps, record_m)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, fn)(
         nbrs.step_ptr.data_ptr(), nbrs.tgt_ptr.data_ptr(), nbrs.tgt.data_ptr(),
@@ -643,7 +696,7 @@ def _launch_nbr(fn, nbrs, B, h, m0, phi0, generator, beta_sweep, beta_row,
         mask.data_ptr(), beta_sweep.data_ptr(), beta_row.data_ptr(),
         _ptr(uniforms), _ptr(seed), out.m.data_ptr(), out.phi.data_ptr(),
         out.m_best.data_ptr(), out.e_best.data_ptr(), out.energies.data_ptr(),
-        R, n_pad, B, num_sweeps, rows, nbrs.step_ptr.shape[0] - 1, threads,
+        _ptr(out.M), R, n_pad, B, num_sweeps, rows, nbrs.step_ptr.shape[0] - 1, threads,
         *(() if replicas is None else (replicas,)), stream)
     _raise_on(err, fn)
     return out
@@ -664,6 +717,7 @@ def colored_sweeps_streamed(
     uniforms: Optional[torch.Tensor] = None,   # [T, R, n_pad] injected draws
     nbrs: Optional[SweepNeighbors] = None,     # J's layout (built if None)
     threads: Optional[int] = None,             # CTA width (sweep_threads)
+    record_m: bool = False,                    # also return M [T, R, n_pad]
 ) -> ColoredSweepResult:
     """T colored heat-bath sweeps with per-replica beta over dense J row
     blocks (K2); the CUDA kernel on CUDA tensors, the plain torch version
@@ -671,7 +725,8 @@ def colored_sweeps_streamed(
     if m0.device.type == "cpu":
         return colored_sweeps_streamed_reference(
             J_blocks, h, m0, phi0, generator, beta_sweep, beta_row, mask,
-            beta_spin, num_sweeps=num_sweeps, uniforms=uniforms)
+            beta_spin, num_sweeps=num_sweeps, uniforms=uniforms,
+            record_m=record_m)
     _require_cuda(m0, "colored_sweeps_streamed")
     nB, B, n_pad = J_blocks.shape
     if nB * B != n_pad:
@@ -681,9 +736,9 @@ def colored_sweeps_streamed(
         nbrs = sweep_neighbors_from_dense(J_blocks)
     out = _launch_nbr("colored_sweeps_streamed_f32", nbrs, B, h, m0, phi0,
                       generator, beta_sweep, beta_row, mask, beta_spin,
-                      num_sweeps, uniforms, threads)
+                      num_sweeps, uniforms, threads, record_m=record_m)
     colored_sweeps_streamed.launches += 1
-    return out
+    return _result(*out)
 
 
 def colored_sweeps_sparse(
@@ -702,6 +757,7 @@ def colored_sweeps_sparse(
     uniforms: Optional[torch.Tensor] = None,   # [T, R, n_pad] injected draws
     nbrs: Optional[SweepNeighbors] = None,     # the tiles' layout (built if None)
     threads: Optional[int] = None,             # CTA width (sweep_threads)
+    record_m: bool = False,                    # also return M [T, R, n_pad]
 ) -> ColoredSweepResult:
     """T colored heat-bath sweeps with per-replica beta over the block-sparse
     tiles of J (K3); the CUDA kernel on CUDA tensors, the plain torch
@@ -709,7 +765,8 @@ def colored_sweeps_sparse(
     if m0.device.type == "cpu":
         return colored_sweeps_sparse_reference(
             col_idx, J_tiles, h, m0, phi0, generator, beta_sweep, beta_row,
-            mask, beta_spin, num_sweeps=num_sweeps, uniforms=uniforms)
+            mask, beta_spin, num_sweeps=num_sweeps, uniforms=uniforms,
+            record_m=record_m)
     _require_cuda(m0, "colored_sweeps_sparse")
     device = m0.device
     nB, K, B, _ = J_tiles.shape
@@ -719,8 +776,55 @@ def colored_sweeps_sparse(
         nbrs = sweep_neighbors_from_tiles(col_idx, J_tiles)
     out = _launch_nbr("colored_sweeps_sparse_f32", nbrs, B, h, m0, phi0,
                       generator, beta_sweep, beta_row, mask, beta_spin,
-                      num_sweeps, uniforms, threads)
+                      num_sweeps, uniforms, threads, record_m=record_m)
     colored_sweeps_sparse.launches += 1
+    return _result(*out)
+
+
+def sequential_sweeps(
+    J_rows,       # [nB, B, n_pad] float32 row blocks of an uncoloured layout
+    J_diag,       # [nB, B, B] (read by the plain version only)
+    h,            # [n_pad]
+    m0,           # [R, n_pad] in {-1, +1}
+    phi0,         # [R, n_pad]
+    generator,    # torch.Generator the seed is drawn from (None with uniforms)
+    beta_sweep,   # [T] or scalar
+    beta_spin,    # broadcastable to [R, n_pad]
+    update_mask,  # broadcastable to [R, n_pad] bool
+    *,
+    num_sweeps: int,
+    record_m: bool = False,                    # also return M [T, R, n_pad]
+    uniforms: Optional[torch.Tensor] = None,   # [T, R, n_pad] injected draws
+    nbrs: Optional[SweepNeighbors] = None,     # `sequential_neighbors` (built if None)
+    threads: Optional[int] = None,             # CTA width (k1_launch)
+    replicas_per_cta: Optional[int] = None,    # P (k1_launch)
+) -> SweepResult:
+    """T sequential fixed-order heat-bath sweeps (spin 0 .. n_pad - 1, each
+    seeing every earlier flip), the function of
+    `run_sweeps(within_block="sequential")`; the CUDA kernel over the
+    one-spin-block layout on CUDA tensors (K1's launch shapes and beta
+    hand-off), that plain version on CPU tensors (which ignores `nbrs`,
+    `threads` and `replicas_per_cta`)."""
+    if m0.device.type == "cpu":
+        return run_sweeps(J_rows, J_diag, h, m0, phi0, generator, beta_sweep,
+                          beta_spin, update_mask, num_sweeps=num_sweeps,
+                          within_block="sequential", record_m=record_m,
+                          uniforms=uniforms)
+    _require_cuda(m0, "sequential_sweeps")
+    device = m0.device
+    nB, B, n_pad = J_rows.shape
+    R = m0.shape[0]
+    if nB * B != n_pad:
+        raise ValueError(f"J_rows {tuple(J_rows.shape)} is not square")
+    _check("J_rows", J_rows, (nB, B, n_pad), torch.float32, device)
+    if nbrs is None:
+        nbrs = sequential_neighbors(J_rows)
+    beta_row, beta_spin = _k1_betas(beta_spin, R, n_pad, device)
+    P, width = _k1_shape(R, n_pad, device, replicas_per_cta, threads)
+    out = _launch_nbr("sequential_sweeps_f32", nbrs, 1, h, m0, phi0,
+                      generator, beta_sweep, beta_row, update_mask, beta_spin,
+                      num_sweeps, uniforms, width, P, record_m=record_m)
+    sequential_sweeps.launches += 1
     return out
 
 
@@ -743,3 +847,4 @@ def sweep_occupancy(n_pad: int, threads: int, replicas_per_cta: int = 1):
 colored_sweeps.launches = 0
 colored_sweeps_streamed.launches = 0
 colored_sweeps_sparse.launches = 0
+sequential_sweeps.launches = 0

@@ -1,7 +1,11 @@
 """Replica exchange and instance ensembles on the device (torch).
 
-The counterpart of ``nmc_tpu/parallel``, with the names ported so far:
+The counterpart of ``nmc_tpu/parallel``, with its single-card names (the
+mesh-sharded `ShardedNPT`, `spin_sharded` and `distributed` belong to the
+multi-GPU slice):
   * label swaps batched over instances: `parallel/swaps.py`;
+  * `EnsemblePT` (many instances x a PT replica ladder, the sequential
+    sweeps per instance): `parallel/ensemble.py`;
   * the campaign engine `EnsembleNMC` (many instances x a replica ladder x
     full NMC/PT rounds through the whole-round kernels K4/K5):
     `parallel/ensemble_nmc.py`;
@@ -11,6 +15,7 @@ The counterpart of ``nmc_tpu/parallel``, with the names ported so far:
     moves): `parallel/ensemble_icm.py`.
 """
 
+from .ensemble import EnsembleConfig, EnsemblePT, EnsembleState
 from .ensemble_icm import (EnsembleICM, EnsembleICMConfig, EnsembleICMState,
                            ICMDraws)
 from .ensemble_nmc import EnsembleNMC, EnsembleNMCState, RoundDraws
@@ -19,6 +24,7 @@ from .swaps import SwapResult, metropolis_label_swap, select_pairs_device
 
 __all__ = [
     "ShardedNPTConfig",
+    "EnsemblePT", "EnsembleConfig", "EnsembleState",
     "EnsembleNMC", "EnsembleNMCState", "RoundDraws",
     "EnsembleICM", "EnsembleICMConfig", "EnsembleICMState", "ICMDraws",
     "SwapResult", "metropolis_label_swap", "select_pairs_device",

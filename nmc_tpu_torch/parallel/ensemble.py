@@ -1,0 +1,194 @@
+"""Instance ensembles of independent parallel-tempering runs on one card.
+
+The counterpart of ``nmc_tpu/parallel/ensemble.py``'s `EnsemblePT`: an
+ensemble of same-size Ising instances (BASELINE.json config 5, "100
+SK-1000 instances x 64 replicas") is a leading instance axis I, with
+replicas R inside each instance. Each instance runs its own replica
+ladder; swaps are beta-label permutations (`parallel/swaps.py`) batched
+over the instances, so a round involves no cross-instance work.
+
+A round per instance: fresh local fields, `sweeps_per_round` sweeps at the
+slot temperatures, Metropolis label swaps on the last sweep's energies and
+the fold of the round's best state into the instance's best. The fields,
+swaps and best fold run batched over instances. The sweeps run per
+instance: on an f32 layout with the sequential sweep (the default) through
+`sequential_sweeps` over the instance's one-spin-block layout (built once
+here), one kernel launch per instance and round on the card; otherwise
+(f64, or within_block="jacobi") the plain `run_sweeps`, a route fixed at
+construction. There is no mesh: sharding the instances over several cards
+belongs to the multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.problem import IsingProblem, block_problem
+from ..device import resolve_device, resolve_dtype
+from ..ops.sweeps import run_sweeps
+from ..ops.sweeps_cuda import sequential_neighbors, sequential_sweeps
+from .ensemble_nmc import RoundDraws
+from .swaps import metropolis_label_swap
+
+
+@dataclasses.dataclass
+class EnsembleConfig:
+    """The JAX package's EnsembleConfig, less `precision` (the port turns
+    TF32 off globally, `device.py`)."""
+    num_replicas: int = 16
+    sweeps_per_round: int = 32
+    num_swapping_pairs: int = 4
+    block_size: int = 128
+    within_block: str = "sequential"
+    dtype: str = "float32"
+
+
+class EnsembleState(NamedTuple):
+    m: torch.Tensor             # [I, R, n_pad]
+    beta_to_slot: torch.Tensor  # [I, R]
+    slot_to_beta: torch.Tensor  # [I, R]
+    best_e: torch.Tensor        # [I] best energy seen per instance
+    best_m: torch.Tensor        # [I, n_pad]
+    generator: torch.Generator  # every draw of the rounds (JAX: the key)
+    round_index: int
+
+
+class EnsemblePT:
+    """An ensemble of independent PT runs (one per instance) on one card."""
+
+    def __init__(
+        self,
+        problems: Sequence[IsingProblem],
+        beta_list: Sequence[float],
+        cfg: EnsembleConfig = EnsembleConfig(),
+        *,
+        device=None,
+    ):
+        self.cfg = cfg
+        if len({p.n for p in problems}) != 1:
+            raise ValueError("ensemble instances must share the same size")
+        self.I = len(problems)
+        self.beta_np = np.asarray(beta_list, dtype=np.float64)
+        self.R = self.beta_np.shape[0]
+        self.device = dev = resolve_device(device)
+        self.dtype = dtype = resolve_dtype(cfg.dtype, dev)
+        np_dtype = np.dtype(str(dtype).split(".")[-1])
+        blocked = [block_problem(p, block_size=cfg.block_size, dtype=np_dtype)
+                   for p in problems]
+        self.blocked0 = blocked[0]
+        self.n_pad = n_pad = blocked[0].n_pad
+
+        def put(x, dt=dtype):
+            return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+
+        self.J_rows = put(np.stack([b.J_rows for b in blocked]))
+        self.J_diag = put(np.stack([b.J_diag for b in blocked]))
+        self.J_full = self.J_rows.reshape(self.I, n_pad, n_pad)
+        self.h = put(np.stack([b.h for b in blocked]))
+        self.active = put(blocked[0].active, torch.bool)
+        self._inv_perm = torch.as_tensor(blocked[0].inv_perm,
+                                         dtype=torch.int64, device=dev)
+        self.beta_list = put(self.beta_np)
+        self.sweep_kernel = self.sweep_nbrs = None
+        if cfg.within_block == "sequential" and dtype == torch.float32:
+            self.sweep_kernel = "sequential_sweeps"
+            self.sweep_nbrs = [sequential_neighbors(J) for J in self.J_rows]
+
+    def init_state(self, generator: torch.Generator,
+                   m0=None) -> EnsembleState:
+        """Random +-1 start. `m0` (optional, [I, C, n] ORIGINAL spin order,
+        ascending energy, e.g. `ops.spectral.spectral_candidates` states)
+        seeds the C coldest chains (largest beta = highest slot index at
+        init) per instance, best candidate coldest; the remaining R - C
+        chains stay random."""
+        I, R, n_pad = self.I, self.R, self.n_pad
+        u = torch.rand((I, R, n_pad), generator=generator, dtype=self.dtype,
+                       device=self.device)
+        m = torch.where(u < 0.5, -1.0, 1.0).to(self.dtype)
+        if m0 is not None:
+            m0 = torch.as_tensor(self.blocked0.to_blocked(np.asarray(m0),
+                                                          fill=1.0),
+                                 dtype=self.dtype, device=self.device)
+            C = m0.shape[1]
+            if C > R:
+                raise ValueError(f"m0 has {C} seeds > {R} replicas")
+            m[:, R - C:, :] = m0.flip(1)
+        m = torch.where(self.active, m, 1.0).to(self.dtype)
+        ids = torch.arange(R, device=self.device).expand(I, R)
+        return EnsembleState(
+            m=m, beta_to_slot=ids.clone(), slot_to_beta=ids.clone(),
+            best_e=torch.full((I,), float("inf"), dtype=self.dtype,
+                              device=self.device),
+            best_m=torch.ones((I, n_pad), dtype=self.dtype,
+                              device=self.device),
+            generator=generator, round_index=0)
+
+    def _sweeps(self, i, m, phi, generator, beta_slot, uniforms):
+        """Instance i's sweeps of one round at the slot temperatures."""
+        cfg = self.cfg
+        T = cfg.sweeps_per_round
+        ones_t = torch.ones((T,), dtype=self.dtype, device=self.device)
+        act = self.active.expand(self.R, self.n_pad)
+        if self.sweep_kernel == "sequential_sweeps":
+            return sequential_sweeps(
+                self.J_rows[i], self.J_diag[i], self.h[i], m, phi, generator,
+                ones_t, beta_slot, act, num_sweeps=T, uniforms=uniforms,
+                nbrs=self.sweep_nbrs[i])
+        return run_sweeps(
+            self.J_rows[i], self.J_diag[i], self.h[i], m, phi, generator,
+            ones_t, beta_slot, act, num_sweeps=T,
+            within_block=cfg.within_block, uniforms=uniforms)
+
+    def round(self, state: EnsembleState,
+              draws: Optional[RoundDraws] = None) -> EnsembleState:
+        """One round of every instance. `draws` may inject its draws:
+        sweep_uniforms [1, T, I, R, n_pad] (one phase), gumbels
+        [I, num_pairs, R - 1] and swap_uniforms [I, num_pairs]."""
+        d = draws if draws is not None else RoundDraws()
+        beta_slot = self.beta_list[state.slot_to_beta]           # [I, R]
+        phi = torch.matmul(state.m, self.J_full) + self.h[:, None, :]
+        res = [self._sweeps(
+            i, state.m[i], phi[i], state.generator, beta_slot[i][:, None],
+            None if d.sweep_uniforms is None else d.sweep_uniforms[0, :, i])
+            for i in range(self.I)]
+        m = torch.stack([r.m for r in res])
+        e_slot = torch.stack([r.energies[-1] for r in res])     # [I, R]
+        e_best = torch.stack([r.e_best for r in res])           # [I, R]
+        m_best = torch.stack([r.m_best for r in res])           # [I, R, n_pad]
+        swap = metropolis_label_swap(
+            state.beta_to_slot, self.beta_list.to(torch.float32),
+            e_slot.to(torch.float32), num_pairs=self.cfg.num_swapping_pairs,
+            generator=state.generator, gumbels=d.gumbels,
+            uniforms=d.swap_uniforms)
+        r = torch.argmin(e_best, dim=1, keepdim=True)            # [I, 1]
+        e_r = torch.gather(e_best, 1, r)[:, 0]
+        m_r = torch.gather(m_best, 1,
+                           r[..., None].expand(-1, 1, self.n_pad))[:, 0]
+        improved = e_r < state.best_e
+        return EnsembleState(
+            m=m, beta_to_slot=swap.beta_to_slot,
+            slot_to_beta=swap.slot_to_beta,
+            best_e=torch.where(improved, e_r, state.best_e),
+            best_m=torch.where(improved[:, None], m_r, state.best_m),
+            generator=state.generator, round_index=state.round_index + 1)
+
+    def run(self, state: EnsembleState, num_rounds: int, *,
+            draws: Optional[Callable[[int], RoundDraws]] = None
+            ) -> EnsembleState:
+        """`num_rounds` rounds; `draws(round_index)` may inject each
+        round's draws."""
+        for _ in range(num_rounds):
+            state = self.round(state, None if draws is None
+                               else draws(state.round_index))
+        return state
+
+    def best_states(self, state: EnsembleState) -> np.ndarray:
+        """[I, n] best states per instance, original spin order."""
+        return state.best_m[:, self._inv_perm].cpu().numpy()
+
+    def best_energies(self, state: EnsembleState) -> np.ndarray:
+        return state.best_e.cpu().numpy()

@@ -1,6 +1,7 @@
 """nmc_tpu_torch must import where JAX is not installed, as on the machine
 with the card: every submodule imports with `jax` blocked, and nothing in
-the package imports JAX or the JAX package."""
+the package imports JAX or the JAX package. The machine with the card has
+no matplotlib either: the shims and the figures import without it."""
 
 import re
 import subprocess
@@ -34,6 +35,45 @@ def test_imports_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 16
+
+
+NEW_MODULES = ("nmc_tpu_torch.compat", "nmc_tpu_torch.compat.faithful",
+               "nmc_tpu_torch.parallel.ensemble", "nmc_tpu_torch.native",
+               "nmc_tpu_torch.utils.plotting")
+
+
+def test_new_modules_import_without_jax_or_matplotlib():
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for blocked in ("jax", "matplotlib", "matplotlib.pyplot"):
+            sys.modules[blocked] = None
+        sys.path.insert(0, {str(PKG.parent)!r})
+        for name in {NEW_MODULES!r}:
+            importlib.import_module(name)
+        from nmc_tpu_torch.compat import (APT_ICM, NMC, NPT, APT_preprocessor,
+                                          LRUFieldCache, mcmc_sequential)
+        from nmc_tpu_torch.parallel import (EnsembleConfig, EnsemblePT,
+                                            EnsembleState)
+        from nmc_tpu_torch.native import (CSRAdjacency, backbone_clusters,
+                                          connected_components_masked)
+        from nmc_tpu_torch import EnsemblePT as E, sequential_sweeps
+        from nmc_tpu_torch.utils import plotting
+        for fig in ("plot_nmc_results", "plot_energies", "plot_beta_sigma",
+                    "plot_campaign", "plot_hardness_curve",
+                    "plot_residual_trace", "plot_hardness_surface"):
+            assert callable(getattr(plotting, fig))
+        try:
+            plotting._plt()
+        except ImportError as e:
+            assert e.name == "matplotlib", e
+        else:
+            raise AssertionError("matplotlib imported while blocked")
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
 
 
 def test_no_source_imports_jax():

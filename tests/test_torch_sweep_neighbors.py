@@ -13,7 +13,8 @@ inputs made from seeds with numpy:
     m exact, phi and energies to 1e-5), and in f64 the JAX XLA Jacobi
     sweeps with JAX's uniforms injected (to 1e-10, Gaussian couplings too);
   * `SweepEngine` builds the layout once for every colored layout (K1's
-    too) and passes it to every launch, and none for an uncoloured one;
+    too) and passes it to every launch; an uncoloured f32 one gets the
+    sequential route's one-spin-block layout instead, an f64 one none;
     the int16 limit raises; the CTA width rule is a function of (R, SMs).
 The kernel itself runs only on a card (chip_smoke.py holds it against
 these plain sweeps).
@@ -376,8 +377,9 @@ def test_engine_builds_the_layout_once(name, kernel, monkeypatch):
 def test_engine_builds_k1_layout_once_and_none_uncoloured(name, monkeypatch):
     """On a K1 layout (chimera 8x8: 3 steps; ea_2d L = 32: 2) SweepEngine
     builds the neighbour layout once at setup, one step per colour class,
-    and hands that object to every K1 call; an uncoloured layout gets
-    none and runs the plain sweeps."""
+    and hands that object to every K1 call; an uncoloured f32 layout gets
+    the sequential route's layout (one-spin blocks) and no K1 call, an
+    uncoloured f64 one none and runs the plain sweeps."""
     built, seen = [], []
     inner = t_engine.sweep_neighbors_from_dense
 
@@ -400,8 +402,15 @@ def test_engine_builds_k1_layout_once_and_none_uncoloured(name, monkeypatch):
     for _ in range(2):
         eng.run(m, torch.Generator().manual_seed(0), 1, 1.0)
     if not coloring:
-        assert eng.sweep_kernel is None and eng.sweep_nbrs is None
+        assert eng.sweep_kernel == "sequential_sweeps"
+        want = sc.sequential_neighbors(eng.J_rows)
+        for x, y in zip(eng.sweep_nbrs, want):
+            assert x == y if isinstance(x, int) else torch.equal(x, y)
+        assert eng.sweep_nbrs.block_size == 1
+        assert sc.steps_are_independent(eng.sweep_nbrs)
         assert built == [] and seen == []
+        eng64 = SweepEngine(prob, dtype=torch.float64, device="cpu")
+        assert eng64.sweep_kernel is None and eng64.sweep_nbrs is None
         return
     assert eng.sweep_kernel == "colored_sweeps"
     assert eng.n_pad <= t_engine.K1_MAX_N_PAD and len(built) == 1

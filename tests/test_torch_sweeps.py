@@ -90,13 +90,68 @@ def test_anneal_schedule_matches_jax(num_sweeps, beta, initial_beta, spb):
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)
 
 
-def test_random_block_order_not_ported():
-    b = block_problem(random_sk(4, seed=0), block_size=2, dtype=np.float64)
-    with pytest.raises(NotImplementedError):
-        run_sweeps(t64(b.J_rows), t64(b.J_diag), t64(b.h), torch.ones(1, 4,
-                   dtype=torch.float64), t64(np.zeros((1, 4))),
-                   torch.Generator().manual_seed(0), 1.0, 1.0, True,
-                   num_sweeps=1, block_order="random")
+def jax_block_orders(key, num_sweeps, nB):
+    """The block permutations nmc_tpu.ops.sweeps.run_sweeps draws under
+    block_order='random': split(key, T), then split(key_t)[1], then
+    permutation(., nB) per sweep."""
+    return np.stack([np.asarray(jax.random.permutation(
+        jax.random.split(k)[1], nB)) for k in jax.random.split(key, num_sweeps)])
+
+
+@pytest.mark.parametrize("within,colored,record", [
+    ("sequential", False, False), ("sequential", False, True),
+    ("jacobi", True, False)])
+def test_random_block_order_matches_jax(within, colored, record):
+    """block_order='random' with JAX's uniforms and permutations injected:
+    the same chain draw for draw (f64: m, m_best and M equal, phi and
+    energies within 1e-10)."""
+    prob = (chimera_graph(2, 2, seed=5) if colored
+            else random_sk(20, seed=6, h_scale=0.5))
+    groups = color_groups(prob.J) if colored else None
+    b = block_problem(prob, block_size=4, groups=groups, dtype=np.float64)
+    assert b.colored == colored and b.num_blocks >= 3
+    R, T = 4, 7
+    rng = np.random.default_rng(3)
+    m0 = np.where(rng.random((R, b.n_pad)) < 0.5, -1.0, 1.0)
+    m0[:, ~b.active] = 1.0
+    phi0 = m0 @ b.J_rows.reshape(b.n_pad, b.n_pad) + b.h
+    beta = np.linspace(0.4, 1.5, T)
+    mask = np.broadcast_to(b.active, (R, b.n_pad)).copy()
+    key = jax.random.PRNGKey(23)
+    jr = j_run_sweeps(jnp.asarray(b.J_rows), jnp.asarray(b.J_diag),
+                      jnp.asarray(b.h), jnp.asarray(m0), jnp.asarray(phi0),
+                      key, jnp.asarray(beta), 1.0, jnp.asarray(mask),
+                      num_sweeps=T, within_block=within, block_order="random",
+                      record_m=record)
+    orders = jax_block_orders(key, T, b.num_blocks)
+    assert len({tuple(o) for o in orders}) > 1
+    tr = run_sweeps(t64(b.J_rows), t64(b.J_diag), t64(b.h), t64(m0),
+                    t64(phi0), None, t64(beta), 1.0, torch.as_tensor(mask),
+                    num_sweeps=T, within_block=within, block_order="random",
+                    record_m=record,
+                    uniforms=torch.as_tensor(jax_sweep_uniforms(
+                        key, T, R, b.n_pad)),
+                    block_orders=torch.as_tensor(orders))
+    np.testing.assert_array_equal(tr.m.numpy(), np.asarray(jr.m))
+    np.testing.assert_array_equal(tr.m_best.numpy(), np.asarray(jr.m_best))
+    np.testing.assert_allclose(tr.phi.numpy(), np.asarray(jr.phi), atol=1e-10)
+    np.testing.assert_allclose(tr.energies.numpy(), np.asarray(jr.energies),
+                               atol=1e-10)
+    if record:
+        np.testing.assert_array_equal(tr.M.numpy(), np.asarray(jr.M))
+    # the generator route draws its own permutations, and differs from
+    # the fixed order on the same uniforms
+    gen = run_sweeps(t64(b.J_rows), t64(b.J_diag), t64(b.h), t64(m0),
+                     t64(phi0), torch.Generator().manual_seed(0), t64(beta),
+                     1.0, torch.as_tensor(mask), num_sweeps=T,
+                     within_block=within, block_order="random")
+    assert torch.isin(gen.m, torch.tensor([-1.0, 1.0],
+                                          dtype=torch.float64)).all()
+    with pytest.raises(ValueError):
+        run_sweeps(t64(b.J_rows), t64(b.J_diag), t64(b.h), t64(m0),
+                   t64(phi0), None, t64(beta), 1.0, torch.as_tensor(mask),
+                   num_sweeps=T, block_order="random",
+                   uniforms=torch.zeros((T, R, b.n_pad), dtype=torch.float64))
 
 
 @pytest.mark.parametrize("use_coloring,block_size", [(True, 8), (False, 2)])
