@@ -42,7 +42,12 @@ non-zero without printing a result:
                  twin run_sweeps on +-J SK-1000 (n_pad 1024) at R = 64, within
                  `_compare`'s tolerance on an uncoloured Gaussian chimera
                  8x8 at R = 256, bit for bit against the plain sweeps over
-                 its layout on both, the recorded M against the twin's; its
+                 its layout on both, the recorded M against the twin's;
+                 the same at the slice's own launches: ShardedNPT's C
+                 phase on +-J SK-1000 (R = 32, 64 sweeps, per-spin heated
+                 beta, the NMC slots' masks; bit for bit) and the
+                 contrived ICM round (R = 320, 576 sweeps, per-slot beta;
+                 run_sweeps over its first 8); its
                  Philox draws against the Boltzmann law of a 4-cycle; ms per
                  call of the route and the plain version beside the bound
                  at EnsemblePT's launch (Gaussian SK-1000, R = 64 x 16) and
@@ -128,8 +133,9 @@ non-zero without printing a result:
                  package's record keys, no kernel launch;
  12k. solve_contrived — `portfolio_solve` on contrived_wishart_backbone(50,
                  0.2) (350 spins, core 50), no target, one MCMC round
-                 (uncoloured: the plain route, no kernel): the presolve's
-                 core, energy_raw the f64 energy of the full-space state;
+                 (uncoloured: the plain route, its sweeps one
+                 sequential_sweeps launch): the presolve's core,
+                 energy_raw the f64 energy of the full-space state;
  12l. solve_chimera2048 — `solve --kind chimera --sweeps 11520 --dm-starts
                  0` on chimera_graph(16, 16) in the chimera dialect:
                  presolve, the icm arm through K5 (20 launches for 20
@@ -219,8 +225,33 @@ route:
  12h4. native_clusters — not a main path: the g++-built union-find
                  against scipy on 3200 disagreement pairs at chimera 16x16:
                  equal partitions, both times.
-Phases 5-8, 10-12, 12c, 12d, 12f-12h, 12h2, 12h3, 12j-12n, 12p, 12q and
-14 are the main paths:
+After 15, the multi-GPU slice:
+ 15b. sharded_offsets — not a main path: K1, K2, K3 and sequential_sweeps
+                 on the two replica halves of a ladder with their replica
+                 offsets and the whole launch's seed words, and K4 / K5
+                 (4 chimera 8x8 / 16x16 instances x 32 slots) on two
+                 replica and two instance halves: bit for bit the rows of
+                 the whole launch, and a half without its offset differs;
+ 15c. sharded_npt — the slice's main path: `python -m nmc_tpu_torch
+                 sharded` in process on an NCCL process group of world
+                 size 1 at the CLI's defaults (32 replicas, 64 sweeps a
+                 phase, 3 cycles), cut in rounds: chimera 16x16 with
+                 --coloring --nmc-coldest 4 (4 rounds, one K5 launch each
+                 over 1 x 32 slots) and SK-1000 with --nmc-coldest 2 (2
+                 rounds, 9 sequential_sweeps launches each); each record
+                 against the f64 energy of its best state, launches,
+                 seconds per round split lbp / round / swaps, and one K5
+                 launch alone beside its bound;
+ 15d. sharded_ranks — not a main path: 2 ranks on this card (fresh
+                 interpreters, gloo over CUDA tensors), each running
+                 `sharded_rank_suite` (dryrun_multirank; ShardedNPT on
+                 chimera 16x16 through K5 and SK-1000 through the
+                 sequential route; SpinShardedSweeper on ea_2d(64); the
+                 ensembles on the ensemble_512 family and 4 SK-1000),
+                 every result bit for bit equal to the parent's world-1
+                 run on the NCCL group.
+Phases 5-8, 10-12, 12c, 12d, 12f-12h, 12h2, 12h3, 12j-12n, 12p, 12q, 14
+and 15c are the main paths:
 each sets the launch counts to 0 just before it and reads them just after. Then one
 line {"kernels": [...]}, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
@@ -237,6 +268,9 @@ replicas-per-CTA and width pair of K1 at R = 256 x 500 and 2048 x 1024,
 each CTA width of K2/K3 at their launch shapes, block steps, and the
 sequential route at EnsemblePT's launch and on the uncoloured chimera,
 with a variant that never skips a step's gather);
+`python3 chip_smoke.py --ranks W` runs `sharded_rank_suite` on W ranks,
+one card each, over NCCL, and holds every result bit for bit against
+world 1 (it needs W cards).
 `--sweep-times` times K1-K3 alone at their launch and throughput shapes
 with the chip_smoke.py and package of CHECKOUT (default: this one), to
 compare two checkouts in turns on one card.
@@ -267,7 +301,14 @@ PEAK_HBM_BYTES = 3.35e12    # H100 SXM, HBM3
 DEVICE = "cuda"
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's record also gets the seconds since the
+    script started (`at_seconds`), which give each phase's share."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "at_seconds": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -557,7 +598,7 @@ def phase_kernel():
             gen = torch.Generator(device=DEVICE).manual_seed(1)
             m0 = eng.init_states(gen, R)
             phi0 = eng.fields(m0)
-            u = torch.rand((T, R, n_pad), generator=gen, device=DEVICE)
+            u = torch.rand((T, R, n_pad), generator=gen, device=m0.device)
             cl = ((torch.rand((R, n_pad), generator=gen, device=DEVICE) < 0.5)
                   & eng.active)
             cases = {
@@ -617,7 +658,7 @@ def _sweep_cases(torch, eng, R, T, seed):
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     m0 = eng.init_states(gen, R)
     phi0 = eng.fields(m0)
-    u = torch.rand((T, R, n_pad), generator=gen, device=DEVICE)
+    u = torch.rand((T, R, n_pad), generator=gen, device=m0.device)
     cl = ((torch.rand((R, n_pad), generator=gen, device=DEVICE) < 0.5)
           & eng.active)
     cases = {
@@ -1000,7 +1041,7 @@ ENS_R, ENS_NMC = 32, 6           # the campaign's replicas and NMC slots
 GLOBAL_BETA = 13.63              # the campaign's --global-beta
 
 
-def _ensemble(size, count, rounds_cfg=None, seed0=0, pm=True):
+def _ensemble(size, count, rounds_cfg=None, seed0=0, pm=True, group=None):
     """EnsembleNMC on `count` chimera size x size instances (seeds seed0..,
     +-1 couplings, or Gaussian with pm=False), normalized, as the campaign
     builds it at its defaults: the geometric 32-replica ladder over beta
@@ -1019,7 +1060,7 @@ def _ensemble(size, count, rounds_cfg=None, seed0=0, pm=True):
     cfg = ShardedNPTConfig(**{**kw, **(rounds_cfg or {})})
     doNMC = [False] * (ENS_R - ENS_NMC) + [True] * ENS_NMC
     t0 = time.perf_counter()
-    ens = EnsembleNMC(probs, beta, doNMC, cfg, device=DEVICE)
+    ens = EnsembleNMC(probs, beta, doNMC, cfg, device=DEVICE, group=group)
     return probs, ens, time.perf_counter() - t0
 
 
@@ -1459,7 +1500,7 @@ def phase_campaign():
 ICM_S = 10                       # the campaign's --subreplicas
 
 
-def _icm_ensemble(size, count, hybrid_cold=0):
+def _icm_ensemble(size, count, hybrid_cold=0, group=None):
     """EnsembleICM on `count` chimera size x size instances (+-1, seeds
     0..), normalized, as the campaign builds its icm / hybrid arms at their
     defaults: the geometric 32-rung ladder over beta 0.25-32, 10
@@ -1477,7 +1518,7 @@ def _icm_ensemble(size, count, hybrid_cold=0):
         houdayer="auto")
     t0 = time.perf_counter()
     ens = EnsembleICM(probs, build_ladder(0.25, 32.0, ENS_R), cfg,
-                      device=DEVICE)
+                      device=DEVICE, group=group)
     return probs, ens, time.perf_counter() - t0
 
 
@@ -2428,8 +2469,10 @@ def phase_solve_contrived():
     """`portfolio_solve` on a contrived Wishart backbone at the
     contrived_n50_a0.20 family's size (50-spin core, 350 spins), no target,
     one MCMC round: presolve peels the trees, the spectral stage and the
-    spectral-seeded icm arm (uncoloured: the plain route, no kernel) run on
-    the core, and the tree stage is skipped (not a grid)."""
+    spectral-seeded icm arm (uncoloured: the plain route, whose pure-ICM
+    sweeps are one sequential_sweeps launch per instance and round) run on
+    the core, and the tree stage is skipped (not a grid). Returns its
+    launches."""
     import contextlib
     import io
     import torch
@@ -2453,14 +2496,18 @@ def phase_solve_contrived():
     check(res.state.shape == (prob.n,)
           and float(prob.energy(res.state)) == res.energy_raw,
           "solve_contrived: energy_raw is not the f64 energy of the state")
-    check(not any(counts.values()), f"solve_contrived launches {counts}")
+    check(counts["sequential_sweeps"] >= 1
+          and sum(counts.values()) == counts["sequential_sweeps"],
+          f"solve_contrived launches {counts}")
     emit({"phase": "solve_contrived", "N": prob.n, "core_n": core_n,
           "reduced": {"sweeps": [200000, 576]},
           "energy_raw": res.energy_raw, "planted_energy": e,
           "seconds": seconds,
           "stage_seconds": {s.stage: s.wall_seconds for s in res.stages},
+          "launches": counts["sequential_sweeps"],
           "engine": [ln for ln in buf.getvalue().splitlines()
                      if ln.startswith(("engine:", "spectral seeding"))]})
+    return counts["sequential_sweeps"]
 
 
 def phase_solve_chimera2048():
@@ -3246,66 +3293,154 @@ def _sequential_cases():
              .normalized()[0], 256, False))
 
 
+def _sharded_npt_c_phase(torch):
+    """ShardedNPT's phase launch on +-J SK-1000 at the `sharded` CLI's
+    defaults (world 1, 32 replicas geomspace 0.25-16, the 2 coldest NMC):
+    (engine, states, beta_spin [R, n_pad], update mask [R, n_pad], sweeps)
+    of a C phase, the heated backbone of the NMC slots from LBP on a
+    random start."""
+    from nmc_tpu_torch.parallel import ShardedNPT, ShardedNPTConfig
+    R, nmc = 32, 2
+    cfg = ShardedNPTConfig(sweeps_per_phase=64, num_cycles=3,
+                           num_swapping_pairs=R // 4, global_beta=2.5,
+                           temp_x=TEMP_X)
+    pt = ShardedNPT(_sk_pm(SK_N, 0), np.geomspace(0.25, 16.0, R),
+                    [False] * (R - nmc) + [True] * nmc, cfg, device=DEVICE)
+    st = pt.init_state(torch.Generator(device=DEVICE).manual_seed(4))
+    cl, dn = pt._clusters(st.m, st.slot_to_beta)
+    check(int(dn.sum()) == nmc and bool(cl[dn].any()),
+          "sharded_npt C phase: no backbone on the NMC slots")
+    bs, mask = pt._phase_args("C", cl, dn, pt._base(st.slot_to_beta, dn))
+    return pt.engine, st.m, bs, mask, cfg.sweeps_per_phase
+
+
+def _icm_round_contrived(torch):
+    """The pure-ICM round's launch of `solve_contrived`'s MCMC stage: the
+    presolved core of the contrived Wishart backbone (50-spin core, 350
+    spins) in an EnsembleICM at the campaign's defaults (32 rungs x 10
+    sub-replicas = 320 slots, 576 sweeps, uncoloured): (engine, states,
+    beta_spin [320, 1], update mask [320, n_pad], sweeps)."""
+    from nmc_tpu_torch.campaign import build_ladder
+    from nmc_tpu_torch.core.problem import IsingProblem
+    from nmc_tpu_torch.io.generators import contrived_wishart_backbone
+    from nmc_tpu_torch.ops.presolve import peel_leaves
+    from nmc_tpu_torch.parallel import EnsembleICM, EnsembleICMConfig
+    prob, _, _ = contrived_wishart_backbone(50, 0.2, seed=0)
+    ps = peel_leaves(np.asarray(prob.J, np.float64),
+                     np.asarray(prob.h, np.float64))
+    core = IsingProblem(ps.J_core, ps.h_core).normalized()[0]
+    cfg = EnsembleICMConfig(sweeps_per_round=576, num_subreplicas=ICM_S,
+                            num_swapping_pairs=ENS_R // 4, temp_x=TEMP_X,
+                            num_cycles=3)
+    ens = EnsembleICM([core], build_ladder(0.25, 32.0, ENS_R), cfg,
+                      device=DEVICE)
+    check(ens.round_path == "plain"
+          and ens._engines[0].sweep_kernel == "sequential_sweeps",
+          f"contrived ICM route {ens.round_path}")
+    st = ens.init_state(torch.Generator(device=DEVICE).manual_seed(5))
+    Rk = ICM_S * ENS_R
+    return (ens._engines[0], st.m[0].reshape(Rk, ens.n_pad),
+            ens.beta_list[st.slot_to_beta[0]].reshape(Rk, 1),
+            ens.active.expand(Rk, ens.n_pad), cfg.sweeps_per_round)
+
+
+def _hold_sequential(torch, tag, eng, m0, beta, beta_spin, mask, pm, gen,
+                     plain_sweeps=None):
+    """One `sequential_sweeps` launch with uniforms from `gen`, recorded,
+    held against `neighbor_sweeps_reference` over its layout bit for bit
+    and against `run_sweeps(within_block="sequential")`: bit for bit on
+    +-J couplings (`pm`), else within `_compare`'s tolerance with the
+    recorded states of the replicas that agree equal, there over the
+    first `plain_sweeps` sweeps (a second launch of as many) when given:
+    on Gaussian couplings the two phi orders' f32 roundings split a few
+    chains over hundreds of sweeps. Returns (record, error)."""
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    from nmc_tpu_torch.ops.sweeps import run_sweeps
+    check(eng.sweep_kernel == "sequential_sweeps",
+          f"{tag}: route {eng.sweep_kernel}")
+    (R, n_pad), T = m0.shape, beta.shape[0]
+    phi0 = eng.fields(m0)
+    u = torch.rand((T, R, n_pad), generator=gen, device=m0.device)
+    args = (eng.J_rows, eng.J_diag, eng.h, m0, phi0, None, beta, beta_spin,
+            mask)
+    k = sc.sequential_sweeps(*args, num_sweeps=T, record_m=True,
+                             uniforms=u, nbrs=eng.sweep_nbrs)
+    torch.cuda.synchronize()
+    if plain_sweeps is None:
+        p = run_sweeps(*args, num_sweeps=T, within_block="sequential",
+                       record_m=True, uniforms=u)
+    beta_row, spin = sc._k1_betas(beta_spin, R, n_pad, m0.device)
+    nb = sc.neighbor_sweeps_reference(
+        eng.sweep_nbrs, eng.h, m0, phi0, None, beta, beta_row, mask, spin,
+        num_sweeps=T, uniforms=u, record_m=True)
+    check(_bit_equal(k, nb), f"{tag}: kernel != its layout's plain sweeps")
+    check(torch.equal(k.M[-1], k.m), f"{tag}: M[-1] is not the last state")
+    res = {"n_pad": n_pad, "R": R, "sweeps": T,
+           "beta_spin": list(torch.as_tensor(beta_spin).shape),
+           "mask_frozen": int((~mask).sum()),
+           "steps_per_sweep": int(eng.sweep_nbrs.step_ptr.shape[0]) - 1,
+           "entries": int(eng.sweep_nbrs.src.shape[0]),
+           "bit_equal_layout_twin": True}
+    res["flipped_spins"] = int((k.m != m0).sum())
+    err = 0.0
+    if pm:
+        check(_bit_equal(k, p), f"{tag}: kernel != run_sweeps bit for bit")
+        res["bit_equal_run_sweeps"] = True
+    else:
+        if plain_sweeps is not None:
+            Tp = res["run_sweeps_sweeps"] = plain_sweeps
+            args = args[:6] + (beta[:Tp],) + args[7:]
+            k = sc.sequential_sweeps(*args, num_sweeps=Tp, record_m=True,
+                                     uniforms=u[:Tp], nbrs=eng.sweep_nbrs)
+            p = run_sweeps(*args, num_sweeps=Tp, within_block="sequential",
+                           record_m=True, uniforms=u[:Tp])
+        res["vs_run_sweeps"], err = _compare(torch, tag, k, p, eng.J_full,
+                                             eng.h, m0, mask)
+        same = ~(k.m != p.m).any(dim=1)
+        check(torch.equal(k.M[:, same], p.M[:, same]),
+              f"{tag}: recorded states differ from run_sweeps'")
+    return res, err
+
+
 def phase_sequential_kernel():
     """The sequential route (`sequential_sweeps`, the sweep body over the
     one-spin-block layout) against its plain twin `run_sweeps(within_block=
-    "sequential")` with injected uniforms, 8 sweeps from beta 0.3 to 3,
-    recorded: bit for bit on +-J SK-1000 (R = 64), within `_compare`'s
-    tolerance on Gaussian chimera 8x8 (R = 256); bit for bit against
-    `neighbor_sweeps_reference` over its layout on both; the recorded M
-    against the twin's; its own Philox draws against the Boltzmann law of
-    a 4-cycle; ms per call of the route and the plain version beside the
-    bound at EnsemblePT's launch (its first instance, Gaussian SK-1000,
-    R = 64; 16 sweeps) and on the chimera case (R = 256, 16 sweeps)."""
+    "sequential")` and `neighbor_sweeps_reference` with injected uniforms
+    (`_hold_sequential`): 8 sweeps from beta 0.3 to 3 on +-J SK-1000
+    (R = 64) and Gaussian chimera 8x8 (R = 256); ShardedNPT's C-phase
+    launch on +-J SK-1000 (R = 32, 64 sweeps, per-spin heated beta_spin
+    and the NMC slots' masks) bit for bit; the contrived ICM round's
+    launch (R = 320, 576 sweeps, per-slot beta). Its own Philox draws
+    against the Boltzmann law of a 4-cycle; ms per call of the route and
+    the plain version beside the bound at EnsemblePT's launch (its first
+    instance, Gaussian SK-1000, R = 64; 16 sweeps) and on the chimera case
+    (R = 256, 16 sweeps)."""
     import torch
     from nmc_tpu_torch.ops import sweeps_cuda as sc
     from nmc_tpu_torch.ops.engine import SweepEngine
-    from nmc_tpu_torch.ops.sweeps import run_sweeps
     out = {"phase": "sequential_kernel"}
     max_err = 0.0
     timing = {}
     for tag, prob, R, pm in _sequential_cases():
         eng = SweepEngine(prob, device=DEVICE)
-        check(eng.sweep_kernel == "sequential_sweeps",
-              f"{tag}: route {eng.sweep_kernel}")
-        n_pad, T = eng.n_pad, 8
         gen = torch.Generator(device=DEVICE).manual_seed(3)
         m0 = eng.init_states(gen, R)
-        phi0 = eng.fields(m0)
-        u = torch.rand((T, R, n_pad), generator=gen, device=DEVICE)
-        beta = torch.linspace(0.3, 3.0, T, device=DEVICE)
-        one = torch.ones((), device=DEVICE)
-        mask = eng.active.expand(R, n_pad)
-        args = (eng.J_rows, eng.J_diag, eng.h, m0, phi0, None, beta, one,
-                mask)
-        k = sc.sequential_sweeps(*args, num_sweeps=T, record_m=True,
-                                 uniforms=u, nbrs=eng.sweep_nbrs)
-        torch.cuda.synchronize()
-        p = run_sweeps(*args, num_sweeps=T, within_block="sequential",
-                       record_m=True, uniforms=u)
-        nb = sc.neighbor_sweeps_reference(
-            eng.sweep_nbrs, eng.h, m0, phi0, None, beta,
-            torch.ones(R, device=DEVICE), mask, num_sweeps=T, uniforms=u,
-            record_m=True)
-        check(_bit_equal(k, nb), f"{tag}: kernel != its layout's plain sweeps")
-        check(torch.equal(k.M[-1], k.m), f"{tag}: M[-1] is not the last state")
-        res = {"n_pad": n_pad, "R": R, "sweeps": T,
-               "steps_per_sweep": int(eng.sweep_nbrs.step_ptr.shape[0]) - 1,
-               "entries": int(eng.sweep_nbrs.src.shape[0]),
-               "bit_equal_layout_twin": True}
-        if pm:
-            check(_bit_equal(k, p), f"{tag}: kernel != run_sweeps bit for bit")
-            res["bit_equal_run_sweeps"] = True
-        else:
-            res["vs_run_sweeps"], err = _compare(torch, tag, k, p,
-                                                 eng.J_full, eng.h, m0, mask)
-            same = ~(k.m != p.m).any(dim=1)
-            check(torch.equal(k.M[:, same], p.M[:, same]),
-                  f"{tag}: recorded states differ from run_sweeps'")
-            max_err = max(max_err, err)
-        res["flipped_spins"] = int((k.m != m0).sum())
-        out[tag] = res
+        out[tag], err = _hold_sequential(
+            torch, tag, eng, m0, torch.linspace(0.3, 3.0, 8, device=DEVICE),
+            torch.ones((), device=DEVICE), eng.active.expand(R, eng.n_pad),
+            pm, gen)
+        max_err = max(max_err, err)
         timing[tag] = (prob, eng)
+    for tag, launch, pm in (("sharded_npt_c_phase", _sharded_npt_c_phase,
+                             True),
+                            ("icm_round_contrived", _icm_round_contrived,
+                             False)):
+        eng, m0, beta_spin, mask, T = launch(torch)
+        out[tag], err = _hold_sequential(
+            torch, tag, eng, m0, torch.ones((T,), device=DEVICE), beta_spin,
+            mask, pm, torch.Generator(device=DEVICE).manual_seed(6),
+            plain_sweeps=None if pm else 8)
+        max_err = max(max_err, err)
 
     def run(eng, m, gen, beta, sweeps):
         return sc.sequential_sweeps(
@@ -3520,6 +3655,419 @@ def phase_native_clusters():
               1e3 * t_scipy / pairs})
 
 
+# ---- the multi-GPU slice: offsets, the sharded CLI, ranks on one card -------
+
+SHARDED_ROUNDS_C2048, SHARDED_ROUNDS_SK = 4, 2   # the CLI runs, cut in rounds
+JAX_SHARDED_KEYS = {"min_energy", "rounds", "replicas", "devices",
+                    "processes", "last_chunk_swap_accepts"}
+
+
+def _halves_equal(torch, full, parts, dim):
+    """Every output of `full` equal to its slices' outputs concatenated
+    along `dim` (0 for replica rows of a sweep result; 0 or 1 for the round
+    kernels' [I, R, ...]): the sweep results' energies are [T, R]."""
+    ok = True
+    for name, x in full._asdict().items():
+        if x is None or name == "M":
+            continue
+        d = 1 if (name == "energies" and dim == 0) else dim
+        ok &= torch.equal(x, torch.cat([getattr(p, name) for p in parts], d))
+    return bool(ok)
+
+
+def phase_sharded_offsets(c2048, r4096):
+    """Not a main path: each of K1, K2, K3 and sequential_sweeps launched on
+    the two replica halves of a ladder with their replica offsets and the
+    whole launch's seed words (its own Philox draws), and K4 / K5 on two
+    replica halves and on two instance halves with their offsets: every
+    output equal, bit for bit, to the matching rows of the whole launch;
+    and the second half launched without its offset differs (the offset
+    keys the draws)."""
+    import torch
+    from nmc_tpu_torch.ops import round_cuda as rc
+    from nmc_tpu_torch.ops.engine import SweepEngine
+    from nmc_tpu_torch.ops.sweeps_cuda import draw_seeds
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    seq = SweepEngine(_sk_pm(SK_N, 0), device=DEVICE)
+    check(seq.sweep_kernel == "sequential_sweeps", "sequential layout")
+    out = {"phase": "sharded_offsets"}
+    T = 16
+    for name, eng, R in (("colored_sweeps", _flagship()[1], R_CHECK),
+                         ("colored_sweeps_streamed", r4096[1], R_CHECK),
+                         ("colored_sweeps_sparse", c2048[1], R_CHECK),
+                         ("sequential_sweeps", seq, SK_REPLICAS)):
+        check(eng.sweep_kernel == name, f"{name}: route {eng.sweep_kernel}")
+        m0 = eng.init_states(gen, R)
+        phi0 = eng.fields(m0)
+        beta = torch.as_tensor(np.geomspace(0.3, 3.0, R), dtype=torch.float32,
+                               device=DEVICE)
+        seed = draw_seeds(gen).to(DEVICE)
+
+        def run(lo, hi, off):
+            return eng.run(m0[lo:hi].contiguous(), None, T, 1.0,
+                           beta_replica=beta[lo:hi], blocked_input=True,
+                           blocked_output=True, phi=phi0[lo:hi].contiguous(),
+                           replica_offset=off, replicas_total=R, seed=seed)
+
+        h = R // 2
+        full, parts = run(0, R, 0), [run(0, h, 0), run(h, R, h)]
+        torch.cuda.synchronize()
+        unkeyed = run(h, R, 0)
+        out[name] = {"R": R, "equal": _halves_equal(torch, full, parts, 0),
+                     "unkeyed_half_differs": not torch.equal(
+                         unkeyed.m, full.m[h:])}
+        check(out[name]["equal"], f"{name}: offset halves != whole launch")
+        check(out[name]["unkeyed_half_differs"],
+              f"{name}: the offset changed no draw")
+    for name, size in (("ensemble_round", 8), ("ensemble_round_sparse", 16)):
+        _, ens, _ = _ensemble(size, 4)
+        m0, cl, dn, beta, _ = _round_inputs(torch, ens, 11)
+        I, R = m0.shape[:2]
+        seed = draw_seeds(gen).to(DEVICE)
+        nb = ens.round_nbrs
+        kw = dict(num_cycles=3, sweeps_per_phase=8, seed=seed)
+
+        def launch(i0, i1, r0, r1, off_i, off_r):
+            sl = (slice(i0, i1), slice(r0, r1))
+            args = (ens.h[i0:i1].contiguous(), ens.active,
+                    m0[sl].contiguous(), cl[sl].contiguous(),
+                    dn[sl].contiguous(), beta[sl].contiguous(), None)
+            nbrs = nb._replace(w=nb.w[i0:i1].contiguous())
+            shard = dict(replica_offset=off_r, replicas_total=R,
+                         instance_offset=off_i, instances_total=I)
+            if name == "ensemble_round_sparse":
+                col_idx, J_tiles = ens._stream_tiles
+                return rc.ensemble_round_sparse(
+                    col_idx, J_tiles[i0:i1].contiguous(), *args, nbrs=nbrs,
+                    **kw, **shard)
+            return rc.ensemble_round(
+                ens.J_full[i0:i1].contiguous(), *args, nbrs=nbrs,
+                block_size=ens.blocked0.block_size, **kw, **shard)
+
+        full = launch(0, I, 0, R, 0, 0)
+        hr, hi = R // 2, I // 2
+        by_r = [launch(0, I, 0, hr, 0, 0), launch(0, I, hr, R, 0, hr)]
+        by_i = [launch(0, hi, 0, R, 0, 0), launch(hi, I, 0, R, hi, 0)]
+        unkeyed = launch(hi, I, 0, R, 0, 0)
+        torch.cuda.synchronize()
+        out[name] = {"I": I, "R": R,
+                     "replica_halves_equal": _halves_equal(torch, full,
+                                                           by_r, 1),
+                     "instance_halves_equal": _halves_equal(torch, full,
+                                                            by_i, 0),
+                     "unkeyed_half_differs": not torch.equal(
+                         unkeyed.m, full.m[hi:])}
+        check(out[name]["replica_halves_equal"]
+              and out[name]["instance_halves_equal"],
+              f"{name}: offset halves != whole launch: {out[name]}")
+        check(out[name]["unkeyed_half_differs"],
+              f"{name}: the instance offset changed no draw")
+    emit(out)
+
+
+def _sharded_cli(tag, argv, prob, seen, rounds):
+    """The `sharded` CLI in process; checks its record against the f64
+    energy of the engine's best state and returns (record, launches,
+    seconds)."""
+    rc_, rec, seconds, counts, _ = _cli(argv)
+    check(rc_ in (None, 0) and rec is not None and set(rec) ==
+          JAX_SHARDED_KEYS, f"sharded {tag}: record {rec}")
+    check(rec["rounds"] == rounds and rec["processes"] == 1
+          and rec["devices"] == 1, f"sharded {tag}: {rec}")
+    npt, state = seen["npt"], seen["state"]
+    e32, m = npt.best(state)
+    e64 = float(prob.energy(m))
+    check(abs(e64 - rec["min_energy"]) <= 1e-9 * max(1.0, abs(e64))
+          and abs(e64 - e32) <= 1e-3 * max(1.0, abs(e64)),
+          f"sharded {tag}: best {e32} vs f64 {e64} vs {rec['min_energy']}")
+    return rec, counts, seconds, e32, e64
+
+
+def phase_sharded_npt(card):
+    """The slice's main path: `python -m nmc_tpu_torch sharded` in process
+    on a real NCCL process group of world size 1 (the default group every
+    later phase sees), at the CLI's defaults (32 replicas geomspace
+    0.25-16, 64 sweeps a phase, 3 cycles, 8 swap pairs), cut in rounds
+    only: chimera 16x16 with --coloring --nmc-coldest 4 through K5 (one
+    launch a round over 1 x 32 slots), and SK-1000 uncoloured with
+    --nmc-coldest 2 through sequential_sweeps (9 phases a round). Each
+    record against the f64 energy of the best state, the launches, the
+    seconds per round split into lbp / round / swaps, and one K5 launch
+    at that shape alone (CUDA events) beside its bound."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from nmc_tpu_torch.io.generators import chimera_graph, random_sk
+    from nmc_tpu_torch.ops import round_cuda as rc
+    from nmc_tpu_torch.parallel import distributed, sharded_pt
+    from nmc_tpu_torch.parallel.dryrun import free_port
+    check(distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                                 backend="nccl"), "NCCL group")
+    check(dist.get_backend() == "nccl" and distributed.world_size() == 1,
+          f"backend {dist.get_backend()}")
+    x = torch.ones(4, device=DEVICE)
+    distributed.sum_(x, distributed.global_group())
+    dist.all_reduce(x)          # a real NCCL collective at world 1
+    check(torch.equal(x, torch.ones(4, device=DEVICE)), "NCCL all_reduce")
+    seen = {}
+    orig = sharded_pt.ShardedNPT.run_scanned
+
+    def recording(self, state, num_rounds, **kw):
+        st, met = orig(self, state, num_rounds,
+                       timings=seen.setdefault("timings", {}), **kw)
+        seen.update(npt=self, state=st)
+        return st, met
+
+    out = {"phase": "sharded_npt", "card": card,
+           "backend": dist.get_backend()}
+    launches = {}
+    sharded_pt.ShardedNPT.run_scanned = recording
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            c16 = chimera_graph(16, 16, seed=0)
+            path = f"{tmp}/chimera16.txt"
+            _write_chimera(path, c16)
+            n = SHARDED_ROUNDS_C2048
+            rec, counts, secs, e32, e64 = _sharded_cli(
+                "chimera16x16", ["sharded", "--instance", path, "--format",
+                                 "chimera", "--coloring", "--nmc-coldest",
+                                 "4", "--rounds", str(n), "--chunk-rounds",
+                                 str(n)], c16.normalized()[0], seen, n)
+            npt, state = seen["npt"], seen["state"]
+            check(npt.round_path == "K5" and npt.R_local == 32
+                  and counts["ensemble_round_sparse"] == n
+                  and sum(counts.values()) == n,
+                  f"chimera16x16: route {npt.round_path}, launches {counts}")
+            k5 = _sharded_k5_alone(torch, rc, npt, state)
+            out["chimera16x16"] = {
+                "record": rec, "best_f32": e32, "best_f64": e64,
+                "launches": counts, "seconds": secs,
+                "seconds_per_round": {k: v / n for k, v in
+                                      seen.pop("timings").items()},
+                "k5_alone": k5}
+            launches["ensemble_round_sparse"] = n
+            sk = random_sk(SK_N, seed=0)
+            np.save(f"{tmp}/J.npy", sk.J)
+            n = SHARDED_ROUNDS_SK
+            rec, counts, secs, e32, e64 = _sharded_cli(
+                "sk1000", ["sharded", "--J", f"{tmp}/J.npy", "--nmc-coldest",
+                           "2", "--rounds", str(n), "--chunk-rounds", str(n)],
+                sk.normalized()[0], seen, n)
+            npt = seen["npt"]
+            check(npt.round_path == "phases"
+                  and npt.engine.sweep_kernel == "sequential_sweeps"
+                  and counts["sequential_sweeps"] == 9 * n
+                  and sum(counts.values()) == 9 * n,
+                  f"sk1000: route {npt.engine.sweep_kernel}, {counts}")
+            out["sk1000"] = {
+                "record": rec, "best_f32": e32, "best_f64": e64,
+                "launches": counts, "seconds": secs,
+                "seconds_per_round": {k: v / n for k, v in
+                                      seen.pop("timings").items()}}
+            launches["sequential_sweeps"] = 9 * n
+    finally:
+        sharded_pt.ShardedNPT.run_scanned = orig
+    emit(out)
+    return launches
+
+
+def _sharded_k5_alone(torch, rc, npt, state):
+    """One K5 launch at the CLI run's shape (1 x 32 slots, its masks and
+    betas), timed by CUDA events (median of 5 after a warm-up), beside the
+    bound of the work of that launch (`_round_work`)."""
+    from types import SimpleNamespace
+    cfg = npt.cfg
+    base = torch.where(state.do_nmc_slot, cfg.global_beta,
+                       npt.beta_list[state.slot_to_beta]).contiguous()
+    flips = torch.zeros((1, npt.R_local), dtype=torch.int32, device=DEVICE)
+    kw = dict(num_cycles=cfg.num_cycles,
+              sweeps_per_phase=cfg.sweeps_per_phase,
+              temp_x_inv=1.0 / cfg.temp_x, nbrs=npt.round_nbrs)
+    args = (*npt._stream_tiles, npt.h[None], npt.active, state.m[None],
+            state.cl[None], state.do_nmc_slot[None], base[None])
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    rc.ensemble_round_sparse(*args, gen, flips=flips, **kw)
+    times = [_event_ms(torch, lambda: rc.ensemble_round_sparse(
+        *args, gen, **kw))[0] for _ in range(5)]
+    fake = SimpleNamespace(m=state.m[None], cl=state.cl[None],
+                           do_nmc_slot=state.do_nmc_slot[None])
+    attempts, ops, nbytes = _round_work(
+        torch, npt, fake, dict(num_cycles=cfg.num_cycles,
+                               sweeps_per_phase=cfg.sweeps_per_phase),
+        int(flips.sum()), cfg.sweeps_per_phase * 3 * cfg.num_cycles)
+    bound = max(ops / PEAK_F32_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    return {"ms": float(np.median(times)), "bound_ms": bound,
+            "bound_by": ("operations" if ops / PEAK_F32_OPS
+                         >= nbytes / PEAK_HBM_BYTES else "bytes"),
+            "attempts": attempts, "flips": int(flips.sum())}
+
+
+def sharded_rank_suite(device, payload=None):
+    """What each rank of `phase_sharded_ranks` runs (and the parent at
+    world 1): `dryrun_multirank`, then on the current group ShardedNPT on
+    chimera 16x16 (K5) and SK-1000 (sequential_sweeps) at the CLI's
+    defaults, SpinShardedSweeper on ea_2d(64) (4096 spins, column blocks of
+    64, 3 sweeps and one swap round), EnsembleNMC on the ensemble_512
+    family (20 chimera 8x8, K4, 2 rounds), EnsembleICM on it (1 round) and
+    EnsemblePT on 4 SK-1000 x 64 replicas (2 rounds). Returns the gathered
+    results (numpy) and the seconds of each case."""
+    import torch
+    from nmc_tpu_torch.io.generators import chimera_graph, ea_2d, random_sk
+    from nmc_tpu_torch.parallel import (EnsembleConfig, EnsemblePT,
+                                        ShardedNPT, ShardedNPTConfig,
+                                        SpinShardedConfig,
+                                        SpinShardedSweeper, distributed)
+    from nmc_tpu_torch.parallel.dryrun import (_ensemble_result, _np,
+                                               _npt_result, dryrun_multirank)
+    group = distributed.global_group()
+    W = distributed.group_shape(group)[0]
+    x = torch.ones(3, device=DEVICE)
+    distributed.sum_(x, group)      # gloo over a CUDA tensor, when W > 1
+    check(torch.equal(x, torch.full((3,), float(W), device=DEVICE)),
+          f"all_reduce over {W} ranks")
+    seconds, out = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+
+    def gen(seed):
+        return torch.Generator(device=DEVICE).manual_seed(seed)
+
+    timed("dryrun", lambda: {"ok": bool(dryrun_multirank(device))})
+
+    def npt(prob, nmc, coloring):
+        R = 32
+        cfg = ShardedNPTConfig(sweeps_per_phase=64, num_cycles=3,
+                               num_swapping_pairs=R // 4, global_beta=2.5,
+                               temp_x=TEMP_X, use_coloring=coloring)
+        pt = ShardedNPT(prob.normalized()[0], np.geomspace(0.25, 16.0, R),
+                        [False] * (R - nmc) + [True] * nmc, cfg,
+                        group=group, device=DEVICE)
+        st, met = pt.run_scanned(pt.init_state(gen(1)), 2)
+        return {**_npt_result(pt, st, met), "route": pt.round_path}
+
+    timed("sharded_npt_k5", lambda: npt(chimera_graph(16, 16, seed=0), 4,
+                                         True))
+    timed("sharded_npt_sk1000", lambda: npt(random_sk(SK_N, seed=0), 2,
+                                             False))
+
+    def spin():
+        sw = SpinShardedSweeper(ea_2d(64, seed=0), SpinShardedConfig(
+            block_size=64), group=group, device=DEVICE)
+        st = sw.init_state(gen(2), 8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, e1 = sw.sweeps(st, 3, 1.0)
+        torch.cuda.synchronize()
+        # the per-block step (draw, owner's update, all_reduce, phi update)
+        seconds["spin_block_step_ms"] = ((time.perf_counter() - t0) * 1e3
+                                         / (3 * sw.nB_real))
+        st, e2 = sw.swap_round(st, 2, np.geomspace(0.3, 3.0, 8),
+                               num_swapping_pairs=2)
+        return {"m": sw.states(st), "energies": _np(e2),
+                "beta_to_slot": _np(st.beta_to_slot)}
+
+    timed("spin_ea2d64", spin)
+
+    def nmc():
+        _, ens, _ = _ensemble(8, 20, group=group)
+        check(ens.round_path == "K4", f"ensemble route {ens.round_path}")
+        st = ens.run_scanned(ens.init_state(gen(3)), 2)
+        return _ensemble_result(ens, st, ens.best(st))
+
+    timed("ensemble_nmc_512", nmc)
+
+    def icm():
+        _, ens, _ = _icm_ensemble(8, 20, group=group)
+        st = ens.run_scanned(ens.init_state(gen(4)), 1)
+        return _ensemble_result(ens, st, ens.best(st))
+
+    timed("ensemble_icm_512", icm)
+
+    def pt():
+        ens = EnsemblePT([random_sk(SK_N, seed=s) for s in range(4)],
+                         np.geomspace(0.1, 3.0, SK_REPLICAS),
+                         EnsembleConfig(num_replicas=SK_REPLICAS),
+                         group=group, device=DEVICE)
+        st = ens.run(ens.init_state(gen(5)), 2)
+        return {"m": distributed.host_gather(st.m, group),
+                "e_best": ens.best_energies(st),
+                "m_best": ens.best_states(st)}
+
+    timed("ensemble_pt_sk1000", pt)
+    return {"results": out, "seconds": seconds, "world": W}
+
+
+def _ranks_against_world1(ranks, world1, world):
+    """Each case of `sharded_rank_suite` on every rank against the world-1
+    run, field by field bit for bit: {case: equal}; fails unless every
+    rank ran at `world` ranks and every case is equal."""
+    equal = {case: all(
+        set(r["results"][case]) == set(ref) and all(
+            np.array_equal(np.asarray(r["results"][case][f]), np.asarray(v))
+            for f, v in ref.items()) for r in ranks)
+        for case, ref in world1["results"].items()}
+    check(all(r["world"] == world for r in ranks), "rank world sizes")
+    check(all(equal.values()), f"ranks differ from world 1: {equal}")
+    return equal
+
+
+def phase_sharded_ranks(card):
+    """Not a main path: 2 ranks spawned on this one card (fresh
+    interpreters, a gloo group over CUDA tensors, as NCCL refuses two
+    ranks on one device), each running `sharded_rank_suite`; the parent
+    runs it at world size 1 on the NCCL group of `phase_sharded_npt`.
+    Every result of both ranks equal to world 1's, bit for bit."""
+    from nmc_tpu_torch.parallel.dryrun import launch_ranks
+    t0 = time.perf_counter()
+    ranks = launch_ranks("chip_smoke:sharded_rank_suite", 2, backend="gloo",
+                         device="cuda", payload={}, timeout=600, threads=2)
+    ranks_seconds = time.perf_counter() - t0
+    world1 = sharded_rank_suite("cuda", {})
+    emit({"phase": "sharded_ranks", "card": card, "ranks": 2,
+          "backend": "gloo",
+          "launch_seconds": ranks_seconds,
+          "rank_seconds": [r["seconds"] for r in ranks],
+          "world1_seconds": world1["seconds"],
+          "equal": _ranks_against_world1(ranks, world1, 2),
+          "routes": {c: world1["results"][c]["route"]
+                     for c in ("sharded_npt_k5", "sharded_npt_sk1000")}})
+
+
+def sharded_ranks_on_cards(world):
+    """`python3 chip_smoke.py --ranks W`: `sharded_rank_suite` on W ranks,
+    one card each, over NCCL, against world 1 on this process's NCCL group
+    (card 0): every result bit for bit, and each case's seconds. Needs W
+    cards."""
+    import torch
+    import torch.distributed as dist
+    from nmc_tpu_torch.ops import _build
+    from nmc_tpu_torch.parallel import distributed
+    from nmc_tpu_torch.parallel.dryrun import free_port, launch_ranks
+    check(torch.cuda.device_count() >= world,
+          f"--ranks {world} needs {world} cards, "
+          f"torch sees {torch.cuda.device_count()}")
+    card = phase_device()
+    _build.build_all()
+    t0 = time.perf_counter()
+    ranks = launch_ranks("chip_smoke:sharded_rank_suite", world,
+                         backend="nccl", device="cuda", payload={},
+                         timeout=900, threads=2)
+    launch = time.perf_counter() - t0
+    check(distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                                 backend="nccl"), "NCCL group")
+    world1 = sharded_rank_suite("cuda", {})
+    emit({"phase": "sharded_ranks_on_cards", "ranks": world,
+          "backend": "nccl", "card": card, "launch_seconds": launch,
+          "rank_seconds": [r["seconds"] for r in ranks],
+          "world1_seconds": world1["seconds"],
+          "equal": _ranks_against_world1(ranks, world1, world)})
+    dist.destroy_process_group()
+
+
 def phase_throughput(card, c2048, r4096, ens512, ens2048):
     import torch
     out = {"phase": "throughput", "card": card}
@@ -3561,9 +4109,8 @@ _NO_ENERGY = ("        if (tid < 32) {\n          const float e = warp0_energy",
 _NO_GATHER = ("          nmc::gather_block(a.nb, w, b, dm, phi);",
               "          if (false) nmc::gather_block(a.nb, w, b, dm, phi);")
 _NO_PHILOX = ("nmc::philox4x32_10_word0(\n                      (uint32_t)col, "
-              "(uint32_t)r, tg, (uint32_t)inst, seed0,\n                      "
-              "seed1);",
-              "(uint32_t)col * 0x9E3779B9u ^ tg * 0x85EBCA6Bu ^ (uint32_t)r "
+              "r_key, tg, inst_key, seed0, seed1);",
+              "(uint32_t)col * 0x9E3779B9u ^ tg * 0x85EBCA6Bu ^ r_key "
               "^ seed0;")
 _NO_TANHF = ("0.5f * (1.0f + tanhf(betab * phi[col]))",
              "0.5f + 0.25f * betab * phi[col]")
@@ -3946,10 +4493,11 @@ def sweep_ablation(turns=7):
 def sweep_times(tree):
     """K1, K2 and K3 alone (CUDA events, beta 2) at their main-path launch
     shapes (`_launch_shapes`) and their throughput shapes (K1 R = 2048 x
-    1024, K2/K3 SWEEP_THROUGHPUT), through the chip_smoke.py and
-    nmc_tpu_torch of the checkout at `tree`: run it from two checkouts in
-    turns (parent, change, change, parent) to compare them on one card.
-    Prints one JSON line."""
+    1024, K2/K3 SWEEP_THROUGHPUT), and K4 / K5 (one 576-sweep round with
+    Philox, 20 chimera 8x8 / 16x16 x 32 slots, median of 5), through the
+    chip_smoke.py and nmc_tpu_torch of the checkout at `tree`: run it from
+    two checkouts in turns (parent, change, change, parent) to compare them
+    on one card. Prints one JSON line."""
     sys.path.insert(0, str(tree))
     import torch
     import chip_smoke as c          # the one in `tree`
@@ -3967,6 +4515,18 @@ def sweep_times(tree):
             "throughput_ms": c._throughput_one(
                 torch, name, prob, eng, *shape, 4,
                 with_plain=False)["kernel_ms_per_call"]}
+    for name, size in (("ensemble_round", 8), ("ensemble_round_sparse", 16)):
+        _, ens, _ = c._ensemble(size, 20)
+        m0, cl, dn, beta, gen = c._round_inputs(torch, ens, 5)
+        kernel = c._round_fns(ens)[0]
+
+        def call():
+            return kernel(m0, cl, dn, beta, gen, num_cycles=3,
+                          sweeps_per_phase=64)
+
+        call()
+        out[name] = {"round_ms": float(np.median(
+            [c._event_ms(torch, call)[0] for _ in range(5)]))}
     emit(out)
 
 
@@ -3988,6 +4548,9 @@ def main():
         return
     if sys.argv[1:] == ["--sweep-ablation"]:
         sweep_ablation()
+        return
+    if sys.argv[1:2] == ["--ranks"]:
+        sharded_ranks_on_cards(int(sys.argv[2]))
         return
     t_start = time.perf_counter()
     card = phase_device()
@@ -4020,7 +4583,7 @@ def main():
     phase_native_clusters()
     phase_spectral()
     phase_solve_wishart()
-    phase_solve_contrived()
+    launches["sequential_sweeps"] += phase_solve_contrived()
     launches["ensemble_round_sparse"] += phase_solve_chimera2048()
     phase_refine_128()
     launches["ensemble_round"] += phase_campaign_spectral()
@@ -4032,8 +4595,14 @@ def main():
     launches.update(exact_launches)
     phase_exact_enum(k6_energy)
     phase_exact_tiers()
+    phase_sharded_offsets(c2048, r4096)
+    for name, count in phase_sharded_npt(card).items():
+        launches[name] += count
+    phase_sharded_ranks(card)
     tp = phase_throughput(card, c2048, r4096, ens512, ens2048)
     tp["sequential_sweeps"] = seq_tp
+    import torch.distributed as dist
+    dist.destroy_process_group()          # sharded_npt's NCCL group
     for name in ("mitm_min", "mitm_min_i8"):
         errs[name] = max(errs[name], tp[name]["max_abs_err"])
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -25,13 +25,16 @@ refinement, the staged portfolio solver (`portfolio_solve`), the chimera
 beam tier (host `solve_beam_chimera` with strip refinement, and the int32
 device beam `solve_beam_chimera_cuda` over torch's stable sorts), the
 evaluation harness, and the `nmc`/`apt`/`npt`/`icm`/`evaluate`/`campaign`/
-`solve`/`exact`/`beam`/`refine`/`generate` CLI. The sequential
+`solve`/`exact`/`beam`/`refine`/`generate`/`sharded` CLI. The sequential
 fixed-order sweep of uncoloured layouts (the drivers' default) runs on the
 card through the same sweep body (`sequential_sweeps`); `EnsemblePT` runs
 instance ensembles of PT ladders; the reference-compatible class shims
 (NMC, NPT, APT_preprocessor, APT_ICM, with the faithful host kernel) live
 in nmc_tpu_torch.compat, the figures in utils/plotting.py and the native
-union-find in nmc_tpu_torch.native.
+union-find in nmc_tpu_torch.native. The multi-GPU slice runs on
+torch.distributed (nmc_tpu_torch.parallel: `ShardedNPT`,
+`SpinShardedSweeper`, `distributed`, the ensembles' `group=`, and the
+`sharded` CLI).
 """
 
 from . import device  # noqa: F401  (sets the full-f32 matmul policy)

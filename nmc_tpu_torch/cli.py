@@ -1,5 +1,6 @@
 """Command-line entry points of the port: `nmc`, `apt`, `npt`, `icm`,
-`evaluate`, `campaign`, `solve`, `exact`, `beam`, `refine` and `generate`.
+`evaluate`, `sharded`, `campaign`, `solve`, `exact`, `beam`, `refine` and
+`generate`.
 
     python -m nmc_tpu_torch nmc --J J.npy --h h.npy --coloring --chains 256
     python -m nmc_tpu_torch nmc --instance path.txt --format chimera --coloring
@@ -14,13 +15,17 @@
     python -m nmc_tpu_torch beam DIR/001.txt --beam 16
     python -m nmc_tpu_torch evaluate --folder DIR --family chimera --coloring
     python -m nmc_tpu_torch generate --kind sk --n 1000 --out inst.txt
+    torchrun --nproc-per-node 4 -m nmc_tpu_torch sharded --J J.npy --coloring
 
 Same flags, JSON output keys and exit codes as ``python -m nmc_tpu``'s
 subcommands of those names (`solve`, `exact` and `beam` with `--device` in
 place of `--cpu`, `exact` of `--interpret`; `beam` runs JAX's `--device`
 route on a card and its host routes with `--device cpu`). Every subcommand
 but `generate` (host-only file writing) takes `--device` (default `cuda`):
-without a card it fails unless `--device cpu` is given.
+without a card it fails unless `--device cpu` is given. `main` first
+joins a `torch.distributed` process group when torchrun's or the
+NMC_TPU_* launch variables are set (`parallel/distributed.py`); `sharded`
+then splits its replica ladder over the ranks, each on its own card.
 """
 
 from __future__ import annotations
@@ -180,6 +185,52 @@ def cmd_icm(args):
         "min_energy": res.min_energy,
         "icm_moves": res.icm_moves, "icm_flips": res.icm_flips,
     }))
+
+
+def cmd_sharded(args):
+    """Replica-sharded NPT over the process group (one card, or several
+    cards or hosts through torchrun or the NMC_TPU_* launch variables,
+    parallel/distributed.py); rank 0 prints the record."""
+    import torch
+
+    from .parallel import distributed
+    from .parallel.sharded_pt import ShardedNPT, ShardedNPTConfig
+
+    prob = _load_problem(args).normalized()[0]
+    beta_list = np.load(args.beta_list) if args.beta_list else \
+        np.geomspace(args.beta_start, args.beta_max, args.replicas)
+    R = beta_list.shape[0]
+    doNMC = [False] * (R - args.nmc_coldest) + [True] * args.nmc_coldest
+    cfg = ShardedNPTConfig(
+        sweeps_per_phase=args.sweeps_per_phase, num_cycles=args.cycles,
+        num_swapping_pairs=max(R // 4, 1), global_beta=args.beta,
+        temp_x=args.temp_x, use_coloring=args.coloring,
+        block_size=args.block_size,
+    )
+    device = (distributed.rank_device() if args.device == "cuda"
+              else torch.device(args.device))
+    npt = ShardedNPT(prob, beta_list, doNMC, cfg,
+                     group=distributed.global_group(), device=device)
+    state = npt.init_state(
+        torch.Generator(device=device).manual_seed(args.seed))
+    rounds_done = 0
+    while rounds_done < args.rounds:
+        k = min(args.chunk_rounds, args.rounds - rounds_done)
+        state, metrics = npt.run_scanned(state, k)
+        rounds_done += k
+        e_best, m_best = npt.best(state)
+        if args.target_energy is not None and \
+                float(prob.energy(m_best)) <= args.target_energy:
+            break
+    e_best, m_best = npt.best(state)
+    if distributed.rank() == 0:
+        print(json.dumps({
+            "min_energy": float(prob.energy(m_best)),
+            "rounds": rounds_done,
+            "replicas": R, "devices": distributed.world_size(),
+            "processes": distributed.world_size(),
+            "last_chunk_swap_accepts": int(metrics.accepted.sum()),
+        }))
 
 
 def cmd_evaluate(args):
@@ -584,6 +635,27 @@ def build_parser() -> argparse.ArgumentParser:
     add_device_arg(p)
     p.set_defaults(fn=cmd_evaluate)
 
+    p = sub.add_parser("sharded",
+                       help="replica-sharded NPT over a torch.distributed "
+                            "group (multi-card / -host)")
+    _add_problem_args(p)
+    p.add_argument("--beta-list")
+    p.add_argument("--replicas", type=int, default=32)
+    p.add_argument("--beta-start", type=float, default=0.25)
+    p.add_argument("--beta-max", type=float, default=16.0)
+    p.add_argument("--beta", type=float, default=2.5,
+                   help="global_beta for NMC replicas")
+    p.add_argument("--temp-x", type=float, default=20.0)
+    p.add_argument("--rounds", type=int, default=100)
+    p.add_argument("--chunk-rounds", type=int, default=50)
+    p.add_argument("--sweeps-per-phase", type=int, default=64)
+    p.add_argument("--cycles", type=int, default=3)
+    p.add_argument("--nmc-coldest", type=int, default=0)
+    p.add_argument("--target-energy", type=float, default=None,
+                   help="stop when the f64 best energy reaches this "
+                        "(normalized units)")
+    p.set_defaults(fn=cmd_sharded)
+
     p = sub.add_parser(
         "campaign",
         help="batched solution-quality campaign over a benchmark family "
@@ -724,6 +796,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    # multi-process launch: joins the torch.distributed process group when
+    # torchrun's or the NMC_TPU_COORDINATOR/NUM_PROCESSES/PROCESS_ID
+    # variables are set (a no-op otherwise), parallel/distributed.py
+    from .parallel.distributed import initialize_from_env
+    initialize_from_env()
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

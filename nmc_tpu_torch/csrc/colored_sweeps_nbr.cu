@@ -128,6 +128,7 @@ struct Sweeps {
   float* energies;          // [T, R]
   float* M;                 // [T, R, n_pad] states after each sweep, or null
   int R, n_pad, B, T, mask_rows, n_steps;
+  int replica_offset;       // added to the replica word of the Philox counter
 };
 
 // What one thread's draws read from device memory. The CTA's width / P
@@ -147,7 +148,8 @@ struct Drawer {
 // the step: every unmasked spin takes +1 with p_up = (1 + tanh(beta *
 // phi)) / 2 at once, beta = (beta_t * beta_row[r]) * beta_spin[r, col] in
 // that order as the Pallas kernels multiply (the last factor skipped when
-// beta_spin is null), from the Philox counter (col, r, t) or the injected
+// beta_spin is null), from the Philox counter (col, replica_offset + r, t)
+// (the offset places a launch on a slice of a larger ladder) or the injected
 // uniform; dm gets new - old (0 for a masked spin). Returns whether one
 // of the thread's spins flipped.
 __device__ __forceinline__ bool draw_step(const Drawer& d, int c0, int stride,
@@ -266,7 +268,7 @@ __global__ void __launch_bounds__(kWidth) colored_sweeps_nbr_kernel(Sweeps a) {
   d.uniforms = a.uniforms != nullptr ? a.uniforms + row : nullptr;
   d.u_sweep = (size_t)a.R * n_pad;
   d.beta_row = g < live ? a.beta_row[r0 + g] : 1.f;
-  d.r = (uint32_t)(r0 + g);
+  d.r = (uint32_t)(r0 + g + a.replica_offset);
   d.seed0 = a.uniforms == nullptr ? (uint32_t)a.seed[0] : 0u;
   d.seed1 = a.uniforms == nullptr ? (uint32_t)a.seed[1] : 0u;
 
@@ -365,11 +367,13 @@ int launch_shape(const int32_t* step_ptr, const int32_t* tgt_ptr,
            const float* uniforms, const int32_t* seed, float* m_out,
            float* phi_out, float* m_best, float* e_best, float* energies,
            float* M, int R, int n_pad, int block_size, int num_sweeps,
-           int mask_rows, int num_steps, int threads, int P, void* stream) {
+           int mask_rows, int num_steps, int threads, int P,
+           int replica_offset, void* stream) {
   const Sweeps a{step_ptr, tgt_ptr, tgt, src_ptr, src, w, h, m0, phi0,
                  beta_spin, mask, beta_sweep, beta_row, uniforms, seed,
                  m_out, phi_out, m_best, e_best, energies, M, R, n_pad,
-                 block_size, num_sweeps, mask_rows, num_steps};
+                 block_size, num_sweeps, mask_rows, num_steps,
+                 replica_offset};
   return with_shape(threads, P, [&](auto width, auto p) {
     constexpr int kWidth = decltype(width)::value, kP = decltype(p)::value;
     const size_t smem = shared_bytes(a.n_pad, kP);
@@ -394,13 +398,14 @@ int launch(const int32_t* step_ptr, const int32_t* tgt_ptr,
            const float* uniforms, const int32_t* seed, float* m_out,
            float* phi_out, float* m_best, float* e_best, float* energies,
            float* M, int R, int n_pad, int block_size, int num_sweeps,
-           int mask_rows, int num_steps, int threads, int P, void* stream) {
+           int mask_rows, int num_steps, int threads, int P,
+           int replica_offset, void* stream) {
   auto f = M != nullptr ? launch_shape<kSkipIdle, true>
                         : launch_shape<kSkipIdle, false>;
   return f(step_ptr, tgt_ptr, tgt, src_ptr, src, w, h, m0, phi0, beta_spin,
            mask, beta_sweep, beta_row, uniforms, seed, m_out, phi_out,
            m_best, e_best, energies, M, R, n_pad, block_size, num_sweeps,
-           mask_rows, num_steps, threads, P, stream);
+           mask_rows, num_steps, threads, P, replica_offset, stream);
 }
 
 }  // namespace
@@ -422,12 +427,12 @@ int colored_sweeps_f32(
     float* energies, float* M, int R, int n_pad, int block_size,
     int num_sweeps,
     int mask_rows, int num_steps, int threads, int replicas_per_cta,
-    void* stream) {
+    int replica_offset, void* stream) {
   return launch<false>(step_ptr, tgt_ptr, tgt, src_ptr, src, w, h, m0, phi0,
                 beta_spin, mask, beta_sweep, beta_row, uniforms, seed, m_out,
                 phi_out, m_best, e_best, energies, M, R, n_pad, block_size,
                 num_sweeps, mask_rows, num_steps, threads, replicas_per_cta,
-                stream);
+                replica_offset, stream);
 }
 
 // K2, over the layout built from dense J, one replica per CTA; threads is
@@ -441,11 +446,13 @@ int colored_sweeps_streamed_f32(
     float* m_out, float* phi_out, float* m_best, float* e_best,
     float* energies, float* M, int R, int n_pad, int block_size,
     int num_sweeps,
-    int mask_rows, int num_steps, int threads, void* stream) {
+    int mask_rows, int num_steps, int threads, int replica_offset,
+    void* stream) {
   return launch<false>(step_ptr, tgt_ptr, tgt, src_ptr, src, w, h, m0, phi0,
                 beta_spin, mask, beta_sweep, beta_row, uniforms, seed, m_out,
                 phi_out, m_best, e_best, energies, M, R, n_pad, block_size,
-                num_sweeps, mask_rows, num_steps, threads, 1, stream);
+                num_sweeps, mask_rows, num_steps, threads, 1, replica_offset,
+                stream);
 }
 
 // K3, over the layout built from the block-sparse tiles, one replica per
@@ -459,11 +466,13 @@ int colored_sweeps_sparse_f32(
     float* m_out, float* phi_out, float* m_best, float* e_best,
     float* energies, float* M, int R, int n_pad, int block_size,
     int num_sweeps,
-    int mask_rows, int num_steps, int threads, void* stream) {
+    int mask_rows, int num_steps, int threads, int replica_offset,
+    void* stream) {
   return launch<false>(step_ptr, tgt_ptr, tgt, src_ptr, src, w, h, m0, phi0,
                 beta_spin, mask, beta_sweep, beta_row, uniforms, seed, m_out,
                 phi_out, m_best, e_best, energies, M, R, n_pad, block_size,
-                num_sweeps, mask_rows, num_steps, threads, 1, stream);
+                num_sweeps, mask_rows, num_steps, threads, 1, replica_offset,
+                stream);
 }
 
 // The sequential sweeps, over the layout built from dense J in blocks of one
@@ -477,12 +486,12 @@ int sequential_sweeps_f32(
     float* m_out, float* phi_out, float* m_best, float* e_best,
     float* energies, float* M, int R, int n_pad, int block_size,
     int num_sweeps, int mask_rows, int num_steps, int threads,
-    int replicas_per_cta, void* stream) {
+    int replicas_per_cta, int replica_offset, void* stream) {
   return launch<true>(step_ptr, tgt_ptr, tgt, src_ptr, src, w, h, m0, phi0,
                       beta_spin, mask, beta_sweep, beta_row, uniforms, seed,
                       m_out, phi_out, m_best, e_best, energies, M, R, n_pad,
                       block_size, num_sweeps, mask_rows, num_steps, threads,
-                      replicas_per_cta, stream);
+                      replicas_per_cta, replica_offset, stream);
 }
 
 // The kernel's registers per thread at `threads` per CTA and

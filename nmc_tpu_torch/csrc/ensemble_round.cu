@@ -65,8 +65,11 @@
 // dense coupling graph still runs correctly here, at about that old cost.
 //
 // Random numbers: Philox-4x32-10 with key = seed and counter = (column,
-// replica, phase * sweeps_per_phase + sweep, instance); the uniform is
-// (bits >> 8) * 2^-24. Injected uniforms [P, T, I, R, n_pad] replace it.
+// replica + replica_offset, phase * sweeps_per_phase + sweep, instance +
+// instance_offset); the uniform is (bits >> 8) * 2^-24. The offsets place a
+// launch on a slice of a larger ensemble, so that a slice draws what the
+// whole launch draws for those rows. Injected uniforms [P, T, I, R, n_pad]
+// replace it.
 
 #include "sweep_common.cuh"
 
@@ -97,6 +100,7 @@ struct Round {
   int32_t* claims;         // [I] slots claimed per instance, zero at launch
   int I, R, n_pad, B, nnz, num_cycles, T, full_update_frequency;
   float heat;
+  int replica_offset, instance_offset;  // added to the Philox counter words
 };
 
 size_t shared_bytes(int n_pad, int B) {
@@ -174,6 +178,8 @@ __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
   const float beta_heated = beta * a.heat;
   const uint32_t seed0 = a.uniforms == nullptr ? (uint32_t)a.seed[0] : 0u;
   const uint32_t seed1 = a.uniforms == nullptr ? (uint32_t)a.seed[1] : 0u;
+  const uint32_t r_key = (uint32_t)(r + a.replica_offset);
+  const uint32_t inst_key = (uint32_t)(inst + a.instance_offset);
 
   for (int k = tid; k < n_pad; k += blockDim.x) {
     const float mv = a.m0[row + k];
@@ -222,8 +228,7 @@ __global__ void __launch_bounds__(kThreads, kMinCtasPerSm)
                   u = u_t[col];
                 } else {
                   const uint32_t bits = nmc::philox4x32_10_word0(
-                      (uint32_t)col, (uint32_t)r, tg, (uint32_t)inst, seed0,
-                      seed1);
+                      (uint32_t)col, r_key, tg, inst_key, seed0, seed1);
                   u = (float)(bits >> 8) * 5.9604644775390625e-08f;  // 2^-24
                 }
                 const float betab = (f & kHeated) ? beta_heated : beta;
@@ -286,11 +291,13 @@ int launch_round(const int32_t* tgt_ptr, const int16_t* tgt,
                  float* e_best, float* e_carried, int32_t* flips_out,
                  int32_t* claims, int I, int R, int n_pad, int block_size,
                  int nnz, int num_cycles, int sweeps_per_phase,
-                 int full_update_frequency, float heat, void* stream) {
+                 int full_update_frequency, float heat, int replica_offset,
+                 int instance_offset, void* stream) {
   const Round a{{tgt_ptr, tgt, src_ptr, src}, w, h, act, m0, cl, do_nmc,
                 beta_row, uniforms, seed, m_out, m_best, e_best, e_carried,
                 flips_out, claims, I, R, n_pad, block_size, nnz, num_cycles,
-                sweeps_per_phase, full_update_frequency, heat};
+                sweeps_per_phase, full_update_frequency, heat, replica_offset,
+                instance_offset};
   const size_t smem = shared_bytes(n_pad, block_size);
   cudaError_t err = cudaFuncSetAttribute(
       ensemble_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -307,7 +314,8 @@ extern "C" {
 
 // K4, over the layout built from dense J. Launches on `stream`; returns
 // the cudaError_t of the launch. uniforms and flips_out may be null;
-// claims ([I] int32) must be zero.
+// claims ([I] int32) must be zero. replica_offset and instance_offset (0
+// for a whole ensemble) key the draws of a slice by its global rows.
 int ensemble_round_f32(const int32_t* tgt_ptr, const int16_t* tgt,
                        const int32_t* src_ptr, const int16_t* src,
                        const float* w, const float* h, const uint8_t* act,
@@ -319,12 +327,14 @@ int ensemble_round_f32(const int32_t* tgt_ptr, const int16_t* tgt,
                        int32_t* claims, int I, int R, int n_pad,
                        int block_size, int nnz, int num_cycles,
                        int sweeps_per_phase, int full_update_frequency,
-                       float heat, void* stream) {
+                       float heat, int replica_offset, int instance_offset,
+                       void* stream) {
   return launch_round(tgt_ptr, tgt, src_ptr, src, w, h, act, m0, cl, do_nmc,
                       beta_row, uniforms, seed, m_out, m_best, e_best,
                       e_carried, flips_out, claims, I, R, n_pad, block_size,
                       nnz, num_cycles, sweeps_per_phase,
-                      full_update_frequency, heat, stream);
+                      full_update_frequency, heat, replica_offset,
+                      instance_offset, stream);
 }
 
 // K5, over the layout built from the union tiles [I, nB, K, B, B].
@@ -340,12 +350,14 @@ int ensemble_round_sparse_f32(const int32_t* tgt_ptr, const int16_t* tgt,
                               int R, int n_pad, int block_size, int nnz,
                               int num_cycles, int sweeps_per_phase,
                               int full_update_frequency, float heat,
+                              int replica_offset, int instance_offset,
                               void* stream) {
   return launch_round(tgt_ptr, tgt, src_ptr, src, w, h, act, m0, cl, do_nmc,
                       beta_row, uniforms, seed, m_out, m_best, e_best,
                       e_carried, flips_out, claims, I, R, n_pad, block_size,
                       nnz, num_cycles, sweeps_per_phase,
-                      full_update_frequency, heat, stream);
+                      full_update_frequency, heat, replica_offset,
+                      instance_offset, stream);
 }
 
 // The kernel's registers per thread and the CTAs of it that fit on one SM

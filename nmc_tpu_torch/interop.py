@@ -104,3 +104,49 @@ def ensemble_icm_state_from_numpy(s, generator: torch.Generator, *,
         icm_flips=t("icm_flips", torch.int64),
         cl=t("cl", torch.bool) if full else None,
         dn=t("dn", torch.bool) if full else None)
+
+
+def sharded_pt_state_from_numpy(s, generator: torch.Generator, *,
+                                dtype: Union[str, torch.dtype] = torch.float32,
+                                device=None):
+    """The port's `ShardedPTState` (all R slots, world size 1) from a
+    ShardedPTState of the JAX package (or any object or mapping with its
+    fields as numpy arrays: m, beta_to_slot, slot_to_beta, round_index,
+    m_best, e_best, cl, do_nmc_slot). The JAX key has no counterpart: the
+    draws of the port's rounds come from `generator`."""
+    from .parallel.sharded_pt import ShardedPTState
+    get = s.__getitem__ if isinstance(s, Mapping) else (lambda f: getattr(s, f))
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
+
+    def t(f, dt):
+        return torch.as_tensor(np.array(get(f)), dtype=dt, device=device)
+
+    return ShardedPTState(
+        m=t("m", dtype), beta_to_slot=t("beta_to_slot", torch.int64),
+        slot_to_beta=t("slot_to_beta", torch.int64), generator=generator,
+        round_index=int(np.asarray(get("round_index"))),
+        m_best=t("m_best", dtype), e_best=t("e_best", dtype),
+        cl=t("cl", torch.bool), do_nmc_slot=t("do_nmc_slot", torch.bool))
+
+
+def spin_sharded_state_from_numpy(s, generator: torch.Generator, *,
+                                  dtype: Union[str, torch.dtype] = torch.float32,
+                                  device=None):
+    """The port's `SpinShardedState` (world size 1: every replica, every
+    column) from a SpinShardedState of the JAX package (or any object or
+    mapping with its fields as numpy arrays: m, phi, step, beta_to_slot,
+    slot_to_beta), with `generator` for the draws."""
+    from .parallel.spin_sharded import SpinShardedState
+    get = s.__getitem__ if isinstance(s, Mapping) else (lambda f: getattr(s, f))
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype, device)
+
+    def t(f, dt):
+        return torch.as_tensor(np.array(get(f)), dtype=dt, device=device)
+
+    return SpinShardedState(
+        m=t("m", dtype), phi=t("phi", dtype), generator=generator,
+        step=int(np.asarray(get("step"))),
+        beta_to_slot=t("beta_to_slot", torch.int64),
+        slot_to_beta=t("slot_to_beta", torch.int64))

@@ -42,10 +42,10 @@ from ..core.problem import (BlockedProblem, IsingProblem, block_problem,
                             block_sparse_tiles)
 from ..device import resolve_device, resolve_dtype
 from .sweeps import SweepResult, anneal_schedule, run_sweeps
-from .sweeps_cuda import (colored_sweeps, colored_sweeps_sparse,
-                          colored_sweeps_streamed, sequential_neighbors,
-                          sequential_sweeps, steps_are_independent,
-                          sweep_neighbors_from_dense)
+from .sweeps_cuda import (_cpu_uniforms, colored_sweeps,
+                          colored_sweeps_sparse, colored_sweeps_streamed,
+                          sequential_neighbors, sequential_sweeps, slice_axis,
+                          steps_are_independent, sweep_neighbors_from_dense)
 
 # Largest n_pad the dense colored kernel K1 serves; above it the JAX package
 # streams J (K2, or K3 for block-sparse layouts), and so does the port.
@@ -197,7 +197,17 @@ class SweepEngine:
         blocked_input: bool = False,
         blocked_output: bool = False,
         uniforms: Optional[torch.Tensor] = None,  # [T, R, n_pad] injected draws
+        phi: Optional[torch.Tensor] = None,       # [R, n_pad] fields of a blocked m_start
+        replica_offset: int = 0,                  # global index of row 0
+        replicas_total: Optional[int] = None,     # the whole ladder's R
+        seed: Optional[torch.Tensor] = None,      # int32 [2] (kernel routes)
     ) -> EngineResult | SweepResult:
+        """`num_sweeps` sweeps of the replicas in `m_start`. A run of a
+        slice of a larger ladder passes its first row's global index and
+        the ladder's size: the kernels key their draws by global rows and
+        the plain routes draw the whole ladder's uniforms and keep the
+        slice's (`ops/sweeps_cuda.py`). `phi` (blocked input only) skips
+        the fields' product."""
         m0 = self._tensor(m_start)
         if m0.ndim == 1:
             m0 = m0[None, :]
@@ -231,21 +241,37 @@ class SweepEngine:
                 mask = self.to_blocked_mask(mask.expand(R, self.n))
             mask = mask & self.active
 
-        phi = self.fields(m0)
+        if phi is None:
+            phi = self.fields(m0)
+        elif not blocked_input:
+            raise ValueError("phi= needs blocked_input=True")
+        shard = dict(replica_offset=replica_offset,
+                     replicas_total=replicas_total, seed=seed)
 
         if self.sweep_kernel == "sequential_sweeps":
             res = sequential_sweeps(
                 self.J_rows, self.J_diag, self.h, m0, phi, generator,
                 beta_sweep, bs, mask, num_sweeps=num_sweeps,
-                record_m=record_m, uniforms=uniforms, nbrs=self.sweep_nbrs)
+                record_m=record_m, uniforms=uniforms, nbrs=self.sweep_nbrs,
+                **shard)
         elif (self.sweep_kernel is not None
               and self.within_block == "jacobi"
               and self.block_order == "fixed"):
             res = self._run_kernel(m0, phi, generator, beta_sweep, bs, mask,
                                    beta_replica, beta_spin is not None,
                                    update_mask is not None, num_sweeps,
-                                   uniforms, record_m)
+                                   uniforms, record_m, shard)
         else:
+            if self.block_order == "random":
+                if replica_offset or replicas_total not in (None, R):
+                    raise ValueError("random block order runs whole "
+                                     "ladders only")
+            else:
+                uniforms = _cpu_uniforms(
+                    generator, uniforms, seed, (num_sweeps,),
+                    (slice_axis("replicas", replica_offset, R,
+                                replicas_total),),
+                    self.n_pad, self.dtype, self.device)
             res = run_sweeps(
                 self.J_rows, self.J_diag, self.h, m0, phi, generator,
                 beta_sweep, bs, mask, num_sweeps=num_sweeps,
@@ -263,7 +289,7 @@ class SweepEngine:
 
     def _run_kernel(self, m0, phi, generator, beta_sweep, bs, mask,
                     beta_replica, has_bs, has_mask, num_sweeps, uniforms,
-                    record_m):
+                    record_m, shard):
         """The colored sweep kernel chosen at setup (`sweep_kernel`)."""
         mask_arg = mask if has_mask else self.active.reshape(1, self.n_pad)
         if self.sweep_kernel == "colored_sweeps":
@@ -271,7 +297,7 @@ class SweepEngine:
                 self.J_full, self.h, m0, phi, generator, beta_sweep, bs,
                 mask_arg, num_sweeps=num_sweeps,
                 block_size=self.blocked.block_size, uniforms=uniforms,
-                nbrs=self.sweep_nbrs, record_m=record_m)
+                nbrs=self.sweep_nbrs, record_m=record_m, **shard)
         else:
             # the streamed kernels' parameters, as the JAX engine passes them
             R = m0.shape[0]
@@ -286,13 +312,13 @@ class SweepEngine:
                     col_idx, J_tiles, self.h, m0, phi, generator, beta_sweep,
                     beta_row, mask_arg, bs_arg, num_sweeps=num_sweeps,
                     uniforms=uniforms, nbrs=self.sweep_nbrs,
-                    record_m=record_m)
+                    record_m=record_m, **shard)
             else:
                 cres = colored_sweeps_streamed(
                     self.J_rows, self.h, m0, phi, generator, beta_sweep,
                     beta_row, mask_arg, bs_arg, num_sweeps=num_sweeps,
                     uniforms=uniforms, nbrs=self.sweep_nbrs,
-                    record_m=record_m)
+                    record_m=record_m, **shard)
         return SweepResult(m=cres.m, phi=cres.phi, m_best=cres.m_best,
                            e_best=cres.e_best, energies=cres.energies,
                            M=cres.M if record_m else None)

@@ -43,6 +43,15 @@ runs its `*_reference` in plain torch and launches nothing; on a CUDA
 tensor it launches the kernel or raises. Launches are counted in
 `<wrapper>.launches`. An optional `flips` tensor [I, R] int32 receives each
 slot's number of spin flips over the round.
+
+A launch may run a slice of a larger ensemble (a shard on one rank):
+`replica_offset` and `instance_offset`, the global indices of its first
+replica and instance, are added to the Philox counter's replica and
+instance words, so the slice draws what the whole launch draws for its
+rows. On the CPU a wrapper given a generator and the totals
+(`replicas_total`, `instances_total`) draws each sweep's uniforms for the
+whole ensemble in the unsliced order and keeps its rows; `seed=` (int32
+[2]) stands in for the generator's seed words on the card.
 """
 
 from __future__ import annotations
@@ -56,15 +65,16 @@ import torch
 from ._build import bind, load_library
 from .sweeps import heat_bath_update
 from .sweeps_cuda import (_INT16_MAX, MAX_SHARED_BYTES, _broadcast, _check,
-                          _check_shared, _pack_neighbors, _ptr, _raise_on,
-                          _require_cuda, _seed)
+                          _check_shared, _cpu_uniforms, _pack_neighbors, _ptr,
+                          _raise_on, _require_cuda, _seed, slice_axis)
 
 _LIB = "ensemble_round"
 # argument kinds of each C entry point, in order ('p' pointer, 'i' int,
 # 'f' float); the CUDA stream follows as one more pointer. Both take the
-# neighbour layout (5 pointers) and the same round arguments.
-_SIGNATURES = {"ensemble_round_f32": "p" * 19 + "i" * 8 + "f",
-               "ensemble_round_sparse_f32": "p" * 19 + "i" * 8 + "f"}
+# neighbour layout (5 pointers) and the same round arguments, the replica
+# and instance offsets last.
+_SIGNATURES = {"ensemble_round_f32": "p" * 19 + "i" * 8 + "f" + "ii",
+               "ensemble_round_sparse_f32": "p" * 19 + "i" * 8 + "f" + "ii"}
 
 
 class EnsembleRoundResult(NamedTuple):
@@ -360,7 +370,7 @@ def ensemble_round_neighbors_reference(
 
 
 def _round_args(h, act, m0, cl, do_nmc, beta_row, generator, uniforms, flips,
-                num_cycles, sweeps_per_phase, full_update_frequency):
+                num_cycles, sweeps_per_phase, full_update_frequency, seed):
     """Checked and materialised inputs shared by K4 and K5."""
     device = m0.device
     f32 = torch.float32
@@ -378,7 +388,7 @@ def _round_args(h, act, m0, cl, do_nmc, beta_row, generator, uniforms, flips,
             f"sweeps_per_phase must be >= 1, got {sweeps_per_phase}")
     P = len(phase_list(num_cycles, full_update_frequency))
     seed = _seed(generator, uniforms, (P, sweeps_per_phase, I, R, n_pad),
-                 device)
+                 device, seed)
     out = EnsembleRoundResult(
         m=torch.empty_like(m0), m_best=torch.empty_like(m0),
         e_best=torch.empty((I, R), dtype=f32, device=device),
@@ -409,7 +419,7 @@ def round_kernel_limit(n_pad: int, block_size: int) -> Optional[str]:
 
 def _launch(fn, nbrs, h, act, m0, cl, do_nmc, beta_row, generator, *,
             num_cycles, sweeps_per_phase, full_update_frequency, temp_x_inv,
-            uniforms, flips):
+            uniforms, flips, seed, replica_offset, instance_offset):
     """Check the arguments and launch entry point `fn` over the layout."""
     device = m0.device
     I, R, n_pad = m0.shape
@@ -417,7 +427,7 @@ def _launch(fn, nbrs, h, act, m0, cl, do_nmc, beta_row, generator, *,
     _check_neighbors(nbrs, I, n_pad, B, device)
     act, cl, do_nmc, beta_row, seed, out = _round_args(
         h, act, m0, cl, do_nmc, beta_row, generator, uniforms, flips,
-        num_cycles, sweeps_per_phase, full_update_frequency)
+        num_cycles, sweeps_per_phase, full_update_frequency, seed)
     _check_shared(fn, _shared_bytes(n_pad, B))
     # the kernel's per-instance slot counters (CTAs claim slots by SM id)
     claims = torch.zeros(I, dtype=torch.int32, device=device)
@@ -431,9 +441,28 @@ def _launch(fn, nbrs, h, act, m0, cl, do_nmc, beta_row, generator, *,
         out.e_best.data_ptr(), out.e_carried.data_ptr(), _ptr(flips),
         claims.data_ptr(), I, R, n_pad, B, nbrs.src.shape[0], num_cycles,
         sweeps_per_phase, full_update_frequency, heated_factor(temp_x_inv),
-        stream)
+        replica_offset, instance_offset, stream)
     _raise_on(err, fn)
     return out
+
+
+def _slice_kw(m0, generator, uniforms, seed, replica_offset, replicas_total,
+              instance_offset, instances_total, **kw):
+    """(arguments shared by the plain twin and the launch, the launch's
+    own): on the CPU the slice's uniforms (`_cpu_uniforms`), on the card
+    the injected uniforms, the seed and the offsets."""
+    I, R, n_pad = m0.shape
+    axes = (slice_axis("instances", instance_offset, I, instances_total),
+            slice_axis("replicas", replica_offset, R, replicas_total))
+    if m0.device.type == "cpu":
+        P = len(phase_list(kw["num_cycles"], kw["full_update_frequency"]))
+        kw["uniforms"] = _cpu_uniforms(
+            generator, uniforms, seed, (P, kw["sweeps_per_phase"]), axes,
+            n_pad, m0.dtype, m0.device)
+        return kw, {}
+    kw["uniforms"] = uniforms
+    return kw, dict(seed=seed, replica_offset=replica_offset,
+                    instance_offset=instance_offset)
 
 
 def ensemble_round(
@@ -454,13 +483,21 @@ def ensemble_round(
     uniforms: Optional[torch.Tensor] = None,  # [P, T, I, R, n_pad]
     flips: Optional[torch.Tensor] = None,     # [I, R] int32 out
     nbrs: Optional[RoundNeighbors] = None,    # J's layout (built if None)
+    replica_offset: int = 0,                  # global index of replica 0
+    replicas_total: Optional[int] = None,     # the whole ensemble's R
+    instance_offset: int = 0,                 # global index of instance 0
+    instances_total: Optional[int] = None,    # the whole ensemble's I
+    seed: Optional[torch.Tensor] = None,      # int32 [2] (CUDA)
 ) -> EnsembleRoundResult:
     """One whole round for every instance (K4); the CUDA kernel on CUDA
     tensors, the plain torch version on CPU tensors (which ignores
     `nbrs`)."""
-    kw = dict(num_cycles=num_cycles, sweeps_per_phase=sweeps_per_phase,
-              full_update_frequency=full_update_frequency,
-              temp_x_inv=temp_x_inv, uniforms=uniforms, flips=flips)
+    kw, launch_kw = _slice_kw(
+        m0, generator, uniforms, seed, replica_offset, replicas_total,
+        instance_offset, instances_total, num_cycles=num_cycles,
+        sweeps_per_phase=sweeps_per_phase,
+        full_update_frequency=full_update_frequency, temp_x_inv=temp_x_inv,
+        flips=flips)
     if m0.device.type == "cpu":
         return ensemble_round_reference(J, h, act, m0, cl, do_nmc, beta_row,
                                         generator, block_size=block_size,
@@ -473,7 +510,7 @@ def ensemble_round(
     if nbrs is None:
         nbrs = neighbors_from_dense(J, block_size)
     out = _launch("ensemble_round_f32", nbrs, h, act, m0, cl, do_nmc,
-                  beta_row, generator, **kw)
+                  beta_row, generator, **kw, **launch_kw)
     ensemble_round.launches += 1
     return out
 
@@ -490,13 +527,21 @@ def ensemble_round_sparse(
     uniforms: Optional[torch.Tensor] = None,  # [P, T, I, R, n_pad]
     flips: Optional[torch.Tensor] = None,     # [I, R] int32 out
     nbrs: Optional[RoundNeighbors] = None,    # the tiles' layout (built if None)
+    replica_offset: int = 0,                  # as ensemble_round
+    replicas_total: Optional[int] = None,
+    instance_offset: int = 0,
+    instances_total: Optional[int] = None,
+    seed: Optional[torch.Tensor] = None,
 ) -> EnsembleRoundResult:
     """One whole round for every instance over block-sparse tiles (K5);
     the CUDA kernel on CUDA tensors, the plain torch version on CPU
     tensors (which ignores `nbrs`)."""
-    kw = dict(num_cycles=num_cycles, sweeps_per_phase=sweeps_per_phase,
-              full_update_frequency=full_update_frequency,
-              temp_x_inv=temp_x_inv, uniforms=uniforms, flips=flips)
+    kw, launch_kw = _slice_kw(
+        m0, generator, uniforms, seed, replica_offset, replicas_total,
+        instance_offset, instances_total, num_cycles=num_cycles,
+        sweeps_per_phase=sweeps_per_phase,
+        full_update_frequency=full_update_frequency, temp_x_inv=temp_x_inv,
+        flips=flips)
     if m0.device.type == "cpu":
         return ensemble_round_sparse_reference(
             col_idx, J_tiles, h, act, m0, cl, do_nmc, beta_row, generator,
@@ -512,7 +557,7 @@ def ensemble_round_sparse(
     if nbrs is None:
         nbrs = neighbors_from_tiles(col_idx, J_tiles)
     out = _launch("ensemble_round_sparse_f32", nbrs, h, act, m0, cl, do_nmc,
-                  beta_row, generator, **kw)
+                  beta_row, generator, **kw, **launch_kw)
     ensemble_round_sparse.launches += 1
     return out
 

@@ -52,12 +52,24 @@ On a CPU tensor a wrapper runs its `*_reference`, the same function in plain
 torch (K1's from dense J row blocks, the TPU kernel's function), and
 launches nothing. On a CUDA tensor it launches the kernel or raises. Each
 wrapper counts its kernel launches in `<wrapper>.launches`.
+
+A launch may run a slice of a larger replica ladder (a shard of it on one
+rank): `replica_offset` is the global index of its first replica, which
+the kernel adds to the replica word of its Philox counter, so that the
+slice draws what the whole ladder's launch draws for those rows. On the
+CPU a wrapper given a generator and `replicas_total` draws each sweep's
+uniforms for the whole ladder, in the order the unsliced call draws them,
+and keeps its rows (`sliced_uniforms`); injected uniforms are the slice's
+own and the offsets select nothing. `seed=` (int32 [2] on the card) stands
+in for the generator's two seed words, for launches whose seeds a caller
+draws in one batch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -450,11 +462,11 @@ def neighbor_sweeps_reference(
 # CUDA stream follows as one more pointer. All four take the neighbour
 # layout (6 pointers) and the same sweep arguments (M last of the
 # pointers, null unless recorded); K1 and the sequential sweeps also the
-# replicas per CTA.
-_SIGNATURES = {"colored_sweeps_f32": "p" * 21 + "i" * 8,
-               "colored_sweeps_streamed_f32": "p" * 21 + "i" * 7,
-               "colored_sweeps_sparse_f32": "p" * 21 + "i" * 7,
-               "sequential_sweeps_f32": "p" * 21 + "i" * 8}
+# replicas per CTA; the replica offset is the last int of each.
+_SIGNATURES = {"colored_sweeps_f32": "p" * 21 + "i" * 9,
+               "colored_sweeps_streamed_f32": "p" * 21 + "i" * 8,
+               "colored_sweeps_sparse_f32": "p" * 21 + "i" * 8,
+               "sequential_sweeps_f32": "p" * 21 + "i" * 9}
 
 
 def _bind(lib, fn: str = "colored_sweeps_f32"):
@@ -504,18 +516,66 @@ def _check_shared(name, nbytes):
                          f"replica, above the {MAX_SHARED_BYTES} a CTA has")
 
 
-def _seed(generator, uniforms, shape, device):
-    """None with injected uniforms (checked), else two seed words drawn where
-    the generator lives and read by the kernel from device memory: no host
-    sync before the launch."""
+def draw_seeds(generator, shape=()) -> torch.Tensor:
+    """Seed word pairs [*shape, 2] int32 drawn where the generator lives:
+    what a launch draws for itself, for a batch of launches at once."""
+    return torch.randint(0, 2 ** 31 - 1, tuple(shape) + (2,),
+                         generator=generator, dtype=torch.int32,
+                         device=generator.device)
+
+
+def _seed(generator, uniforms, shape, device, seed=None):
+    """None with injected uniforms (checked), else two seed words (`seed`,
+    or drawn where the generator lives) read by the kernel from device
+    memory: no host sync before the launch."""
     if uniforms is not None:
         _check("uniforms", uniforms, shape, torch.float32, device)
         return None
+    if seed is not None:
+        _check("seed", seed, (2,), torch.int32, device)
+        return seed
     if generator is None:
         raise ValueError("pass a torch.Generator or injected uniforms")
-    seed = torch.randint(0, 2 ** 31 - 1, (2,), generator=generator,
-                         dtype=torch.int32, device=generator.device)
-    return seed.to(device, non_blocking=True)
+    return draw_seeds(generator).to(device, non_blocking=True)
+
+
+def sliced_uniforms(generator, lead, axes, n_pad, dtype, device):
+    """The uniforms of a slice of a larger launch, drawn on the CPU as the
+    whole launch draws them: per index of `lead` (sweeps, or phases x
+    sweeps), in order, one [*totals, n_pad] draw of which the slice's rows
+    are kept. `axes` holds (offset, count, total) per sliced axis."""
+    totals = tuple(t for _, _, t in axes)
+    rows = tuple(slice(o, o + c) for o, c, _ in axes)
+    out = torch.empty(tuple(lead) + tuple(c for _, c, _ in axes) + (n_pad,),
+                      dtype=dtype, device=device)
+    for k in itertools.product(*map(range, lead)):
+        out[k] = torch.rand(totals + (n_pad,), generator=generator,
+                            dtype=dtype, device=device)[rows]
+    return out
+
+
+def slice_axis(name, offset, count, total):
+    """(offset, count, total) of a launch's slice of an axis, checked; total
+    None means the slice ends the axis."""
+    total = offset + count if total is None else total
+    if offset < 0 or offset + count > total:
+        raise ValueError(f"{name}: rows [{offset}, {offset + count}) do not "
+                         f"lie in [0, {total})")
+    return offset, count, total
+
+
+def _cpu_uniforms(generator, uniforms, seed, lead, axes, n_pad, dtype,
+                  device):
+    """A CPU twin's uniforms: injected, else None (the twin draws them
+    itself) for a whole launch, else the slice's `sliced_uniforms`."""
+    if seed is not None:
+        raise ValueError("seed= is for CUDA launches; on the CPU pass a "
+                         "generator or uniforms")
+    if uniforms is not None or all(c == t for _, c, t in axes):
+        return uniforms
+    if generator is None:
+        raise ValueError("pass a torch.Generator or injected uniforms")
+    return sliced_uniforms(generator, lead, axes, n_pad, dtype, device)
 
 
 def _outputs(m0, num_sweeps, record_m=False):
@@ -560,14 +620,20 @@ def colored_sweeps(
     threads: Optional[int] = None,             # CTA width (k1_launch)
     replicas_per_cta: Optional[int] = None,    # P (k1_launch)
     record_m: bool = False,                    # also return M [T, R, n_pad]
+    replica_offset: int = 0,                   # global index of row 0
+    replicas_total: Optional[int] = None,      # the whole ladder's R
+    seed: Optional[torch.Tensor] = None,       # int32 [2] (CUDA)
 ) -> ColoredSweepResult:
     """T colored heat-bath sweeps (K1); the CUDA kernel on CUDA tensors, the
     plain torch version on CPU tensors (which ignores `nbrs`, `threads` and
     `replicas_per_cta`)."""
+    rows = slice_axis("replicas", replica_offset, m0.shape[0], replicas_total)
     if m0.device.type == "cpu":
         return colored_sweeps_reference(
             J, h, m0, phi0, generator, beta_sweep, beta_spin, update_mask,
-            num_sweeps=num_sweeps, block_size=block_size, uniforms=uniforms,
+            num_sweeps=num_sweeps, block_size=block_size,
+            uniforms=_cpu_uniforms(generator, uniforms, seed, (num_sweeps,),
+                                   (rows,), m0.shape[1], m0.dtype, m0.device),
             record_m=record_m)
     _require_cuda(m0, "colored_sweeps")
     device = m0.device
@@ -583,7 +649,8 @@ def colored_sweeps(
     P, width = _k1_shape(R, n_pad, device, replicas_per_cta, threads)
     out = _launch_nbr("colored_sweeps_f32", nbrs, block_size, h, m0, phi0,
                       generator, beta_sweep, beta_row, update_mask, beta_spin,
-                      num_sweeps, uniforms, width, P, record_m=record_m)
+                      num_sweeps, uniforms, width, P, record_m=record_m,
+                      replica_offset=replica_offset, seed=seed)
     colored_sweeps.launches += 1
     return _result(*out)
 
@@ -666,7 +733,7 @@ def _shared_bytes_nbr(n_pad, replicas=1):
 
 def _launch_nbr(fn, nbrs, B, h, m0, phi0, generator, beta_sweep, beta_row,
                 mask, beta_spin, num_sweeps, uniforms, threads, replicas=None,
-                record_m=False) -> SweepResult:
+                record_m=False, replica_offset=0, seed=None) -> SweepResult:
     """Check the arguments and launch entry point `fn` over the layout:
     K2 or K3 (replicas None: one replica per CTA, `threads` per CTA, default
     `sweep_threads`), or K1 or the sequential sweeps with `replicas` per
@@ -684,7 +751,7 @@ def _launch_nbr(fn, nbrs, B, h, m0, phi0, generator, beta_sweep, beta_row,
         if threads not in SWEEP_WIDTHS:
             raise ValueError(f"threads must be one of {SWEEP_WIDTHS}, "
                              f"got {threads}")
-    seed = _seed(generator, uniforms, (num_sweeps, R, n_pad), device)
+    seed = _seed(generator, uniforms, (num_sweeps, R, n_pad), device, seed)
 
     lib = _bind(load_library(_LIB_NBR), fn)
     out = _outputs(m0, num_sweeps, record_m)
@@ -697,7 +764,7 @@ def _launch_nbr(fn, nbrs, B, h, m0, phi0, generator, beta_sweep, beta_row,
         _ptr(uniforms), _ptr(seed), out.m.data_ptr(), out.phi.data_ptr(),
         out.m_best.data_ptr(), out.e_best.data_ptr(), out.energies.data_ptr(),
         _ptr(out.M), R, n_pad, B, num_sweeps, rows, nbrs.step_ptr.shape[0] - 1, threads,
-        *(() if replicas is None else (replicas,)), stream)
+        *(() if replicas is None else (replicas,)), replica_offset, stream)
     _raise_on(err, fn)
     return out
 
@@ -718,14 +785,20 @@ def colored_sweeps_streamed(
     nbrs: Optional[SweepNeighbors] = None,     # J's layout (built if None)
     threads: Optional[int] = None,             # CTA width (sweep_threads)
     record_m: bool = False,                    # also return M [T, R, n_pad]
+    replica_offset: int = 0,                   # global index of row 0
+    replicas_total: Optional[int] = None,      # the whole ladder's R
+    seed: Optional[torch.Tensor] = None,       # int32 [2] (CUDA)
 ) -> ColoredSweepResult:
     """T colored heat-bath sweeps with per-replica beta over dense J row
     blocks (K2); the CUDA kernel on CUDA tensors, the plain torch version
     on CPU tensors (which ignores `nbrs` and `threads`)."""
+    rows = slice_axis("replicas", replica_offset, m0.shape[0], replicas_total)
     if m0.device.type == "cpu":
         return colored_sweeps_streamed_reference(
             J_blocks, h, m0, phi0, generator, beta_sweep, beta_row, mask,
-            beta_spin, num_sweeps=num_sweeps, uniforms=uniforms,
+            beta_spin, num_sweeps=num_sweeps, uniforms=_cpu_uniforms(
+                generator, uniforms, seed, (num_sweeps,), (rows,),
+                m0.shape[1], m0.dtype, m0.device),
             record_m=record_m)
     _require_cuda(m0, "colored_sweeps_streamed")
     nB, B, n_pad = J_blocks.shape
@@ -736,7 +809,8 @@ def colored_sweeps_streamed(
         nbrs = sweep_neighbors_from_dense(J_blocks)
     out = _launch_nbr("colored_sweeps_streamed_f32", nbrs, B, h, m0, phi0,
                       generator, beta_sweep, beta_row, mask, beta_spin,
-                      num_sweeps, uniforms, threads, record_m=record_m)
+                      num_sweeps, uniforms, threads, record_m=record_m,
+                      replica_offset=replica_offset, seed=seed)
     colored_sweeps_streamed.launches += 1
     return _result(*out)
 
@@ -758,14 +832,20 @@ def colored_sweeps_sparse(
     nbrs: Optional[SweepNeighbors] = None,     # the tiles' layout (built if None)
     threads: Optional[int] = None,             # CTA width (sweep_threads)
     record_m: bool = False,                    # also return M [T, R, n_pad]
+    replica_offset: int = 0,                   # global index of row 0
+    replicas_total: Optional[int] = None,      # the whole ladder's R
+    seed: Optional[torch.Tensor] = None,       # int32 [2] (CUDA)
 ) -> ColoredSweepResult:
     """T colored heat-bath sweeps with per-replica beta over the block-sparse
     tiles of J (K3); the CUDA kernel on CUDA tensors, the plain torch
     version on CPU tensors (which ignores `nbrs` and `threads`)."""
+    rows = slice_axis("replicas", replica_offset, m0.shape[0], replicas_total)
     if m0.device.type == "cpu":
         return colored_sweeps_sparse_reference(
             col_idx, J_tiles, h, m0, phi0, generator, beta_sweep, beta_row,
-            mask, beta_spin, num_sweeps=num_sweeps, uniforms=uniforms,
+            mask, beta_spin, num_sweeps=num_sweeps, uniforms=_cpu_uniforms(
+                generator, uniforms, seed, (num_sweeps,), (rows,),
+                m0.shape[1], m0.dtype, m0.device),
             record_m=record_m)
     _require_cuda(m0, "colored_sweeps_sparse")
     device = m0.device
@@ -776,7 +856,8 @@ def colored_sweeps_sparse(
         nbrs = sweep_neighbors_from_tiles(col_idx, J_tiles)
     out = _launch_nbr("colored_sweeps_sparse_f32", nbrs, B, h, m0, phi0,
                       generator, beta_sweep, beta_row, mask, beta_spin,
-                      num_sweeps, uniforms, threads, record_m=record_m)
+                      num_sweeps, uniforms, threads, record_m=record_m,
+                      replica_offset=replica_offset, seed=seed)
     colored_sweeps_sparse.launches += 1
     return _result(*out)
 
@@ -798,6 +879,9 @@ def sequential_sweeps(
     nbrs: Optional[SweepNeighbors] = None,     # `sequential_neighbors` (built if None)
     threads: Optional[int] = None,             # CTA width (k1_launch)
     replicas_per_cta: Optional[int] = None,    # P (k1_launch)
+    replica_offset: int = 0,                   # global index of row 0
+    replicas_total: Optional[int] = None,      # the whole ladder's R
+    seed: Optional[torch.Tensor] = None,       # int32 [2] (CUDA)
 ) -> SweepResult:
     """T sequential fixed-order heat-bath sweeps (spin 0 .. n_pad - 1, each
     seeing every earlier flip), the function of
@@ -805,11 +889,14 @@ def sequential_sweeps(
     one-spin-block layout on CUDA tensors (K1's launch shapes and beta
     hand-off), that plain version on CPU tensors (which ignores `nbrs`,
     `threads` and `replicas_per_cta`)."""
+    rows = slice_axis("replicas", replica_offset, m0.shape[0], replicas_total)
     if m0.device.type == "cpu":
         return run_sweeps(J_rows, J_diag, h, m0, phi0, generator, beta_sweep,
                           beta_spin, update_mask, num_sweeps=num_sweeps,
                           within_block="sequential", record_m=record_m,
-                          uniforms=uniforms)
+                          uniforms=_cpu_uniforms(
+                              generator, uniforms, seed, (num_sweeps,),
+                              (rows,), m0.shape[1], m0.dtype, m0.device))
     _require_cuda(m0, "sequential_sweeps")
     device = m0.device
     nB, B, n_pad = J_rows.shape
@@ -823,7 +910,8 @@ def sequential_sweeps(
     P, width = _k1_shape(R, n_pad, device, replicas_per_cta, threads)
     out = _launch_nbr("sequential_sweeps_f32", nbrs, 1, h, m0, phi0,
                       generator, beta_sweep, beta_row, update_mask, beta_spin,
-                      num_sweeps, uniforms, width, P, record_m=record_m)
+                      num_sweeps, uniforms, width, P, record_m=record_m,
+                      replica_offset=replica_offset, seed=seed)
     sequential_sweeps.launches += 1
     return out
 

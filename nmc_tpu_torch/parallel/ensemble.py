@@ -15,8 +15,19 @@ instance: on an f32 layout with the sequential sweep (the default) through
 `sequential_sweeps` over the instance's one-spin-block layout (built once
 here), one kernel launch per instance and round on the card; otherwise
 (f64, or within_block="jacobi") the plain `run_sweeps`, a route fixed at
-construction. There is no mesh: sharding the instances over several cards
-belongs to the multi-GPU slice.
+construction.
+
+With a `group=` (a `torch.distributed` process group) the instances are
+sharded over its ranks: rank k holds instances [k I / W, (k + 1) I / W)
+(the largest rank count dividing I; the ranks past it hold none), and a
+round involves no communication. Every rank draws a round's randomness
+for all I instances and keeps its own: the sweeps' seed words in one
+[I, 2] draw on the card, or on the CPU the uniforms instance after
+instance in the unsharded order (`ensemble_nmc.InstanceDraws`), then the
+swaps' Gumbels and uniforms; so the same seed gives the same trajectory
+at any world size (a sharded round's fields run per instance,
+`core.energy.by_rows`). `best_states` / `best_energies` gather the
+instances on every rank. Without a group the instance count is never cut.
 """
 
 from __future__ import annotations
@@ -27,12 +38,14 @@ from typing import Callable, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.energy import by_rows, local_fields
 from ..core.problem import IsingProblem, block_problem
 from ..device import resolve_device, resolve_dtype
 from ..ops.sweeps import run_sweeps
 from ..ops.sweeps_cuda import sequential_neighbors, sequential_sweeps
-from .ensemble_nmc import RoundDraws
-from .swaps import metropolis_label_swap
+from . import distributed
+from .ensemble_nmc import InstanceDraws, RoundDraws
+from .swaps import metropolis_label_swap, swap_draws
 
 
 @dataclasses.dataclass
@@ -67,30 +80,38 @@ class EnsemblePT:
         cfg: EnsembleConfig = EnsembleConfig(),
         *,
         device=None,
+        group=None,
     ):
         self.cfg = cfg
         if len({p.n for p in problems}) != 1:
             raise ValueError("ensemble instances must share the same size")
-        self.I = len(problems)
+        self.group = group
+        self.I_total = len(problems)
+        self.i0, self.I = distributed.instance_shard(self.I_total, group)
         self.beta_np = np.asarray(beta_list, dtype=np.float64)
         self.R = self.beta_np.shape[0]
         self.device = dev = resolve_device(device)
         self.dtype = dtype = resolve_dtype(cfg.dtype, dev)
         np_dtype = np.dtype(str(dtype).split(".")[-1])
         blocked = [block_problem(p, block_size=cfg.block_size, dtype=np_dtype)
-                   for p in problems]
-        self.blocked0 = blocked[0]
-        self.n_pad = n_pad = blocked[0].n_pad
+                   for p in problems[self.i0:self.i0 + self.I]]
+        self.blocked0 = (blocked or [block_problem(
+            problems[0], block_size=cfg.block_size, dtype=np_dtype)])[0]
+        self.n_pad = n_pad = self.blocked0.n_pad
 
         def put(x, dt=dtype):
             return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
 
-        self.J_rows = put(np.stack([b.J_rows for b in blocked]))
-        self.J_diag = put(np.stack([b.J_diag for b in blocked]))
+        def stack(f):
+            return put(np.stack([getattr(b, f) for b in blocked]) if blocked
+                       else np.zeros((0,) + getattr(self.blocked0, f).shape))
+
+        self.J_rows = stack("J_rows")
+        self.J_diag = stack("J_diag")
         self.J_full = self.J_rows.reshape(self.I, n_pad, n_pad)
-        self.h = put(np.stack([b.h for b in blocked]))
-        self.active = put(blocked[0].active, torch.bool)
-        self._inv_perm = torch.as_tensor(blocked[0].inv_perm,
+        self.h = stack("h")
+        self.active = put(self.blocked0.active, torch.bool)
+        self._inv_perm = torch.as_tensor(self.blocked0.inv_perm,
                                          dtype=torch.int64, device=dev)
         self.beta_list = put(self.beta_np)
         self.sweep_kernel = self.sweep_nbrs = None
@@ -106,10 +127,12 @@ class EnsemblePT:
         init) per instance, best candidate coldest; the remaining R - C
         chains stay random."""
         I, R, n_pad = self.I, self.R, self.n_pad
-        u = torch.rand((I, R, n_pad), generator=generator, dtype=self.dtype,
-                       device=self.device)
+        u = torch.rand((self.I_total, R, n_pad), generator=generator,
+                       dtype=self.dtype, device=self.device)
         m = torch.where(u < 0.5, -1.0, 1.0).to(self.dtype)
+        m = m[self.i0:self.i0 + I]
         if m0 is not None:
+            m0 = np.asarray(m0)[self.i0:self.i0 + I]
             m0 = torch.as_tensor(self.blocked0.to_blocked(np.asarray(m0),
                                                           fill=1.0),
                                  dtype=self.dtype, device=self.device)
@@ -127,8 +150,9 @@ class EnsemblePT:
                               device=self.device),
             generator=generator, round_index=0)
 
-    def _sweeps(self, i, m, phi, generator, beta_slot, uniforms):
-        """Instance i's sweeps of one round at the slot temperatures."""
+    def _sweeps(self, i, m, phi, generator, beta_slot, kw):
+        """Local instance i's sweeps of one round at the slot temperatures,
+        from `generator` or `kw`'s seed words (the kernel) or uniforms."""
         cfg = self.cfg
         T = cfg.sweeps_per_round
         ones_t = torch.ones((T,), dtype=self.dtype, device=self.device)
@@ -136,34 +160,46 @@ class EnsemblePT:
         if self.sweep_kernel == "sequential_sweeps":
             return sequential_sweeps(
                 self.J_rows[i], self.J_diag[i], self.h[i], m, phi, generator,
-                ones_t, beta_slot, act, num_sweeps=T, uniforms=uniforms,
-                nbrs=self.sweep_nbrs[i])
+                ones_t, beta_slot, act, num_sweeps=T, nbrs=self.sweep_nbrs[i],
+                **kw)
         return run_sweeps(
             self.J_rows[i], self.J_diag[i], self.h[i], m, phi, generator,
             ones_t, beta_slot, act, num_sweeps=T,
-            within_block=cfg.within_block, uniforms=uniforms)
+            within_block=cfg.within_block, uniforms=kw["uniforms"])
 
     def round(self, state: EnsembleState,
               draws: Optional[RoundDraws] = None) -> EnsembleState:
-        """One round of every instance. `draws` may inject its draws:
-        sweep_uniforms [1, T, I, R, n_pad] (one phase), gumbels
-        [I, num_pairs, R - 1] and swap_uniforms [I, num_pairs]."""
+        """One round of every instance. `draws` may inject its draws for
+        the whole ensemble: sweep_uniforms [1, T, I, R, n_pad] (one phase),
+        gumbels [I, num_pairs, R - 1] and swap_uniforms [I, num_pairs]."""
         d = draws if draws is not None else RoundDraws()
+        lo, hi = self.i0, self.i0 + self.I
+        if self.I == 0:
+            return state._replace(round_index=state.round_index + 1)
         beta_slot = self.beta_list[state.slot_to_beta]           # [I, R]
-        phi = torch.matmul(state.m, self.J_full) + self.h[:, None, :]
+        sweep = InstanceDraws(self, state.generator, 1,
+                              self.cfg.sweeps_per_round, self.R,
+                              d.sweep_uniforms, self.sweep_kernel is not None)
+        phi = by_rows(local_fields, self.J_full, self.h[:, None, :], state.m,
+                      sharded=self.group is not None)
         res = [self._sweeps(
-            i, state.m[i], phi[i], state.generator, beta_slot[i][:, None],
-            None if d.sweep_uniforms is None else d.sweep_uniforms[0, :, i])
-            for i in range(self.I)]
+            i, state.m[i], phi[i], sweep.generator, beta_slot[i][:, None],
+            sweep.kw(i, 0)) for i in range(self.I)]
+        sweep.finish()
         m = torch.stack([r.m for r in res])
         e_slot = torch.stack([r.energies[-1] for r in res])     # [I, R]
         e_best = torch.stack([r.e_best for r in res])           # [I, R]
         m_best = torch.stack([r.m_best for r in res])           # [I, R, n_pad]
+        npairs = self.cfg.num_swapping_pairs
+        if d.gumbels is None:
+            g, su = swap_draws(state.generator, self.I_total, npairs, self.R,
+                               lo, self.I)
+        else:
+            g, su = d.gumbels[lo:hi], d.swap_uniforms[lo:hi]
         swap = metropolis_label_swap(
             state.beta_to_slot, self.beta_list.to(torch.float32),
-            e_slot.to(torch.float32), num_pairs=self.cfg.num_swapping_pairs,
-            generator=state.generator, gumbels=d.gumbels,
-            uniforms=d.swap_uniforms)
+            e_slot.to(torch.float32), num_pairs=npairs, gumbels=g,
+            uniforms=su)
         r = torch.argmin(e_best, dim=1, keepdim=True)            # [I, 1]
         e_r = torch.gather(e_best, 1, r)[:, 0]
         m_r = torch.gather(m_best, 1,
@@ -187,8 +223,10 @@ class EnsemblePT:
         return state
 
     def best_states(self, state: EnsembleState) -> np.ndarray:
-        """[I, n] best states per instance, original spin order."""
-        return state.best_m[:, self._inv_perm].cpu().numpy()
+        """[I, n] best states per instance, original spin order (every
+        instance, gathered over the group)."""
+        return distributed.host_gather(state.best_m[:, self._inv_perm],
+                                       self.group)
 
     def best_energies(self, state: EnsembleState) -> np.ndarray:
-        return state.best_e.cpu().numpy()
+        return distributed.host_gather(state.best_e, self.group)

@@ -35,10 +35,10 @@ The sweep stage's route is fixed at setup (`round_path`), with the rule of
     disagreement masks and the heated factor of 1 / temp_x. K4 up to
     n_pad 1536, K5 above; a coloured float32 layout whose
     `sweeps_per_round` is not a multiple of 3 * num_cycles raises;
-  * "plain": one instance after another through `ops/sweeps.run_sweeps`,
-    pure ICM as one unsplit call of sweeps_per_round sweeps, the hybrid
-    arm as the heat / refreeze / full cycle. It serves `round_kernel="off"`
-    and uncoloured or float64 layouts.
+  * "plain": one instance after another through its sweep engine, pure
+    ICM as one unsplit call of sweeps_per_round sweeps, the hybrid arm as
+    the heat / refreeze / full cycle. It serves `round_kernel="off"` and
+    uncoloured or float64 layouts.
 The two routes heat the disagreement set differently, each as its JAX
 counterpart does: the kernels by beta_row * (1 + f32(temp_x_inv - 1)), the
 plain route by base * f32(1 / temp_x).
@@ -51,7 +51,19 @@ carries no masks (`cl` and `dn` are None).
 
 `run_scanned` syncs with the host only in the fixed-point loops' convergence
 tests. Randomness comes from the state's `torch.Generator`; `ICMDraws`
-inject a round's draws so tests can replay the JAX engine's keys.
+inject a round's draws (for the whole ensemble) so tests can replay the
+JAX engine's keys.
+
+With a `group=` the instances are sharded over its ranks as in
+`EnsembleNMC`: the layout (colouring, union tiles, edge lists, degree
+gate) is the whole family's; each rank draws every round's randomness for
+all I instances (the kernels' seed words with its instance offset, the
+plain phases' seeds or uniforms, the sub-replica pairings, the cluster
+uniforms, the swap draws) and keeps its own; the carried energies run per
+instance (`core.energy.by_rows`). The same seed gives the same
+trajectory at every world size; `best` gathers. Without a group the
+instance count is never cut. On a card the plain route's phases run the
+sweep kernels through one `SweepEngine` per instance.
 """
 
 from __future__ import annotations
@@ -62,18 +74,19 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.energy import by_rows, energy
 from ..core.problem import IsingProblem, block_problem
 from ..device import resolve_device, resolve_dtype
 from ..ops.clusters import (NeighborPlanes, build_neighbor_planes,
                             houdayer_move_blocked, houdayer_move_matmul,
                             houdayer_move_sparse)
-from ..ops.engine import K1_MAX_N_PAD
+from ..ops.engine import K1_MAX_N_PAD, SweepEngine
 from ..ops.round_cuda import (ensemble_round, ensemble_round_sparse,
                               neighbors_from_dense, neighbors_from_tiles,
                               round_kernel_limit)
-from ..ops.sweeps import run_sweeps
-from .ensemble_nmc import _clock, _pad_problem, _union_tiles
-from .swaps import metropolis_label_swap
+from . import distributed
+from .ensemble_nmc import InstanceDraws, _clock, _pad_problem, _union_tiles
+from .swaps import metropolis_label_swap, swap_draws
 
 
 @dataclasses.dataclass
@@ -133,6 +146,7 @@ class EnsembleICM:
         cfg: EnsembleICMConfig = EnsembleICMConfig(),
         *,
         device=None,
+        group=None,
     ):
         if len({p.n for p in problems}) != 1:
             n_max = max(p.n for p in problems)
@@ -141,7 +155,10 @@ class EnsembleICM:
         self.device = dev = resolve_device(device)
         self.dtype = dtype = resolve_dtype(cfg.dtype, dev)
         np_dtype = np.dtype(str(dtype).split(".")[-1])
-        self.I = len(problems)
+        self.group = group
+        self.I_total = len(problems)
+        self.i0, self.I = distributed.instance_shard(self.I_total, group)
+        lo, hi = self.i0, self.i0 + self.I
         beta_list = np.asarray(beta_list, dtype=np.float64)
         self.R = R = beta_list.shape[0]
         self.S = S = cfg.num_subreplicas
@@ -159,13 +176,15 @@ class EnsembleICM:
             for p in problems:
                 J_union += np.abs(np.asarray(p.J))
             groups = color_groups(J_union)
-        blocked = [block_problem(p, block_size=cfg.block_size, groups=groups,
-                                 dtype=np_dtype) for p in problems]
-        if blocked[0].colored:
+        all_blocked = [block_problem(p, block_size=cfg.block_size,
+                                     groups=groups, dtype=np_dtype)
+                       for p in problems]
+        blocked = all_blocked[lo:hi]      # this rank's instances
+        if all_blocked[0].colored:
             cfg = dataclasses.replace(cfg, within_block="jacobi")
         self.cfg = cfg
-        self.blocked0 = blocked[0]
-        self.n_pad = n_pad = blocked[0].n_pad
+        self.blocked0 = all_blocked[0]
+        self.n_pad = n_pad = all_blocked[0].n_pad
         if not 0 <= cfg.hybrid_cold <= R:
             raise ValueError(f"hybrid_cold={cfg.hybrid_cold} must be in "
                              f"[0, R={R}]")
@@ -185,29 +204,34 @@ class EnsembleICM:
         def put(x, dt=dtype):
             return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
 
+        def stack(xs, shape):
+            return put(np.stack(xs) if xs else np.zeros((0,) + shape))
+
+        b0 = self.blocked0
         self.cold_t = put(cold_t, torch.bool)
-        self.J_rows = put(np.stack([b.J_rows for b in blocked]))
-        self.J_diag = put(np.stack([b.J_diag for b in blocked]))
+        self.J_rows = stack([b.J_rows for b in blocked], b0.J_rows.shape)
+        self.J_diag = stack([b.J_diag for b in blocked], b0.J_diag.shape)
         self.J_full = self.J_rows.reshape(self.I, n_pad, n_pad)
-        self.h = put(np.stack([b.h for b in blocked]))
-        self.active = put(blocked[0].active, torch.bool)
-        self._inv_perm = torch.as_tensor(blocked[0].inv_perm,
+        self.h = stack([b.h for b in blocked], (n_pad,))
+        self.active = put(b0.active, torch.bool)
+        self._inv_perm = torch.as_tensor(b0.inv_perm,
                                          dtype=torch.int64, device=dev)
         self.beta_list = put(beta_list)
 
         # per-instance edge lists in the blocked layout, padded to a common
         # length with dummy self-edges on the last (padded) spin
         srcs, dsts = [], []
-        for b in blocked:
+        for b in all_blocked:
             iu, ju = np.nonzero(np.triu(b.J_rows.reshape(n_pad, n_pad), 1))
             srcs.append(np.concatenate([iu, ju]))
             dsts.append(np.concatenate([ju, iu]))
         E_max = max(s.shape[0] for s in srcs)
-        src = np.full((self.I, E_max), n_pad - 1, np.int64)
-        dst = np.full((self.I, E_max), n_pad - 1, np.int64)
+        src = np.full((self.I_total, E_max), n_pad - 1, np.int64)
+        dst = np.full((self.I_total, E_max), n_pad - 1, np.int64)
         for i, (s_, d_) in enumerate(zip(srcs, dsts)):
             src[i, :s_.shape[0]] = s_
             dst[i, :d_.shape[0]] = d_
+        src, dst = src[lo:hi], dst[lo:hi]
         # max node degree over the real edges: the matmul backend's gate
         deg_max = max((int(np.bincount(d_, minlength=n_pad).max())
                        for d_ in dsts if d_.shape[0]), default=0)
@@ -223,11 +247,11 @@ class EnsembleICM:
 
         # the sweep stage's route, fixed here (EnsembleNMC's rule)
         fails = []
-        if not blocked[0].colored:
+        if not b0.colored:
             fails.append("use_coloring=True (colored Jacobi layout)")
         if dtype != torch.float32:
             fails.append(f"dtype must be float32, got {dtype}")
-        limit = round_kernel_limit(n_pad, blocked[0].block_size)
+        limit = round_kernel_limit(n_pad, b0.block_size)
         if limit:
             fails.append(limit)
         kernel = cfg.round_kernel != "off" and not fails
@@ -240,17 +264,18 @@ class EnsembleICM:
                 f"route")
         union = None
         if (kernel and n_pad > K1_MAX_N_PAD) or self.houdayer != "sparse":
-            union = _union_tiles(blocked)
+            col_idx_u, J_tiles_u = _union_tiles(all_blocked)
+            union = (col_idx_u, J_tiles_u[lo:hi])
         self.round_path = "plain"
         self._stream_tiles = self.round_nbrs = None
-        if kernel:
+        if kernel and self.I:
             if n_pad <= K1_MAX_N_PAD:
                 self.round_path = "K4"
                 self.round_nbrs = neighbors_from_dense(
-                    self.J_full, blocked[0].block_size)
+                    self.J_full, b0.block_size)
             else:
                 col_idx, J_tiles = union
-                K, nB = col_idx.shape[1], blocked[0].num_blocks
+                K, nB = col_idx.shape[1], b0.num_blocks
                 assert K <= max(nB - 1, 1), (K, nB)
                 self.round_path = "K5"
                 self._stream_tiles = (put(col_idx, torch.int32),
@@ -259,10 +284,23 @@ class EnsembleICM:
         if self.round_path == "plain" and (
                 cfg.round_kernel == "on"
                 or (cfg.round_kernel == "auto" and dev.type == "cuda"
-                    and blocked[0].colored and dtype == torch.float32)):
+                    and b0.colored and dtype == torch.float32)):
             raise ValueError(
                 f"round_kernel={cfg.round_kernel!r} on {dev.type}: no round "
                 "kernel fits: " + "; ".join(fails))
+        # the plain route's sweeps: one sweep engine per instance
+        self._engines = []
+        if self.round_path == "plain":
+            self._engines = [SweepEngine.from_blocked_problem(
+                b, problems[lo + i], within_block=cfg.within_block,
+                dtype=dtype, device=dev) for i, b in enumerate(blocked)]
+        self._on_kernels = all(e.sweep_kernel is not None
+                               for e in self._engines)
+        if group is not None and dev.type == "cuda" and not self._on_kernels:
+            raise ValueError(
+                "a sharded EnsembleICM on cuda runs its sweeps on the sweep "
+                "kernels; this layout has none (an uncoloured block-Jacobi "
+                "sweep)")
 
         # the Houdayer operand of the chosen backend
         self._houd = None
@@ -274,12 +312,12 @@ class EnsembleICM:
                           put(J_tiles != 0, torch.bool))
         else:
             col_idx, J_tiles = union
-            index = np.stack([build_neighbor_planes(
+            index = stack([build_neighbor_planes(
                 col_idx, J_tiles[i], degree=deg_max).index
-                for i in range(self.I)])
+                for i in range(self.I)], (0,))
             self._houd = NeighborPlanes(put(col_idx, torch.int64),
-                                        put(index, torch.int64), n_pad,
-                                        blocked[0].block_size)
+                                        index.to(torch.int64), n_pad,
+                                        b0.block_size)
 
     # ------------------------------------------------------------------
     def init_state(self, generator: torch.Generator,
@@ -289,10 +327,12 @@ class EnsembleICM:
         so the Houdayer pairs start with disagreement sets."""
         I, S, R, n_pad = self.I, self.S, self.R, self.n_pad
         dev = self.device
-        u = torch.rand((I, S, R, n_pad), generator=generator,
+        u = torch.rand((self.I_total, S, R, n_pad), generator=generator,
                        dtype=self.dtype, device=dev)
         m = torch.where(u < 0.5, -1.0, 1.0).to(self.dtype)
+        m = m[self.i0:self.i0 + I]
         if m0 is not None:
+            m0 = np.asarray(m0)[self.i0:self.i0 + I]
             m0 = torch.as_tensor(self.blocked0.to_blocked(np.asarray(m0),
                                                           fill=1.0),
                                  dtype=self.dtype, device=dev)
@@ -334,7 +374,8 @@ class EnsembleICM:
         kw = dict(num_cycles=self._cycles,
                   sweeps_per_phase=cfg.sweeps_per_round // (3 * self._cycles),
                   temp_x_inv=1.0 / cfg.temp_x if self.hybrid else 1.0,
-                  uniforms=uniforms, nbrs=self.round_nbrs)
+                  uniforms=uniforms, nbrs=self.round_nbrs,
+                  instance_offset=self.i0, instances_total=self.I_total)
         m0 = state.m.reshape(I, Rk, n)
         if self.round_path == "K5":
             col_idx, J_tiles = self._stream_tiles
@@ -367,6 +408,9 @@ class EnsembleICM:
         ones_t = torch.ones((T,), dtype=dt, device=dev)
         heat = torch.tensor(1.0 / cfg.temp_x, dtype=dt, device=dev)
         one = torch.ones((), dtype=dt, device=dev)
+        draws = InstanceDraws(self, state.generator,
+                              3 * self._cycles if self.hybrid else 1, T, Rk,
+                              uniforms, self._on_kernels)
         outs = []
         for i in range(I):
             h, J = self.h[i], self.J_full[i]
@@ -375,11 +419,10 @@ class EnsembleICM:
             mb, eb = state.m_best[i], state.e_best[i]
 
             def phase(mm, p, beta_spin, mask):
-                return run_sweeps(
-                    self.J_rows[i], self.J_diag[i], h, mm, mm @ J + h,
-                    state.generator, ones_t, beta_spin, mask, num_sweeps=T,
-                    within_block=cfg.within_block,
-                    uniforms=None if uniforms is None else uniforms[p, :, i])
+                return self._engines[i].run(
+                    mm, draws.generator, T, ones_t, beta_spin=beta_spin,
+                    update_mask=mask, blocked_input=True,
+                    blocked_output=True, phi=mm @ J + h, **draws.kw(i, p))
 
             def track(res, mb, eb):
                 r = torch.argmin(res.e_best)
@@ -406,6 +449,7 @@ class EnsembleICM:
                         mb, eb = track(res, mb, eb)
                         p += 1
             outs.append((flat.reshape(S, R, n), mb, eb))
+        draws.finish()
         m, mb, eb = (torch.stack(x) for x in zip(*outs))
         return m, mb, eb
 
@@ -434,12 +478,13 @@ class EnsembleICM:
             dn = torch.zeros((I, S, R), dtype=torch.bool, device=dev)
         if Pn == 0:
             return m, state.icm_moves, state.icm_flips, cl, dn
+        lo, hi = self.i0, self.i0 + I
         perm = d.perms
         if perm is None:
             perm = torch.argsort(torch.rand(
-                (I, S), generator=state.generator,
+                (self.I_total, S), generator=state.generator,
                 device=state.generator.device), dim=1)
-        perm = torch.as_tensor(perm, device=dev).long()
+        perm = torch.as_tensor(perm, device=dev).long()[lo:hi]
         sj = perm[:, 0:2 * Pn:2, None]                      # [I, Pn, 1]
         sk = perm[:, 1:2 * Pn:2, None]
         # temperature t's chain in sub s is slot beta_to_slot[s, t]
@@ -450,8 +495,12 @@ class EnsembleICM:
         s1 = m[ii, sj, slot_j].reshape(I * Pn * R, n)
         s2 = m[ii, sk, slot_k].reshape(I * Pn * R, n)
         g = d.cluster_uniforms
-        if g is not None:
-            g = torch.as_tensor(g, device=dev).reshape(I * Pn * R, n)
+        if g is None:
+            # the moves' cluster choices, drawn for every instance
+            g = torch.rand((self.I_total * Pn * R, n), generator=state.generator,
+                           dtype=s1.dtype, device=dev)[lo * Pn * R:hi * Pn * R]
+        else:
+            g = torch.as_tensor(g, device=dev)[lo:hi].reshape(I * Pn * R, n)
         group = torch.arange(I, device=dev).repeat_interleave(Pn * R)
         s1n, s2n, moved, flipped = self._move(s1, s2, group,
                                               state.generator, g, stats)
@@ -496,36 +545,43 @@ class EnsembleICM:
         "iterations" (`ops/clusters._label_fixpoint`)."""
         cfg = self.cfg
         I, S, R, n = self.I, self.S, self.R, self.n_pad
+        lo, hi = self.i0, self.i0 + I
         beta32 = self.beta_list.to(torch.float32)
         ii = torch.arange(I, device=self.device)
+        if I == 0:       # a rank past the instance shards holds none
+            return state._replace(round_index=state.round_index + num_rounds)
         for _ in range(num_rounds):
             d = draws(state.round_index) if draws is not None else ICMDraws()
             t = _clock(timings, self.device)
             if self.round_path == "plain":
                 m, mb, eb = self._plain_sweeps(state, d.sweep_uniforms)
             else:
-                m, mb, eb = self._kernel_sweeps(state, d.sweep_uniforms)
+                m, mb, eb = self._kernel_sweeps(
+                    state, None if d.sweep_uniforms is None
+                    else d.sweep_uniforms[:, :, lo:hi].contiguous())
             t = _clock(timings, self.device, "round", t)
             m, moves, flips, cl, dn = self._houdayer(state, m, d,
                                                      houdayer_stats)
             t = _clock(timings, self.device, "houdayer", t)
             flat = m.reshape(I, S * R, n)
-            e = -(0.5 * torch.sum(flat * torch.matmul(flat, self.J_full), -1)
-                  + torch.sum(flat * self.h[:, None, :], -1))     # [I, S*R]
+            e = by_rows(energy, self.J_full, self.h[:, None, :], flat,
+                        sharded=self.group is not None)        # [I, S*R]
             r = torch.argmin(e, dim=1)
             e_min = e[ii, r]
             imp = e_min < eb
             mb = torch.where(imp[:, None], flat[ii, r], mb)
             eb = torch.where(imp, e_min, eb)
             npairs = cfg.num_swapping_pairs
+            if d.gumbels is None:
+                g, su = swap_draws(state.generator, self.I_total * S, npairs,
+                                   R, lo * S, I * S)
+            else:
+                g = d.gumbels[lo:hi].reshape(I * S, npairs, R - 1)
+                su = d.swap_uniforms[lo:hi].reshape(I * S, npairs)
             swap = metropolis_label_swap(
                 state.beta_to_slot.reshape(I * S, R), beta32,
                 e.reshape(I * S, R).to(torch.float32), num_pairs=npairs,
-                generator=state.generator,
-                gumbels=(None if d.gumbels is None
-                         else d.gumbels.reshape(I * S, npairs, R - 1)),
-                uniforms=(None if d.swap_uniforms is None
-                          else d.swap_uniforms.reshape(I * S, npairs)))
+                gumbels=g, uniforms=su)
             _clock(timings, self.device, "swaps", t)
             state = EnsembleICMState(
                 m=m, beta_to_slot=swap.beta_to_slot.reshape(I, S, R),
@@ -536,8 +592,9 @@ class EnsembleICM:
         return state
 
     def best(self, state: EnsembleICMState):
-        """([I] best energies, [I, n] best states in original order), numpy;
-        the one host sync of a chunk."""
-        eb = state.e_best.cpu().numpy()
-        mb = state.m_best[:, self._inv_perm].cpu().numpy()
-        return eb, mb
+        """([I] best energies, [I, n] best states in original order), numpy,
+        every instance (gathered over the group); the one host sync of a
+        chunk."""
+        return (distributed.host_gather(state.e_best, self.group),
+                distributed.host_gather(state.m_best[:, self._inv_perm],
+                                        self.group))

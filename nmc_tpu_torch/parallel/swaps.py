@@ -123,3 +123,19 @@ def metropolis_label_swap(
                                                device=device).expand(I, R))
     return SwapResult(beta_to_slot=b2s, slot_to_beta=slot_to_beta,
                       accepted=torch.stack(accepted, dim=1), pairs=picks)
+
+
+def swap_draws(generator: torch.Generator, num_rows: int, num_pairs: int,
+               num_replicas: int, offset: int = 0,
+               count: Optional[int] = None):
+    """(gumbels [count, num_pairs, R - 1], uniforms [count, num_pairs]):
+    the draws `metropolis_label_swap` makes for `num_rows` ladders, drawn
+    for all of them in its order and cut to rows [offset, offset + count),
+    so that a rank holding some of the ladders swaps them as the whole
+    batch would."""
+    count = num_rows - offset if count is None else count
+    g = _gumbel((num_rows, num_pairs, num_replicas - 1), generator,
+                torch.float32, generator.device)
+    u = torch.rand((num_rows, num_pairs), generator=generator,
+                   dtype=torch.float32, device=generator.device)
+    return g[offset:offset + count], u[offset:offset + count]

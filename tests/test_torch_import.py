@@ -39,7 +39,11 @@ def test_imports_without_jax():
 
 NEW_MODULES = ("nmc_tpu_torch.compat", "nmc_tpu_torch.compat.faithful",
                "nmc_tpu_torch.parallel.ensemble", "nmc_tpu_torch.native",
-               "nmc_tpu_torch.utils.plotting")
+               "nmc_tpu_torch.utils.plotting",
+               "nmc_tpu_torch.parallel.distributed",
+               "nmc_tpu_torch.parallel.sharded_pt",
+               "nmc_tpu_torch.parallel.spin_sharded",
+               "nmc_tpu_torch.parallel.dryrun")
 
 
 def test_new_modules_import_without_jax_or_matplotlib():

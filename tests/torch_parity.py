@@ -147,3 +147,72 @@ def ensemble_replay(key, cfg, num_instances, R, n_pad, *, plain):
         return RoundDraws(sweep_uniforms=sweeps, gumbels=g, swap_uniforms=u)
 
     return draws
+
+
+def label_swap_draws(k_swap, num_replicas, num_pairs):
+    """The draws nmc_tpu.parallel.swaps.metropolis_label_swap makes from
+    `k_swap` for one ladder: split into a selection key (split again into
+    one key per pair, each drawing Gumbels over the R - 1 pairs) and an
+    acceptance key (one uniform per pair). Returns (gumbels [1, num_pairs,
+    R - 1], uniforms [1, num_pairs])."""
+    k_sel, k_acc = jax.random.split(k_swap)
+    g = np.stack([np.asarray(jax.random.gumbel(k, (num_replicas - 1,)))
+                  for k in jax.random.split(k_sel, num_pairs)])
+    u = np.array(jax.random.uniform(k_acc, (num_pairs,)))
+    return torch.as_tensor(g[None]), torch.as_tensor(u[None])
+
+
+def sharded_npt_replay(key, cfg, R, n_pad, n_dev, *, plain,
+                       dtype=np.float64):
+    """`draws(round_index)` replaying nmc_tpu.parallel.ShardedNPT's round on
+    an n_dev-device mesh from its state key, for the port's whole ladder:
+    kr = fold_in(key, round_index); the swap draws from fold_in(kr, 0xD00D);
+    on the plain route device d's phase uniforms (k_dev = fold_in(kr, d),
+    split per cycle into (k_dev, kc, knc, kall)) for its R / n_dev rows, the
+    devices' rows stacked in order; on the kernel route zeros, which the
+    Pallas interpreter's PRNG gives."""
+    from nmc_tpu_torch.ops.round_cuda import phase_list
+    from nmc_tpu_torch.parallel import RoundDraws
+    P = len(phase_list(cfg.num_cycles, cfg.full_update_frequency))
+    T, R_loc = cfg.sweeps_per_phase, R // n_dev
+
+    def draws(round_index):
+        kr = jax.random.fold_in(key, round_index)
+        g, u = label_swap_draws(jax.random.fold_in(kr, np.uint32(0xD00D)),
+                                R, cfg.num_swapping_pairs)
+        if not plain:
+            return RoundDraws(torch.zeros((P, T, 1, R, n_pad),
+                                          dtype=torch.float32), g, u)
+        per_dev = []
+        for d in range(n_dev):
+            k_dev = jax.random.fold_in(kr, d)
+            phases = []
+            for cycle in range(cfg.num_cycles):
+                k_dev, kc, knc, kall = jax.random.split(k_dev, 4)
+                subs = [kc, knc] + ([kall] if cycle % cfg.full_update_frequency
+                                    == 0 else [])
+                phases += [jax_sweep_uniforms(k, T, R_loc, n_pad, dtype)
+                           for k in subs]
+            per_dev.append(np.stack(phases))            # [P, T, R_loc, n]
+        sweeps = np.concatenate(per_dev, axis=2)[:, :, None]
+        return RoundDraws(torch.as_tensor(sweeps), g, u)
+
+    return draws
+
+
+def spin_sharded_replay(key, step, num_sweeps, num_blocks, R, B,
+                        dtype=np.float32):
+    """The uniforms nmc_tpu.parallel.SpinShardedSweeper.sweeps draws from
+    its state key on a 'spin' mesh (no replica axis): key folded with
+    replica shard 0, per sweep t k_t = fold_in(fold_in(key, step + t), 0),
+    per block b uniform(fold_in(k_t, b), (R, B)). Returned as
+    [T, num_blocks, R, B] for the port's injected uniforms."""
+    key = jax.random.fold_in(key, np.uint32(0))
+    out = []
+    for t in range(num_sweeps):
+        k_t = jax.random.fold_in(jax.random.fold_in(key, step + t),
+                                 np.uint32(0))
+        out.append([np.asarray(jax.random.uniform(
+            jax.random.fold_in(k_t, b), (R, B), dtype=dtype))
+            for b in range(num_blocks)])
+    return torch.as_tensor(np.array(out))
