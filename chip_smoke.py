@@ -8,7 +8,9 @@ non-zero without printing a result:
   1. device    — a CUDA card must be present (else exit 1); prints
                  `nvidia-smi --query-gpu=name,power.limit` for it;
   2. build     — builds every csrc/*.cu with nvcc, one process per source,
-                 all at once (first use), and reports seconds; the
+                 all at once (first use), and beside them the sequential
+                 kernel's chain-floor variant (phase 4b), and reports
+                 seconds; the
                  tensor-core SASS lines of each K6 / K7 kernel
                  (`cuobjdump -sass`: HMMA, IMMA, HGMMA, IGMMA, which must
                  be there) with its ptxas registers and spills;
@@ -35,23 +37,31 @@ non-zero without printing a result:
                  chimera 8x8 and 16x16; K1 (several replicas per CTA) = K2
                  = K3 bit for bit with their own Philox draws on +-J and
                  Gaussian chimera 8x8; the Boltzmann TV of K2 and K3;
-  4b. sequential_kernel — the sequential route (`sequential_sweeps`: the
-                 same body over J in blocks of one spin, the XLA sweep
-                 run_sweeps(within_block="sequential") on the card) with
-                 injected uniforms, recorded: bit for bit against its plain
-                 twin run_sweeps on +-J SK-1000 (n_pad 1024) at R = 64, within
-                 `_compare`'s tolerance on an uncoloured Gaussian chimera
-                 8x8 at R = 256, bit for bit against the plain sweeps over
-                 its layout on both, the recorded M against the twin's;
-                 the same at the slice's own launches: ShardedNPT's C
-                 phase on +-J SK-1000 (R = 32, 64 sweeps, per-spin heated
-                 beta, the NMC slots' masks; bit for bit) and the
-                 contrived ICM round (R = 320, 576 sweeps, per-slot beta;
-                 run_sweeps over its first 8); its
-                 Philox draws against the Boltzmann law of a 4-cycle; ms per
-                 call of the route and the plain version beside the bound
-                 at EnsemblePT's launch (Gaussian SK-1000, R = 64 x 16) and
-                 on the chimera (R = 256 x 16);
+  4b. sequential_kernel — the sequential route (`sequential_sweeps`,
+                 csrc/sequential_sweeps.cu: JAX's blocked sweep, an
+                 in-block chain per warp, one phi update per block; the XLA
+                 sweep run_sweeps(within_block="sequential") on the card)
+                 with injected uniforms, recorded: bit for bit against its
+                 association twin `sequential_sweeps_reference` on every
+                 case; bit for bit against run_sweeps on +-J SK-1000 (n_pad
+                 1024) at R = 64, within `_compare`'s tolerance on an
+                 uncoloured Gaussian chimera 8x8 at R = 256, the recorded M
+                 against run_sweeps'; the same at the slice's own launches:
+                 ShardedNPT's C phase on +-J SK-1000 (R = 32, 64 sweeps,
+                 per-spin heated beta, the NMC slots' masks; bit for bit)
+                 and the contrived ICM round (R = 320, 576 sweeps, per-slot
+                 beta; run_sweeps over its first 8); +-J SK-1000 in blocks
+                 of 256 (sub-blocks of 128 in the kernel; bit for bit); the
+                 batched entry (`sequential_sweeps_batched`) on 4 +-J
+                 SK-1000 x 64 bit for bit against its twin and run_sweeps,
+                 and with its own Philox draws against per-instance
+                 launches; its Philox
+                 draws against the Boltzmann law of a 4-cycle; ms per call
+                 of the route and the plain version beside the bound and
+                 the chain floor (a patched copy: the in-block chain one
+                 spin a round, no phi update) at EnsemblePT's
+                 single-instance launch (Gaussian SK-1000, R = 64 x 16)
+                 and on the chimera (R = 256 x 16);
   5. nmc_512   — nmc_run on chimera 8x8, 256 chains, reduced depth, through
                  K1 (launch count of that run); plus the NMC cycle loop at a
                  small size on the card against the CPU path;
@@ -219,19 +229,25 @@ route:
                  launches, the PNGs written or warned about (no matplotlib);
  12h3. ensemble_pt — EnsemblePT on 100 SK-1000 instances x 64 replicas
                  (BASELINE config 5 on one card), 1 + 2 rounds of 32
-                 sweeps, one launch per instance and round; seconds per
-                 round; best energies against the f64 energies of the best
-                 states;
+                 sweeps, one sequential_sweeps_batched launch a round for
+                 every instance; seconds per round; best energies against
+                 the f64 energies of the best states; one round's launch
+                 alone beside its bound, and on injected uniforms bit for
+                 bit against its plain twin (timed: the kernels line's
+                 plain_ms);
  12h4. native_clusters — not a main path: the g++-built union-find
                  against scipy on 3200 disagreement pairs at chimera 16x16:
                  equal partitions, both times.
 After 15, the multi-GPU slice:
  15b. sharded_offsets — not a main path: K1, K2, K3 and sequential_sweeps
                  on the two replica halves of a ladder with their replica
-                 offsets and the whole launch's seed words, and K4 / K5
+                 offsets and the whole launch's seed words, K4 / K5
                  (4 chimera 8x8 / 16x16 instances x 32 slots) on two
-                 replica and two instance halves: bit for bit the rows of
-                 the whole launch, and a half without its offset differs;
+                 replica and two instance halves, and
+                 sequential_sweeps_batched (4 SK-1000 x 32) on two
+                 instance halves with their seed words: bit for bit the
+                 rows of the whole launch, and a half without its offset
+                 (the batched entry: on other seed words) differs;
  15c. sharded_npt — the slice's main path: `python -m nmc_tpu_torch
                  sharded` in process on an NCCL process group of world
                  size 1 at the CLI's defaults (32 replicas, 64 sweeps a
@@ -259,21 +275,27 @@ line {"kernels": [...]}, the card's name and power limit, and last
     python3 chip_smoke.py --round-ablation
     python3 chip_smoke.py --exact-ablation
     python3 chip_smoke.py --sweep-ablation
-    python3 chip_smoke.py --sweep-times [CHECKOUT]
+    python3 chip_smoke.py --sequential-ablation
+    python3 chip_smoke.py --sweep-times [CHECKOUT] [--sequential]
 
-time patched copies of the round kernels', the exact kernels' and the
-sweep body's sources against the kernels as they are, in turns
-(ROUND_ABLATIONS, EXACT_ABLATIONS, SWEEP_ABLATIONS; the last also each
-replicas-per-CTA and width pair of K1 at R = 256 x 500 and 2048 x 1024,
-each CTA width of K2/K3 at their launch shapes, block steps, and the
-sequential route at EnsemblePT's launch and on the uncoloured chimera,
-with a variant that never skips a step's gather);
+time patched copies of the round kernels', the exact kernels', the
+sweep body's and the sequential kernel's sources against the kernels as
+they are, in turns (ROUND_ABLATIONS, EXACT_ABLATIONS, SWEEP_ABLATIONS,
+SEQ_ABLATIONS; the sweep ablation also each replicas-per-CTA and width
+pair of K1 at R = 256 x 500 and 2048 x 1024, each CTA width of K2/K3 at
+their launch shapes and block steps; the sequential one each
+replicas-per-CTA count at EnsemblePT's single-instance launch and on the
+uncoloured chimera, and EnsemblePT's batched launch);
 `python3 chip_smoke.py --ranks W` runs `sharded_rank_suite` on W ranks,
 one card each, over NCCL, and holds every result bit for bit against
 world 1 (it needs W cards).
 `--sweep-times` times K1-K3 alone at their launch and throughput shapes
-with the chip_smoke.py and package of CHECKOUT (default: this one), to
-compare two checkouts in turns on one card.
+and K4/K5 a round (not with `--sequential`), then the sequential route
+at EnsemblePT's single-instance launch, on the uncoloured chimera 8x8
+and at the contrived ICM round's launch, EnsemblePT's seconds per round
+and the compat shims' seconds, with the chip_smoke.py and package of
+CHECKOUT (default: this one), to compare two checkouts in turns on one
+card.
 """
 
 import functools
@@ -325,6 +347,7 @@ def _wrappers():
             "colored_sweeps_streamed": sc.colored_sweeps_streamed,
             "colored_sweeps_sparse": sc.colored_sweeps_sparse,
             "sequential_sweeps": sc.sequential_sweeps,
+            "sequential_sweeps_batched": sc.sequential_sweeps_batched,
             "ensemble_round": rc.ensemble_round,
             "ensemble_round_sparse": rc.ensemble_round_sparse,
             "mitm_min": ec.mitm_min, "mitm_min_i8": ec.mitm_min_i8}
@@ -352,12 +375,21 @@ def phase_device():
 
 
 def phase_build():
+    """Build every csrc/*.cu (one nvcc each, all at once) and, beside
+    them, the sequential kernel's chain-floor variant
+    (`_chain_floor`'s patched copy), which it returns."""
+    from concurrent.futures import ThreadPoolExecutor
     from nmc_tpu_torch.ops import _build
     cached = {n: _build.library_path(n).exists() for n in _build.sources()}
     t0 = time.perf_counter()
-    paths = _build.build_all()
-    for name in paths:
-        _build.load_library(name)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        floor = pool.submit(_variant_library, "chain_floor",
+                            "sequential_sweeps", ["sweep_common.cuh"],
+                            SEQ_ABLATIONS["chain_floor"])
+        paths = _build.build_all()
+        for name in paths:
+            _build.load_library(name)
+        floor = floor.result()
     seconds = time.perf_counter() - t0
     ptxas = {}
     for name, path in paths.items():
@@ -374,6 +406,7 @@ def phase_build():
     emit({"phase": "build", "libraries": sorted(p.name for p in paths.values()),
           "cached": cached, "seconds": seconds, "ptxas": ptxas,
           "exact_mitm_tensor_core_sass": sass})
+    return floor
 
 
 def _tensor_core_sass(lib):
@@ -3120,7 +3153,9 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0,
                       betas[:T], one, eng.active[None], num_sweeps=T)
         fns = (functools.partial(sc.sequential_sweeps, nbrs=eng.sweep_nbrs),
                functools.partial(run_sweeps, within_block="sequential"))
-        P, threads = sc.k1_launch(R, n_pad, sc._num_sms(DEVICE))
+        P, n_buf = sc.sequential_launch(1, R, n_pad, eng.blocked.block_size,
+                                        sc._num_sms(DEVICE))
+        threads = sc.SEQ_WIDTH
     else:
         fns = _kernel_fns(name, eng)
         ones = torch.ones(R, device=DEVICE)
@@ -3129,10 +3164,13 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0,
             return fn(eng.h, m.m, m.phi, gen, betas[:T], ones,
                       eng.active[None], None, num_sweeps=T)
         P, threads = 1, sc.sweep_threads(R, sc._num_sms(DEVICE))
-    # all three read the couplings only through the neighbour layout, a
-    # [1, n_pad] mask and beta_row (K1: its scalar beta_spin)
+    # all read the couplings only through the neighbour layout (the
+    # sequential kernel also the diagonal tiles), a [1, n_pad] mask and
+    # beta_row (K1: its scalar beta_spin)
     j_bytes = sum(t.numel() * t.element_size() for t in eng.sweep_nbrs
                   if isinstance(t, torch.Tensor))
+    if name == "sequential_sweeps":
+        j_bytes += eng.J_diag.numel() * 4
     mask_bytes = n_pad + 4 * R
     state = ColoredSweepResult(m0, eng.fields(m0), None, None, None)
     kernel, plain = fns
@@ -3178,8 +3216,14 @@ def _throughput_one(torch, name, prob, eng, R, sweeps, iters, beta=2.0,
     t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_HBM_BYTES
     k_ms = min(times["kernel"])
     p_ms = min(times["plain"]) if with_plain else None
-    regs, ctas = sc.sweep_occupancy(n_pad, threads, P)
-    steps = int(eng.sweep_nbrs.step_ptr.shape[0]) - 1
+    if name == "sequential_sweeps":
+        # a step is a row block: two CTA barriers each
+        regs, ctas = sc.sequential_occupancy(
+            n_pad, eng.blocked.block_size, P, n_buf)
+        steps = eng.blocked.num_blocks
+    else:
+        regs, ctas = sc.sweep_occupancy(n_pad, threads, P)
+        steps = int(eng.sweep_nbrs.step_ptr.shape[0]) - 1
     return {"name": name, "R": R, "steps_per_sweep": steps,
             "kernel_us_per_step": 1e3 * k_ms / (sweeps * steps), "sweeps": sweeps, "iters": iters, "N": N,
             "n_pad": n_pad, "threads": threads, "replicas_per_cta": P,
@@ -3285,7 +3329,7 @@ def _sk_pm(n, seed):
 
 
 def _sequential_cases():
-    """(tag, problem, R, +-1): +-J SK-1000 (n_pad 1024, one spin a step)
+    """(tag, problem, R, +-1): +-J SK-1000 (n_pad 1024, 8 blocks)
     and Gaussian chimera 8x8 without colouring (n_pad 512)."""
     from nmc_tpu_torch.io.generators import chimera_graph
     return (("sk1000_pm", _sk_pm(SK_N, 0), SK_REPLICAS, True),
@@ -3344,21 +3388,39 @@ def _icm_round_contrived(torch):
             ens.active.expand(Rk, ens.n_pad), cfg.sweeps_per_round)
 
 
+def _seq_twin(torch, eng, m0, phi0, beta, beta_spin, mask, T, u):
+    """`sequential_sweeps_reference` (the kernel's association) of one
+    engine's launch with the wrapper's beta and mask hand-off, outputs
+    without the instance axis."""
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    R, n_pad = m0.shape
+    bs = torch.as_tensor(beta_spin, device=m0.device)
+    beta_row, spin = sc._k1_betas(bs[None] if bs.ndim else bs, (1, R),
+                                   n_pad, m0.device)
+    res = sc.sequential_sweeps_reference(
+        eng.sweep_nbrs, eng.J_diag[None], eng.h[None], m0[None], phi0[None],
+        None, beta, beta_row.reshape(1, R), mask.expand(R, n_pad)[None],
+        None if spin is None else spin.reshape(1, R, n_pad), num_sweeps=T,
+        uniforms=u[:, None], record_m=True)
+    return type(res)(*(x[0] for x in res))
+
+
 def _hold_sequential(torch, tag, eng, m0, beta, beta_spin, mask, pm, gen,
                      plain_sweeps=None):
     """One `sequential_sweeps` launch with uniforms from `gen`, recorded,
-    held against `neighbor_sweeps_reference` over its layout bit for bit
-    and against `run_sweeps(within_block="sequential")`: bit for bit on
-    +-J couplings (`pm`), else within `_compare`'s tolerance with the
-    recorded states of the replicas that agree equal, there over the
-    first `plain_sweeps` sweeps (a second launch of as many) when given:
-    on Gaussian couplings the two phi orders' f32 roundings split a few
-    chains over hundreds of sweeps. Returns (record, error)."""
+    held against `sequential_sweeps_reference` (the kernel's association)
+    bit for bit and against `run_sweeps(within_block="sequential")`: bit
+    for bit on +-J couplings (`pm`), else within `_compare`'s tolerance
+    with the recorded states of the replicas that agree equal, there over
+    the first `plain_sweeps` sweeps (a second launch of as many) when
+    given: on Gaussian couplings the two phi orders' f32 roundings split a
+    few chains over hundreds of sweeps. Returns (record, error)."""
     from nmc_tpu_torch.ops import sweeps_cuda as sc
     from nmc_tpu_torch.ops.sweeps import run_sweeps
     check(eng.sweep_kernel == "sequential_sweeps",
           f"{tag}: route {eng.sweep_kernel}")
     (R, n_pad), T = m0.shape, beta.shape[0]
+    B = eng.blocked.block_size
     phi0 = eng.fields(m0)
     u = torch.rand((T, R, n_pad), generator=gen, device=m0.device)
     args = (eng.J_rows, eng.J_diag, eng.h, m0, phi0, None, beta, beta_spin,
@@ -3369,18 +3431,17 @@ def _hold_sequential(torch, tag, eng, m0, beta, beta_spin, mask, pm, gen,
     if plain_sweeps is None:
         p = run_sweeps(*args, num_sweeps=T, within_block="sequential",
                        record_m=True, uniforms=u)
-    beta_row, spin = sc._k1_betas(beta_spin, R, n_pad, m0.device)
-    nb = sc.neighbor_sweeps_reference(
-        eng.sweep_nbrs, eng.h, m0, phi0, None, beta, beta_row, mask, spin,
-        num_sweeps=T, uniforms=u, record_m=True)
-    check(_bit_equal(k, nb), f"{tag}: kernel != its layout's plain sweeps")
+    tw = _seq_twin(torch, eng, m0, phi0, beta, beta_spin, mask, T, u)
+    check(_bit_equal(k, tw), f"{tag}: kernel != its association twin")
     check(torch.equal(k.M[-1], k.m), f"{tag}: M[-1] is not the last state")
-    res = {"n_pad": n_pad, "R": R, "sweeps": T,
+    P, n_buf = sc.sequential_launch(1, R, n_pad, B, sc._num_sms(DEVICE))
+    res = {"n_pad": n_pad, "R": R, "sweeps": T, "block_size": B,
            "beta_spin": list(torch.as_tensor(beta_spin).shape),
            "mask_frozen": int((~mask).sum()),
-           "steps_per_sweep": int(eng.sweep_nbrs.step_ptr.shape[0]) - 1,
+           "blocks_per_sweep": eng.blocked.num_blocks,
            "entries": int(eng.sweep_nbrs.src.shape[0]),
-           "bit_equal_layout_twin": True}
+           "replicas_per_cta": P, "tile_buffers": n_buf,
+           "bit_equal_association_twin": True}
     res["flipped_spins"] = int((k.m != m0).sum())
     err = 0.0
     if pm:
@@ -3402,20 +3463,189 @@ def _hold_sequential(torch, tag, eng, m0, beta, beta_spin, mask, pm, gen,
     return res, err
 
 
-def phase_sequential_kernel():
-    """The sequential route (`sequential_sweeps`, the sweep body over the
-    one-spin-block layout) against its plain twin `run_sweeps(within_block=
-    "sequential")` and `neighbor_sweeps_reference` with injected uniforms
-    (`_hold_sequential`): 8 sweeps from beta 0.3 to 3 on +-J SK-1000
-    (R = 64) and Gaussian chimera 8x8 (R = 256); ShardedNPT's C-phase
-    launch on +-J SK-1000 (R = 32, 64 sweeps, per-spin heated beta_spin
-    and the NMC slots' masks) bit for bit; the contrived ICM round's
-    launch (R = 320, 576 sweeps, per-slot beta). Its own Philox draws
-    against the Boltzmann law of a 4-cycle; ms per call of the route and
-    the plain version beside the bound at EnsemblePT's launch (its first
-    instance, Gaussian SK-1000, R = 64; 16 sweeps) and on the chimera case
-    (R = 256, 16 sweeps)."""
+def _sk_ensemble(torch, count, pm, seed=0):
+    """EnsemblePT on `count` SK-1000 instances x 64 replicas at the phase's
+    ladder (+-J when `pm`, else Gaussian `random_sk`), its state after
+    init and the first round's fields and slot betas [I, R, 1]."""
+    from nmc_tpu_torch.io.generators import random_sk
+    from nmc_tpu_torch.parallel import EnsembleConfig, EnsemblePT
+    probs = [_sk_pm(SK_N, s) if pm else random_sk(SK_N, seed=s)
+             for s in range(seed, seed + count)]
+    ens = EnsemblePT(probs, np.geomspace(0.1, 3.0, SK_REPLICAS),
+                     EnsembleConfig(num_replicas=SK_REPLICAS), device=DEVICE)
+    check(ens.sweep_kernel == "sequential_sweeps_batched",
+          f"EnsemblePT route {ens.sweep_kernel}")
+    st = ens.init_state(torch.Generator(device=DEVICE).manual_seed(seed))
+    phi = ens.h[:, None, :] + torch.bmm(st.m, ens.J_full)
+    return probs, ens, st, phi, ens.beta_list[st.slot_to_beta][..., None]
+
+
+def _hold_batched(torch):
+    """`sequential_sweeps_batched` over 4 +-J SK-1000 instances x 64
+    (EnsemblePT's layout and slot betas, 8 sweeps): with injected uniforms
+    bit for bit against its association twin over the union layout and
+    against run_sweeps per instance; with its own Philox draws (seed words
+    [4, 2]) bit for bit against per-instance `sequential_sweeps` launches
+    with seed=seeds[i] over each instance's own layout."""
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    from nmc_tpu_torch.ops.sweeps import SweepResult, run_sweeps
+    _, ens, st, phi, beta_slot = _sk_ensemble(torch, 4, True)
+    I, R, n_pad = st.m.shape
+    T = 8
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    u = torch.rand((T, I, R, n_pad), generator=gen, device=DEVICE)
+    ones = torch.ones(T, device=DEVICE)
+    args = (ens.J_rows, ens.J_diag, ens.h, st.m, phi)
+    k = sc.sequential_sweeps_batched(*args, None, ones, beta_slot, ens.active,
+                                     num_sweeps=T, uniforms=u,
+                                     nbrs=ens.sweep_nbrs, record_m=True)
+    torch.cuda.synchronize()
+    tw = sc.sequential_sweeps_reference(
+        ens.sweep_nbrs, ens.J_diag, ens.h, st.m, phi, None, ones,
+        beta_slot[..., 0], ens.active, num_sweeps=T, uniforms=u,
+        record_m=True)
+    check(_bit_equal(k, tw), "batched: kernel != its association twin")
+    act = ens.active.expand(R, n_pad)
+    for i in range(I):
+        p = run_sweeps(ens.J_rows[i], ens.J_diag[i], ens.h[i], st.m[i],
+                       phi[i], None, ones, beta_slot[i], act, num_sweeps=T,
+                       within_block="sequential", record_m=True,
+                       uniforms=u[:, i].contiguous())
+        check(_bit_equal(SweepResult(*(x[i] for x in k)), p),
+              f"batched: instance {i} != run_sweeps bit for bit")
+    seeds = sc.draw_seeds(gen, (I,)).to(DEVICE)
+    kb = sc.sequential_sweeps_batched(*args, None, ones, beta_slot,
+                                      ens.active, num_sweeps=T, seeds=seeds,
+                                      nbrs=ens.sweep_nbrs)
+    for i in range(I):
+        one = sc.sequential_sweeps(
+            ens.J_rows[i], ens.J_diag[i], ens.h[i], st.m[i], phi[i], None,
+            ones, beta_slot[i], act, num_sweeps=T, seed=seeds[i],
+            nbrs=sc.sequential_neighbors(ens.J_rows[i]))
+        check(_bit_equal(one, type(one)(*(None if x is None else x[i]
+                                           for x in kb))),
+              f"batched: instance {i} != its own launch with its seed words")
+    return {"instances": I, "R": R, "n_pad": n_pad, "sweeps": T,
+            "bit_equal_association_twin": True,
+            "bit_equal_run_sweeps": True,
+            "bit_equal_per_instance_philox": True,
+            "flipped_spins": int((k.m != st.m).sum())}
+
+
+# The in-block chain alone, one spin a round (kLookahead 1, no runs) and no
+# phi update: its ms over T sweeps of n_pad spins is the chain floor, and that
+# over T * n_pad the measured step time (chip_smoke.py --sequential-ablation
+# has it beside the other variants)
+_SEQ_SPIN_CHAIN = ("constexpr int kLookahead = 128;",
+                   "constexpr int kLookahead = 1;")
+# a round keeps its first flip only (no runs of flips on sparse blocks)
+_SEQ_NO_RUNS = ("constexpr bool kRuns = true;",
+                "constexpr bool kRuns = false;")
+_SEQ_NO_PHI_UPDATE = (
+    "      update_phi<kS, kP>(a.nb, w, b, dm, flipped + q * B, phi, n_pad);\n",
+    "")
+_SEQ_NO_BOUNDS = ("constexpr bool kBounds = true;",
+                  "constexpr bool kBounds = false;")
+# the parts of a block around the chain, each taken out of the chain alone
+_SEQ_NO_ENERGY = ("        acc += (float)m_w[j] * (phi_w[j] + h[j]);\n", "")
+_SEQ_NO_TILE_COPY = [
+    ("if (a.n_buf == 2 && more) copy_tile", "if (false) copy_tile"),
+    ("if (a.n_buf == 1 && more) copy_tile", "if (false) copy_tile")]
+SEQ_ABLATIONS = {"as_is": [], "spin_chain": [_SEQ_SPIN_CHAIN, _SEQ_NO_RUNS],
+                 "no_runs": [_SEQ_NO_RUNS],
+                 "no_bounds": [_SEQ_NO_BOUNDS],
+                 "no_phi_update": [_SEQ_NO_PHI_UPDATE],
+                 "chain_floor": [_SEQ_SPIN_CHAIN, _SEQ_NO_PHI_UPDATE,
+                                 _SEQ_NO_RUNS],
+                 "chain_no_energy": [_SEQ_NO_PHI_UPDATE, _SEQ_NO_ENERGY],
+                 "chain_no_tile_copy": [_SEQ_NO_PHI_UPDATE,
+                                        *_SEQ_NO_TILE_COPY],
+                 "chain_no_bounds": [_SEQ_NO_PHI_UPDATE, _SEQ_NO_BOUNDS]}
+_SEQ_SAME_ARITHMETIC = ("spin_chain", "no_runs", "no_bounds")
+
+
+def _seq_flips(m0, M):
+    """Spin flips of a recorded launch: changes from m0 and between
+    consecutive recorded states (M [..., T, R, n_pad])."""
+    first = (M.select(-3, 0) != m0).sum()
+    return int(first + (M.narrow(-3, 1, M.shape[-3] - 1)
+                        != M.narrow(-3, 0, M.shape[-3] - 1)).sum())
+
+
+def _seq_bound(torch, nbrs, J_diag, R, T, n_pad, N, flips, degree):
+    """The least time the card could take for a sequential launch: per
+    attempt a Philox and the draw (OPS_PER_ATTEMPT), per flip one FMA per
+    coupling, per sweep the energy, at the f32 rate; or its inputs (the
+    layout, the tiles, states and fields, h, the mask) and outputs once at
+    the HBM rate. (ops, bytes, ms, bound_by)."""
+    I = J_diag.shape[0]
+    attempts = I * R * T * N
+    ops = (attempts * OPS_PER_ATTEMPT + flips * 2 * degree
+           + 3 * I * R * T * n_pad)
+    layout = sum(t.numel() * t.element_size() for t in nbrs
+                 if isinstance(t, torch.Tensor))
+    nbytes = (layout + J_diag.numel() * 4 + 4 * I * n_pad + n_pad + 4 * T
+              + 4 * I * R + 2 * 4 * I * R * n_pad
+              + 3 * 4 * I * R * n_pad + 4 * I * R + 4 * I * T * R)
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_HBM_BYTES
+    return (ops, nbytes, 1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _chain_floor(torch, cases, lib):
+    """The chain floor of each (tag, engine, R, T) case: `lib`, the
+    `chain_floor` variant (the in-block chain one spin a round, no phi
+    update; a patched copy of csrc/sequential_sweeps.cu built by
+    `phase_build`), timed at the case's shape from a burnt-in state at
+    beta 2 (CUDA events, best of 3): its ms, and that ms over T x n_pad as
+    the step time."""
+    from nmc_tpu_torch.ops import _build
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    out = {}
+    for tag, eng, R, T in cases:
+        gen = torch.Generator(device=DEVICE).manual_seed(2)
+        m0 = eng.init_states(gen, R)
+        betas = torch.full((T,), 2.0, device=DEVICE)
+        one = torch.ones((), device=DEVICE)
+
+        def call(m, phi):
+            return sc.sequential_sweeps(
+                eng.J_rows, eng.J_diag, eng.h, m, phi, gen, betas, one,
+                eng.active[None], num_sweeps=T, nbrs=eng.sweep_nbrs)
+        st = call(m0, eng.fields(m0))               # burn-in on the kernel
+        saved = _build._LIBS.get("sequential_sweeps")
+        _build._LIBS["sequential_sweeps"] = lib
+        try:
+            call(st.m, st.phi)
+            ms = min(_event_ms(torch, lambda: call(st.m, st.phi))[0]
+                     for _ in range(3))
+        finally:
+            _build._LIBS["sequential_sweeps"] = saved
+        out[tag] = {"R": R, "sweeps": T, "n_pad": eng.n_pad,
+                    "chain_floor_ms": ms,
+                    "step_us": 1e3 * ms / (T * eng.n_pad)}
+    return out
+
+
+def phase_sequential_kernel(floor_lib):
+    """The sequential route (`sequential_sweeps`, csrc/sequential_sweeps.cu)
+    against its association twin `sequential_sweeps_reference` (bit for
+    bit) and its plain twin `run_sweeps(within_block="sequential")` with
+    injected uniforms (`_hold_sequential`): 8 sweeps from beta 0.3 to 3 on
+    +-J SK-1000 (R = 64; bit for bit) and Gaussian chimera 8x8 (R = 256;
+    `_compare`'s tolerance); ShardedNPT's C-phase launch on +-J SK-1000
+    (R = 32, 64 sweeps, per-spin heated beta_spin and the NMC slots'
+    masks) bit for bit; the contrived ICM round's launch (R = 320, 576
+    sweeps, per-slot beta); +-J SK-1000 in blocks of 256 (R = 16, 8 sweeps;
+    the kernel runs sub-blocks of 128) bit for bit against both. The
+    batched entry (`_hold_batched`; at EnsemblePT's own launch in
+    `phase_ensemble_pt`). Its own Philox draws against the Boltzmann law of
+    a 4-cycle; ms per call of the route and the plain version beside the
+    bound and the chain floor at EnsemblePT's launch (Gaussian SK-1000, R
+    = 64; 16 sweeps) and on the chimera case (R = 256, 16 sweeps).
+    `floor_lib` is the chain-floor variant `phase_build` built."""
     import torch
+    from nmc_tpu_torch.io.generators import random_sk
     from nmc_tpu_torch.ops import sweeps_cuda as sc
     from nmc_tpu_torch.ops.engine import SweepEngine
     out = {"phase": "sequential_kernel"}
@@ -3441,6 +3671,15 @@ def phase_sequential_kernel():
             mask, pm, torch.Generator(device=DEVICE).manual_seed(6),
             plain_sweeps=None if pm else 8)
         max_err = max(max_err, err)
+    eng = SweepEngine(_sk_pm(SK_N, 0), block_size=256, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    m0 = eng.init_states(gen, 16)
+    out["sk1000_pm_blocks256"], _ = _hold_sequential(
+        torch, "sk1000_pm_blocks256", eng, m0,
+        torch.linspace(0.3, 3.0, 8, device=DEVICE),
+        torch.ones((), device=DEVICE), eng.active.expand(16, eng.n_pad),
+        True, gen)
+    out["batched"] = _hold_batched(torch)
 
     def run(eng, m, gen, beta, sweeps):
         return sc.sequential_sweeps(
@@ -3451,14 +3690,17 @@ def phase_sequential_kernel():
     tv = _boltzmann_tv(torch, run)
     check(tv < 0.05, f"sequential_sweeps Philox TV {tv} >= 0.05")
     out["boltzmann_tv"] = tv
-    from nmc_tpu_torch.io.generators import random_sk
     prob = random_sk(SK_N, seed=0)
-    tp = _throughput_one(torch, "sequential_sweeps", prob,
-                         SweepEngine(prob, device=DEVICE), *SEQ_SHAPE, 1)
-    out["throughput_sk1000"] = tp
-    prob, eng = timing["chimera512_gauss"]
-    out["throughput_chimera512"] = _throughput_one(
-        torch, "sequential_sweeps", prob, eng, 256, 16, 1)
+    sk = SweepEngine(prob, device=DEVICE)
+    tp = _throughput_one(torch, "sequential_sweeps", prob, sk, *SEQ_SHAPE, 1)
+    cprob, chim = timing["chimera512_gauss"]
+    tp_chim = _throughput_one(torch, "sequential_sweeps", cprob, chim, 256,
+                              16, 1)
+    floor = _chain_floor(torch, (("sk1000", sk, *SEQ_SHAPE),
+                                 ("chimera512", chim, 256, 16)), floor_lib)
+    tp["chain_floor"], tp_chim["chain_floor"] = floor["sk1000"], \
+        floor["chimera512"]
+    out["throughput_sk1000"], out["throughput_chimera512"] = tp, tp_chim
     emit(out)
     return max_err, tp
 
@@ -3556,12 +3798,17 @@ def phase_compat():
 def phase_ensemble_pt():
     """EnsemblePT on BASELINE config 5 on one card: 100 SK-1000 instances x
     64 replicas (J 0.42 GB in f32), a geometric ladder from 0.1 to 3, 32
-    sweeps a round through the sequential route (one launch per instance
-    and round), one round to warm up and then 2 timed; seconds per round,
-    launches, and each best energy against the f64 energy of its best
-    state."""
+    sweeps a round through the batched sequential route (one launch a
+    round for every instance), one round to warm up and then 2 timed;
+    seconds per round, launches, and each best energy against the f64
+    energy of its best state; then one round's launch alone (CUDA events,
+    its Philox draws) beside its bound, and the same launch on injected
+    uniforms held bit for bit against its plain twin
+    `sequential_sweeps_reference` (timed too). Returns (launches, the
+    kernels line's figures of `sequential_sweeps_batched`)."""
     import torch
     from nmc_tpu_torch.io.generators import random_sk
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
     from nmc_tpu_torch.parallel import EnsembleConfig, EnsemblePT
     t0 = time.perf_counter()
     probs = [random_sk(SK_N, seed=s) for s in range(SK_INSTANCES)]
@@ -3570,7 +3817,7 @@ def phase_ensemble_pt():
                      device=DEVICE)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
-    check(ens.sweep_kernel == "sequential_sweeps", "EnsemblePT route")
+    check(ens.sweep_kernel == "sequential_sweeps_batched", "EnsemblePT route")
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     state = ens.init_state(gen)
     reset_counts()
@@ -3584,9 +3831,9 @@ def phase_ensemble_pt():
     torch.cuda.synchronize()
     per_round = (time.perf_counter() - t0) / rounds
     launches = read_counts()
-    check(launches["sequential_sweeps"] == SK_INSTANCES * (rounds + 1)
+    check(launches["sequential_sweeps_batched"] == rounds + 1
           and all(v == 0 for k, v in launches.items()
-                  if k != "sequential_sweeps"),
+                  if k != "sequential_sweeps_batched"),
           f"EnsemblePT launches {launches}")
     best_m, best_e = ens.best_states(state), ens.best_energies(state)
     check(best_m.shape == (SK_INSTANCES, SK_N) and np.isfinite(best_e).all()
@@ -3596,18 +3843,66 @@ def phase_ensemble_pt():
     check(err <= 1e-3, f"best energies off their f64 energies by {err}")
     perms = state.beta_to_slot.sort(dim=1).values.cpu().numpy()
     check((perms == np.arange(SK_REPLICAS)).all(), "label maps not perms")
+    # one round's sweeps alone, at the state and slot betas the rounds
+    # reached; flips from a recorded launch for the bound
+    T = cfg.sweeps_per_round
+    phi = ens.h[:, None, :] + torch.bmm(state.m, ens.J_full)
+    beta_slot = ens.beta_list[state.slot_to_beta][..., None]
+    ones = torch.ones(T, device=DEVICE)
+
+    def launch(record=False):
+        return sc.sequential_sweeps_batched(
+            ens.J_rows, ens.J_diag, ens.h, state.m, phi, gen, ones,
+            beta_slot, ens.active, num_sweeps=T, nbrs=ens.sweep_nbrs,
+            record_m=record)
+    launch()
+    launch_ms = min(_event_ms(torch, launch)[0] for _ in range(3))
+    flips = _seq_flips(state.m, launch(record=True).M)
+    # the launch on injected uniforms against its plain twin, at this
+    # launch's P (replicas per CTA) and tile buffers
+    u = torch.rand((T, SK_INSTANCES, SK_REPLICAS, ens.n_pad),
+                   generator=torch.Generator(device=DEVICE).manual_seed(8),
+                   device=DEVICE)
+    k = sc.sequential_sweeps_batched(
+        ens.J_rows, ens.J_diag, ens.h, state.m, phi, None, ones, beta_slot,
+        ens.active, num_sweeps=T, nbrs=ens.sweep_nbrs, uniforms=u)
+    plain_ms, tw = _event_ms(torch, lambda: sc.sequential_sweeps_reference(
+        ens.sweep_nbrs, ens.J_diag, ens.h, state.m, phi, None, ones,
+        beta_slot[..., 0], ens.active, num_sweeps=T, uniforms=u))
+    del u
+    twin_err = max(float((x - y).abs().max()) for x, y in zip(k, tw)
+                   if x is not None)
+    check(_bit_equal(k, tw) and twin_err == 0.0,
+          f"EnsemblePT launch != its association twin ({twin_err})")
+    degree = float(np.mean([np.count_nonzero(p.J) / SK_N for p in probs]))
+    ops, nbytes, bound_ms, bound_by = _seq_bound(
+        torch, ens.sweep_nbrs, ens.J_diag, SK_REPLICAS, T, ens.n_pad, SK_N,
+        flips, degree)
+    P, n_buf = sc.sequential_launch(SK_INSTANCES, SK_REPLICAS, ens.n_pad,
+                                    cfg.block_size, sc._num_sms(DEVICE))
     emit({"phase": "ensemble_pt", "instances": SK_INSTANCES, "n": SK_N,
           "n_pad": ens.n_pad, "replicas": SK_REPLICAS,
-          "sweeps_per_round": cfg.sweeps_per_round, "setup_seconds": setup,
+          "sweeps_per_round": T, "setup_seconds": setup,
           "warmup_round_seconds": warm, "seconds_per_round": per_round,
-          "launches": launches["sequential_sweeps"],
+          "launches": launches["sequential_sweeps_batched"],
+          "launch_ms": launch_ms, "launch_plain_twin_ms": plain_ms,
+          "twin_bit_equal": True, "twin_max_abs_err": twin_err,
+          "twin_flipped_spins": int((k.m != state.m).sum()),
+          "launch_bound_ms": bound_ms,
+          "launch_bound_by": bound_by, "launch_bound_ops": ops,
+          "launch_bound_bytes": nbytes,
+          "flips_per_attempt": flips / (SK_INSTANCES * SK_REPLICAS * T
+                                        * SK_N),
+          "replicas_per_cta": P, "tile_buffers": n_buf,
           "J_bytes": int(ens.J_rows.numel() * 4),
           "layout_bytes": int(sum(
-              t.numel() * t.element_size() for nb in ens.sweep_nbrs
-              for t in nb if isinstance(t, torch.Tensor))),
+              t.numel() * t.element_size() for t in ens.sweep_nbrs
+              if isinstance(t, torch.Tensor))),
           "best_energy_mean": float(best_e.mean()),
           "best_vs_f64_max_abs_err": err})
-    return launches["sequential_sweeps"]
+    return launches["sequential_sweeps_batched"], {
+        "kernel_ms_per_call": launch_ms, "plain_ms_per_call": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": twin_err}
 
 
 def phase_native_clusters():
@@ -3678,11 +3973,13 @@ def _halves_equal(torch, full, parts, dim):
 def phase_sharded_offsets(c2048, r4096):
     """Not a main path: each of K1, K2, K3 and sequential_sweeps launched on
     the two replica halves of a ladder with their replica offsets and the
-    whole launch's seed words (its own Philox draws), and K4 / K5 on two
-    replica halves and on two instance halves with their offsets: every
-    output equal, bit for bit, to the matching rows of the whole launch;
-    and the second half launched without its offset differs (the offset
-    keys the draws)."""
+    whole launch's seed words (its own Philox draws), K4 / K5 on two
+    replica halves and on two instance halves with their offsets, and
+    sequential_sweeps_batched on two instance halves with their seed words
+    (`_batched_halves`): every output equal, bit for bit, to the matching
+    rows of the whole launch; and the second half launched without its
+    offset (the batched entry: on the first half's seed words) differs
+    (the offset, or the seed words, key the draws)."""
     import torch
     from nmc_tpu_torch.ops import round_cuda as rc
     from nmc_tpu_torch.ops.engine import SweepEngine
@@ -3762,7 +4059,42 @@ def phase_sharded_offsets(c2048, r4096):
               f"{name}: offset halves != whole launch: {out[name]}")
         check(out[name]["unkeyed_half_differs"],
               f"{name}: the instance offset changed no draw")
+    out["sequential_sweeps_batched"] = _batched_halves(torch, gen)
     emit(out)
+
+
+def _batched_halves(torch, gen):
+    """`sequential_sweeps_batched` on 4 +-J SK-1000 instances x 32 (8
+    sweeps, the whole launch's seed words [4, 2]) against its two instance
+    halves launched with their rows of the seed words (the union layout's
+    weights sliced): every output equal to the whole launch's rows, bit
+    for bit; the second half on the first half's seed words differs."""
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    _, ens, st, phi, beta_slot = _sk_ensemble(torch, 4, True)
+    I, T, R = 4, 8, 32
+    seeds = sc.draw_seeds(gen, (I,)).to(DEVICE)
+    ones = torch.ones(T, device=DEVICE)
+
+    def launch(i0, i1, keys):
+        return sc.sequential_sweeps_batched(
+            ens.J_rows[i0:i1], ens.J_diag[i0:i1], ens.h[i0:i1],
+            st.m[i0:i1, :R].contiguous(), phi[i0:i1, :R].contiguous(), None,
+            ones, beta_slot[i0:i1, :R], ens.active, num_sweeps=T,
+            seeds=keys, nbrs=ens.sweep_nbrs._replace(
+                w=ens.sweep_nbrs.w[i0:i1].contiguous()))
+    full, h = launch(0, I, seeds), I // 2
+    parts = [launch(0, h, seeds[:h]), launch(h, I, seeds[h:])]
+    rekeyed = launch(h, I, seeds[:h])
+    torch.cuda.synchronize()
+    res = {"I": I, "R": R, "instance_halves_equal": all(
+        torch.equal(x, torch.cat([getattr(p, f) for p in parts]))
+        for f, x in full._asdict().items() if x is not None),
+        "rekeyed_half_differs": not torch.equal(rekeyed.m, full.m[h:])}
+    check(res["instance_halves_equal"],
+          "sequential_sweeps_batched: instance halves != whole launch")
+    check(res["rekeyed_half_differs"],
+          "sequential_sweeps_batched: the seed words changed no draw")
+    return res
 
 
 def _sharded_cli(tag, argv, prob, seen, rounds):
@@ -4173,6 +4505,29 @@ _SAME_ARITHMETIC = ("gather_4_loads_at_once", "l1_carveout",
                     "no_slot_claims", "threads_128")
 
 
+def _variant_library(variant, lib, headers, patches, phase="variants"):
+    """csrc/<lib>.cu and its `headers` with `patches` applied (each
+    (text, replacement) to the source or (header, text, replacement); a
+    patch that does not apply exactly once fails), copied under the
+    ignored build directory (<phase>/<variant>), built and loaded; the
+    package's own build and loaded library are untouched, so it may run
+    beside `_build.build_all`."""
+    import ctypes
+    from nmc_tpu_torch.ops import _build
+    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
+    texts = {f: (csrc / f).read_text() for f in [f"{lib}.cu", *headers]}
+    for patch in patches:
+        f, old, new = patch if len(patch) == 3 else (f"{lib}.cu", *patch)
+        check(texts[f].count(old) == 1,
+              f"{variant}: a patch does not apply to {f}")
+        texts[f] = texts[f].replace(old, new)
+    vdir = build_dir / phase / variant
+    vdir.mkdir(parents=True, exist_ok=True)
+    for f, text in texts.items():
+        (vdir / f).write_text(text)
+    return ctypes.CDLL(str(_build.build(lib, vdir, vdir / "_build")))
+
+
 def _ablate(phase, lib, headers, variants, cases, turns):
     """Each variant of `variants` ({name: [(text, its replacement), ...]},
     "as_is" first; a patch (header, text, replacement) applies to that
@@ -4186,26 +4541,15 @@ def _ablate(phase, lib, headers, variants, cases, turns):
     import statistics
     import torch
     from nmc_tpu_torch.ops import _build
+    from concurrent.futures import ThreadPoolExecutor
     out = {"phase": phase, "card": phase_device(), "turns": turns}
-    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
-    sources = {f: (csrc / f).read_text() for f in [f"{lib}.cu", *headers]}
-    libs = {}
+    with ThreadPoolExecutor(max_workers=len(variants)) as pool:
+        libs = dict(zip(variants, pool.map(
+            lambda v: _variant_library(v, lib, headers, variants[v], phase),
+            variants)))
     try:
-        for variant, patches in variants.items():
-            texts = dict(sources)
-            for patch in patches:
-                f, old, new = (patch if len(patch) == 3
-                               else (f"{lib}.cu", *patch))
-                check(texts[f].count(old) == 1,
-                      f"{variant}: a patch does not apply to {f}")
-                texts[f] = texts[f].replace(old, new)
-            vdir = build_dir / phase / variant
-            vdir.mkdir(parents=True, exist_ok=True)
-            for f, text in texts.items():
-                (vdir / f).write_text(text)
-            _build.CSRC, _build.BUILD_DIR = vdir, vdir / "_build"
-            _build._LIBS.clear()
-            libs[variant] = _build.load_library(lib)
+        for variant in variants:
+            _build._LIBS[lib] = libs[variant]
             out[variant] = {name: {**probe(variant), "ms": []}
                             for name, (probe, _) in cases.items()}
         for _ in range(turns):
@@ -4215,7 +4559,6 @@ def _ablate(phase, lib, headers, variants, cases, turns):
                     out[variant][name]["ms"].append(
                         _event_ms(torch, timed)[0])
     finally:
-        _build.CSRC, _build.BUILD_DIR = csrc, build_dir
         _build._LIBS.clear()
     for variant in variants:
         for name in cases:
@@ -4354,8 +4697,6 @@ _SW_W_ONCE = [("kP > 1 ? __ldg(a.w + e) : 0.f", "__ldg(a.w + e)"),
 _SW_W_WHEN_FLIPPED = [
     ("      const float w = kP > 1 ? __ldg(a.w + e) : 0.f;\n", ""),
     ("kP > 1 ? w : __ldg(a.w + e)", "__ldg(a.w + e)")]
-_SW_NO_SKIP = ("        if (!__syncthreads_or(flipped)) continue;",
-               "        __syncthreads_or(flipped);")
 _SW_FULL_SM = ("__launch_bounds__(kWidth) colored_sweeps_nbr_kernel",
                "__launch_bounds__(kWidth, 2048 / kWidth) "
                "colored_sweeps_nbr_kernel")
@@ -4364,9 +4705,9 @@ SWEEP_ABLATIONS = {
     "no_sweep_energy": [_SW_NO_ENERGY],
     "no_gather_philox_energy": [_SW_NO_GATHER, _SW_NO_PHILOX, _SW_NO_ENERGY],
     "w_load_once": _SW_W_ONCE, "w_load_when_flipped": _SW_W_WHEN_FLIPPED,
-    "full_sm_bounds": [_SW_FULL_SM], "no_skip_idle": [_SW_NO_SKIP]}
+    "full_sm_bounds": [_SW_FULL_SM]}
 _SWEEP_SAME_ARITHMETIC = ("w_load_once", "w_load_when_flipped",
-                          "full_sm_bounds", "no_skip_idle")
+                          "full_sm_bounds")
 # K1's ablation shapes on chimera 8x8: its main-path launch shape and the
 # throughput shape (bench.py's R = 2048 x 1024 sweeps)
 K1_ABLATION_SHAPES = ((256, 500), (2048, 1024))
@@ -4378,20 +4719,13 @@ def sweep_ablation(turns=7):
     and their throughput shape R = 2048 x 256: per shape each (replicas
     per CTA, width) that fits (K1: P in 1, 2, 4, 8 x widths 128-1024 of at
     least 32 P; K2/K3: P = 1 at each of their widths), then block steps at
-    the rule's shape; and the sequential route at its rule's shape on
-    EnsemblePT's instance (SEQ_SHAPE's R, 32 sweeps) and on the uncoloured
-    Gaussian chimera 8x8 (R = 256 x 16); all from a burnt-in state at beta
-    2 (Philox). On the
+    the rule's shape; all from a burnt-in state at beta 2 (Philox). On the
     kernel as is, and on the variants that keep its arithmetic, every case
     of a shape equals the kernel as is at the rule's shape bit for bit on 4
     sweeps of injected uniforms."""
     import torch
-    from nmc_tpu_torch.io.generators import random_sk
     from nmc_tpu_torch.ops import sweeps_cuda as sc
-    from nmc_tpu_torch.ops.engine import SweepEngine
     c512, c2048, r4096 = _flagship()[1], _chimera2048()[1], _regular3()[1]
-    sk = SweepEngine(random_sk(SK_N, seed=0), device=DEVICE)
-    chim = SweepEngine(_sequential_cases()[1][1], device=DEVICE)
     sms = sc._num_sms(DEVICE)
     shapes = ([("colored_sweeps", c512, R, T) for R, T in K1_ABLATION_SHAPES]
               + [("colored_sweeps_sparse", c2048, R, T)
@@ -4399,9 +4733,7 @@ def sweep_ablation(turns=7):
               + [("colored_sweeps_sparse", c2048, *SWEEP_THROUGHPUT)]
               + [("colored_sweeps_streamed", r4096, R, T)
                  for R, T, _, _ in LAUNCH_SHAPES["colored_sweeps_streamed"]]
-              + [("colored_sweeps_streamed", r4096, *SWEEP_THROUGHPUT)]
-              + [("sequential_sweeps", sk, SEQ_SHAPE[0], 32),
-                 ("sequential_sweeps", chim, 256, 16)])
+              + [("colored_sweeps_streamed", r4096, *SWEEP_THROUGHPUT)])
     block_steps = {id(eng): sc.sweep_neighbors_from_dense(
         eng.J_rows, steps=range(eng.blocked.num_blocks + 1))
         for eng in (c512, c2048, r4096)}
@@ -4421,14 +4753,6 @@ def sweep_ablation(turns=7):
                     eng.active[None], num_sweeps=T,
                     block_size=eng.blocked.block_size, threads=threads,
                     replicas_per_cta=P, nbrs=nbrs, **kw)
-        elif name == "sequential_sweeps":
-            one = torch.ones((), device=DEVICE)
-
-            def run(state, T, **kw):
-                return sc.sequential_sweeps(
-                    eng.J_rows, eng.J_diag, eng.h, state.m, state.phi, gen,
-                    betas[:T], one, eng.active[None], num_sweeps=T,
-                    threads=threads, replicas_per_cta=P, nbrs=nbrs, **kw)
         else:
             kernel = functools.partial(
                 sc.colored_sweeps_sparse, *_tiles(eng)) if name == \
@@ -4464,14 +4788,8 @@ def sweep_ablation(turns=7):
 
     for name, eng, R, T in shapes:
         kind = {"colored_sweeps": "K1", "colored_sweeps_sparse": "K3",
-                "colored_sweeps_streamed": "K2",
-                "sequential_sweeps": "SEQ"}[name]
+                "colored_sweeps_streamed": "K2"}[name]
         shape = f"{kind} R={R}x{T}"
-        if name == "sequential_sweeps":
-            cases[shape] = case(shape, name, eng, R, T,
-                                *sc.k1_launch(R, eng.n_pad, sms),
-                                eng.sweep_nbrs)
-            continue
         if name == "colored_sweeps":
             rule = sc.k1_launch(R, eng.n_pad, sms)
             grid = [(P, w) for P in sc.K1_REPLICAS_PER_CTA
@@ -4490,18 +4808,169 @@ def sweep_ablation(turns=7):
             SWEEP_ABLATIONS, cases, turns)
 
 
-def sweep_times(tree):
+def sequential_ablation(turns=7):
+    """`_ablate` over SEQ_ABLATIONS (the in-block chain one spin a round,
+    a round without runs of flips, no phi update, the chain floor) for the
+    sequential kernel at
+    EnsemblePT's single-instance launch (Gaussian SK-1000, SEQ_SHAPE), on
+    the uncoloured Gaussian chimera 8x8 (R = 256 x 16), each at every
+    replicas-per-CTA count that fits and at the rule's with injected
+    uniforms in place of its Philox draws, and at EnsemblePT's batched
+    launch (SK_INSTANCES x 64 x 32 sweeps, the rule's shape); from a burnt-in
+    state at beta 2 (Philox; the batched case at the slot betas). On the
+    kernel as is and on the variants of the same arithmetic
+    (`_SEQ_SAME_ARITHMETIC`), every case of a shape equals the kernel as is
+    at the rule's shape bit for bit on 4 sweeps of injected uniforms."""
+    import torch
+    from nmc_tpu_torch.io.generators import random_sk
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    from nmc_tpu_torch.ops.engine import SweepEngine
+    sk = SweepEngine(random_sk(SK_N, seed=0), device=DEVICE)
+    chim = SweepEngine(_sequential_cases()[1][1], device=DEVICE)
+    sms = sc._num_sms(DEVICE)
+    reference, burnt, cases = {}, {}, {}
+
+    def case(shape, eng, R, T, P):
+        gen = torch.Generator(device=DEVICE).manual_seed(5)
+        u = torch.rand((4, R, eng.n_pad), generator=gen, device=DEVICE)
+        betas = torch.full((T,), 2.0, device=DEVICE)
+        one = torch.ones((), device=DEVICE)
+
+        def run(state, T, **kw):
+            return sc.sequential_sweeps(
+                eng.J_rows, eng.J_diag, eng.h, state.m, state.phi, gen,
+                betas[:T], one, eng.active[None], num_sweeps=T,
+                replicas_per_cta=P, nbrs=eng.sweep_nbrs, **kw)
+
+        def probe(variant):
+            if shape not in burnt:
+                m0 = eng.init_states(gen, R)
+                burnt[shape] = run(sc.ColoredSweepResult(
+                    m0, eng.fields(m0), None, None, None), T)
+            short = run(burnt[shape], 4, uniforms=u)
+            if variant == "as_is" and shape not in reference:
+                reference[shape] = short
+            if variant == "as_is" or variant in _SEQ_SAME_ARITHMETIC:
+                check(_bit_equal(short, reference[shape]),
+                      f"{variant} {shape}: P = {P} differs from the kernel "
+                      "as is at the rule's shape")
+            run(burnt[shape], T)                               # warm-up
+            n_buf = sc._tile_buffers(eng.n_pad, eng.blocked.block_size, P)
+            regs, ctas = sc.sequential_occupancy(
+                eng.n_pad, eng.blocked.block_size, P, n_buf)
+            return {"replicas_per_cta": P, "tile_buffers": n_buf,
+                    "registers": regs, "ctas_per_sm": ctas}
+
+        return probe, lambda: run(burnt[shape], T)
+
+    for tag, eng, R, T in (("SK-1000", sk, *SEQ_SHAPE),
+                           ("chimera512", chim, 256, 16)):
+        B = eng.blocked.block_size
+        rule = sc.sequential_launch(1, R, eng.n_pad, B, sms)[0]
+        shape = f"{tag} R={R}x{T}"
+        for P in [rule] + [p for p in sc.SEQ_REPLICAS_PER_CTA if p != rule
+                           and sc._seq_shared_bytes(eng.n_pad, B, p, 1)
+                           <= sc.MAX_SHARED_BYTES]:
+            cases[f"{shape} P={P}"] = case(shape, eng, R, T, P)
+        # the rule's shape with injected uniforms in place of Philox
+        probe, _ = cases[f"{shape} P={rule}"]
+        u = torch.rand((T, R, eng.n_pad),
+                       generator=torch.Generator(device=DEVICE).manual_seed(8),
+                       device=DEVICE)
+        cases[f"{shape} P={rule} injected"] = (
+            lambda variant, probe=probe: probe(variant),
+            lambda eng=eng, shape=shape, T=T, u=u: sc.sequential_sweeps(
+                eng.J_rows, eng.J_diag, eng.h, burnt[shape].m,
+                burnt[shape].phi, None, torch.full((T,), 2.0, device=DEVICE),
+                torch.ones((), device=DEVICE), eng.active[None],
+                num_sweeps=T, nbrs=eng.sweep_nbrs, uniforms=u))
+    _, ens, st, phi, beta_slot = _sk_ensemble(torch, SK_INSTANCES, False)
+    T = ens.cfg.sweeps_per_round
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    ones = torch.ones(T, device=DEVICE)
+
+    def batched(m, phi):
+        return sc.sequential_sweeps_batched(
+            ens.J_rows, ens.J_diag, ens.h, m, phi, gen, ones, beta_slot,
+            ens.active, num_sweeps=T, nbrs=ens.sweep_nbrs)
+    warm = batched(st.m, phi)
+    cases[f"EnsemblePT {SK_INSTANCES}x{SK_REPLICAS}x{T}"] = (
+        lambda variant: (batched(warm.m, warm.phi), {})[1],
+        lambda: batched(warm.m, warm.phi))
+    _ablate("sequential_ablation", "sequential_sweeps", ["sweep_common.cuh"],
+            SEQ_ABLATIONS, cases, turns)
+
+
+def sweep_times(tree, kernels=True):
     """K1, K2 and K3 alone (CUDA events, beta 2) at their main-path launch
     shapes (`_launch_shapes`) and their throughput shapes (K1 R = 2048 x
-    1024, K2/K3 SWEEP_THROUGHPUT), and K4 / K5 (one 576-sweep round with
-    Philox, 20 chimera 8x8 / 16x16 x 32 slots, median of 5), through the
-    chip_smoke.py and nmc_tpu_torch of the checkout at `tree`: run it from
-    two checkouts in turns (parent, change, change, parent) to compare them
-    on one card. Prints one JSON line."""
+    1024, K2/K3 SWEEP_THROUGHPUT) and K4 / K5 (one 576-sweep round with
+    Philox, 20 chimera 8x8 / 16x16 x 32 slots, median of 5), unless not
+    `kernels`; then the sequential route alone (CUDA events, Philox) at
+    EnsemblePT's single-instance launch (Gaussian SK-1000, SEQ_SHAPE, beta
+    2), on the uncoloured Gaussian chimera 8x8 (R = 256 x 16, beta 2) and
+    at the contrived ICM round's launch (R = 320, 576 sweeps, its slot
+    betas; median of 3), EnsemblePT's seconds per round (100 SK-1000 x
+    64, 1 round to warm up, 2 timed) and the compat phase's seconds per
+    shim (chimera128, R = 1-64; `phase_compat`), through the chip_smoke.py
+    and nmc_tpu_torch of the checkout at `tree`: run it from two checkouts
+    in turns (parent, change, change, parent) to compare them on one card.
+    Prints one JSON line."""
     sys.path.insert(0, str(tree))
     import torch
     import chip_smoke as c          # the one in `tree`
     out = {"tree": str(tree), "card": c.phase_device()}
+    if kernels:
+        _kernel_times(torch, c, out)
+    from nmc_tpu_torch.io.generators import random_sk
+    from nmc_tpu_torch.ops import sweeps_cuda as sc
+    from nmc_tpu_torch.ops.engine import SweepEngine
+    from nmc_tpu_torch.parallel import EnsembleConfig, EnsemblePT
+    sk = random_sk(c.SK_N, seed=0)
+    for tag, prob, R in (("sequential_sweeps", sk, c.SEQ_SHAPE[0]),
+                         ("sequential_chimera512",
+                          c._sequential_cases()[1][1], 256)):
+        seq = c._throughput_one(torch, "sequential_sweeps", prob,
+                                SweepEngine(prob, device=c.DEVICE), R, 16, 4,
+                                with_plain=False)
+        out[tag] = {k: seq[k] for k in (
+            "R", "sweeps", "kernel_ms_per_call", "bound_ms",
+            "flips_per_attempt")}
+    eng, m, beta_spin, mask, T = c._icm_round_contrived(torch)
+    gen = torch.Generator(device=c.DEVICE).manual_seed(1)
+    ones = torch.ones((T,), device=c.DEVICE)
+
+    def icm():
+        return sc.sequential_sweeps(
+            eng.J_rows, eng.J_diag, eng.h, m, eng.fields(m), gen, ones,
+            beta_spin, mask, num_sweeps=T, nbrs=eng.sweep_nbrs)
+    icm()
+    out["sequential_icm_contrived"] = {
+        "R": m.shape[0], "sweeps": T, "ms": float(np.median(
+            [c._event_ms(torch, icm)[0] for _ in range(3)]))}
+    ens = EnsemblePT([random_sk(c.SK_N, seed=s)
+                      for s in range(c.SK_INSTANCES)],
+                     np.geomspace(0.1, 3.0, c.SK_REPLICAS),
+                     EnsembleConfig(num_replicas=c.SK_REPLICAS),
+                     device=c.DEVICE)
+    st = ens.run(ens.init_state(
+        torch.Generator(device=c.DEVICE).manual_seed(0)), 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens.run(st, 2)
+    torch.cuda.synchronize()
+    out["ensemble_pt"] = {"seconds_per_round":
+                          (time.perf_counter() - t0) / 2}
+    compat, c.emit = [], lambda obj: compat.append(obj)
+    c.phase_compat()
+    out["compat_seconds"] = {k: v["seconds"] for k, v in compat[0].items()
+                             if isinstance(v, dict) and "seconds" in v}
+    emit(out)
+
+
+def _kernel_times(torch, c, out):
+    """`sweep_times`' K1-K5 part through the chip_smoke.py `c` of a
+    checkout, into `out`."""
     c512, c2048, r4096 = c._flagship(), c._chimera2048(), c._regular3()[:2]
     for name, (prob, eng), shape in (
             ("colored_sweeps", c512, (2048, 1024)),
@@ -4527,13 +4996,14 @@ def sweep_times(tree):
         call()
         out[name] = {"round_ms": float(np.median(
             [c._event_ms(torch, call)[0] for _ in range(5)]))}
-    emit(out)
 
 
 def main():
     import torch
     if sys.argv[1:2] == ["--sweep-times"]:
-        sweep_times(sys.argv[2] if len(sys.argv) > 2 else ".")
+        args = sys.argv[2:]
+        trees = [a for a in args if a != "--sequential"] or ["."]
+        sweep_times(trees[0], kernels="--sequential" not in args)
         return
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -4549,16 +5019,19 @@ def main():
     if sys.argv[1:] == ["--sweep-ablation"]:
         sweep_ablation()
         return
+    if sys.argv[1:] == ["--sequential-ablation"]:
+        sequential_ablation()
+        return
     if sys.argv[1:2] == ["--ranks"]:
         sharded_ranks_on_cards(int(sys.argv[2]))
         return
     t_start = time.perf_counter()
     card = phase_device()
-    phase_build()
+    floor_lib = phase_build()
     c2048, r4096 = _chimera2048(), _regular3()
     errs = {"colored_sweeps": phase_kernel()}
     errs.update(phase_streamed_kernels(c2048, r4096))
-    errs["sequential_sweeps"], seq_tp = phase_sequential_kernel()
+    errs["sequential_sweeps"], seq_tp = phase_sequential_kernel(floor_lib)
     launches = {"colored_sweeps": phase_nmc_512(),
                 "colored_sweeps_sparse": phase_nmc_2048(c2048)}
     launches["colored_sweeps_sparse"] += phase_npt_2048(c2048)
@@ -4579,7 +5052,8 @@ def main():
     for name, count in phase_apt_icm(c2048).items():
         launches[name] += count
     launches["sequential_sweeps"] = phase_compat()
-    launches["sequential_sweeps"] += phase_ensemble_pt()
+    launches["sequential_sweeps_batched"], batched_tp = phase_ensemble_pt()
+    errs["sequential_sweeps_batched"] = batched_tp["max_abs_err"]
     phase_native_clusters()
     phase_spectral()
     phase_solve_wishart()
@@ -4601,6 +5075,7 @@ def main():
     phase_sharded_ranks(card)
     tp = phase_throughput(card, c2048, r4096, ens512, ens2048)
     tp["sequential_sweeps"] = seq_tp
+    tp["sequential_sweeps_batched"] = batched_tp
     import torch.distributed as dist
     dist.destroy_process_group()          # sharded_npt's NCCL group
     for name in ("mitm_min", "mitm_min_i8"):
@@ -4615,7 +5090,10 @@ def main():
                    "nmc_tpu_torch/csrc/colored_sweeps_nbr.cu",
                    "nmc_tpu/ops/sweeps_pallas.py:493"),
                "sequential_sweeps": (
-                   "nmc_tpu_torch/csrc/colored_sweeps_nbr.cu",
+                   "nmc_tpu_torch/csrc/sequential_sweeps.cu",
+                   "nmc_tpu/ops/sweeps.py:71"),
+               "sequential_sweeps_batched": (
+                   "nmc_tpu_torch/csrc/sequential_sweeps.cu",
                    "nmc_tpu/ops/sweeps.py:71"),
                "ensemble_round": ("nmc_tpu_torch/csrc/ensemble_round.cu",
                                   "nmc_tpu/ops/round_pallas.py:458"),

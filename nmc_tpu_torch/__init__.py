@@ -27,8 +27,9 @@ device beam `solve_beam_chimera_cuda` over torch's stable sorts), the
 evaluation harness, and the `nmc`/`apt`/`npt`/`icm`/`evaluate`/`campaign`/
 `solve`/`exact`/`beam`/`refine`/`generate`/`sharded` CLI. The sequential
 fixed-order sweep of uncoloured layouts (the drivers' default) runs on the
-card through the same sweep body (`sequential_sweeps`); `EnsemblePT` runs
-instance ensembles of PT ladders; the reference-compatible class shims
+card through its own kernel (`sequential_sweeps`, and over an instance axis
+`sequential_sweeps_batched`); `EnsemblePT` runs instance ensembles of PT
+ladders, one launch a round; the reference-compatible class shims
 (NMC, NPT, APT_preprocessor, APT_ICM, with the faithful host kernel) live
 in nmc_tpu_torch.compat, the figures in utils/plotting.py and the native
 union-find in nmc_tpu_torch.native. The multi-GPU slice runs on
@@ -80,7 +81,7 @@ from .ops.sweeps_cuda import (colored_sweeps, colored_sweeps_reference,
                               colored_sweeps_sparse_reference,
                               colored_sweeps_streamed,
                               colored_sweeps_streamed_reference,
-                              sequential_sweeps)
+                              sequential_sweeps, sequential_sweeps_batched)
 from .portfolio import SolveResult, SolveStage, portfolio_solve
 from .refine import partition_crossover, refine_family, tree_refine_state
 from .tree_moves import tree_refine
@@ -97,7 +98,7 @@ __all__ = [
     "SweepEngine", "colored_sweeps", "colored_sweeps_reference",
     "colored_sweeps_streamed", "colored_sweeps_streamed_reference",
     "colored_sweeps_sparse", "colored_sweeps_sparse_reference",
-    "sequential_sweeps",
+    "sequential_sweeps", "sequential_sweeps_batched",
     "ensemble_round", "ensemble_round_reference", "ensemble_round_sparse",
     "ensemble_round_sparse_reference", "EnsembleRoundResult",
     "EnsembleNMC", "EnsembleNMCState", "ShardedNPTConfig",

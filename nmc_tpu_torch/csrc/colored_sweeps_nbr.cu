@@ -1,7 +1,7 @@
 // Colored heat-bath Gibbs sweeps over a neighbour layout, one step per
 // colour class, with the state of P replicas per CTA on chip.
 //
-// Four entry points, one kernel body:
+// Three entry points, one kernel body:
 //   colored_sweeps_f32           replaces nmc_tpu/ops/sweeps_pallas.py::
 //                                pallas_colored_sweeps (K1, dense J resident
 //                                in VMEM on the TPU, r_tile replicas per
@@ -13,13 +13,7 @@
 //                                when most column tiles hold a coupling);
 //   colored_sweeps_sparse_f32    replaces ::pallas_colored_sweeps_sparse (K3,
 //                                each row block's nonzero column tiles; the
-//                                route when they are few);
-//   sequential_sweeps_f32        replaces the XLA sweep of
-//                                nmc_tpu/ops/sweeps.py::run_sweeps with
-//                                within_block="sequential" (not a Pallas
-//                                kernel): the layout over blocks of ONE spin
-//                                of an uncoloured J, whose steps are runs of
-//                                consecutive mutually uncoupled spins.
+//                                route when they are few).
 // All compute what the Pallas kernels compute: T colored block-Jacobi
 // heat-bath sweeps with beta = (beta_t * beta_row[r]) * beta_spin (beta_spin
 // optional), a [1 | R, n_pad] update mask, per-sweep energies
@@ -28,21 +22,9 @@
 // beta_t * 1 == beta_t. They read the couplings only through the layout
 // that ops/sweeps_cuda.py builds once from dense J (K1, K2) or from the
 // tiles (K3) (`SweepNeighbors`), and they take the same arguments (K1 also
-// the replicas per CTA); they keep their names so that the four routes
+// the replicas per CTA); they keep their names so that the three routes
 // count their launches apart. Each may also record the state after every
 // sweep (M [T, R, n_pad], when its pointer is non-null).
-//
-// Sequential sweeps. Over blocks of one spin a step is a maximal run of
-// consecutive spins no two of which couple, so drawing them at once from
-// the phi at the start of the step gives the draws of the fixed-order
-// spin-by-spin sweep: none of them sees another's flip. The Philox counter
-// is keyed by (spin, replica, sweep), not by the layout, so this entry
-// point runs JAX's sequential fixed-order sweep draw for draw. A dense J
-// (SK) has one spin per step, n_pad steps a sweep: the sweep is a chain of
-// barriers. This entry point therefore ends a step's draws with
-// __syncthreads_or over "some spin flipped" and skips the gather and its
-// barrier when none did (the gather would add nothing), which at low
-// temperature is most steps.
 //
 // Steps. The layout cuts the row blocks into steps: maximal runs of
 // consecutive blocks with no coupling between two of them, which on a
@@ -150,13 +132,11 @@ struct Drawer {
 // that order as the Pallas kernels multiply (the last factor skipped when
 // beta_spin is null), from the Philox counter (col, replica_offset + r, t)
 // (the offset places a launch on a slice of a larger ladder) or the injected
-// uniform; dm gets new - old (0 for a masked spin). Returns whether one
-// of the thread's spins flipped.
-__device__ __forceinline__ bool draw_step(const Drawer& d, int c0, int stride,
+// uniform; dm gets new - old (0 for a masked spin).
+__device__ __forceinline__ void draw_step(const Drawer& d, int c0, int stride,
                                           int t, float beta_t, int s0, int n,
                                           const float* phi, int8_t* m,
                                           int8_t* dm) {
-  bool flipped = false;
   for (int c = c0; c < n; c += stride) {
     const int col = s0 + c;
     int8_t delta = 0;
@@ -177,9 +157,7 @@ __device__ __forceinline__ bool draw_step(const Drawer& d, int c0, int stride,
       m[col] = nw;
     }
     dm[col] = delta;
-    flipped |= delta != 0;
   }
-  return flipped;
 }
 
 // phi[p, j] = the FMA chain over the flipped sources of j in step s, for
@@ -238,11 +216,9 @@ __device__ __forceinline__ void end_of_sweep(const Sweeps& a, int r, int t,
   }
 }
 
-// kSkipIdle: skip a step's gather when no spin of it flipped (the
-// sequential entry point; see above). kRecord: write M after each sweep.
-// Both are template flags, so that a launch that uses neither runs the
-// code it ran before they existed.
-template <int kWidth, int kP, bool kSkipIdle, bool kRecord>
+// kRecord: write M after each sweep. A template flag, so that a launch
+// that does not record runs the code it ran before the flag existed.
+template <int kWidth, int kP, bool kRecord>
 __global__ void __launch_bounds__(kWidth) colored_sweeps_nbr_kernel(Sweeps a) {
   static_assert(kWidth >= 32 * kP, "warp p sums replica p's energy");
   constexpr int kGroup = kWidth / kP;  // threads drawing for one replica
@@ -292,15 +268,10 @@ __global__ void __launch_bounds__(kWidth) colored_sweeps_nbr_kernel(Sweeps a) {
     for (int s = 0; s < a.n_steps; ++s) {
       const int s0 = __ldg(a.step_ptr + s) * a.B;
       const int s1 = __ldg(a.step_ptr + s + 1) * a.B;
-      bool flipped = false;
       if (g < live)
-        flipped = draw_step(d, c0, kGroup, t, beta_t, s0, s1 - s0,
-                            phi + g * n_pad, m + g * n_pad, dm + g * n_pad);
-      if constexpr (kSkipIdle) {
-        if (!__syncthreads_or(flipped)) continue;
-      } else {
-        __syncthreads();
-      }
+        draw_step(d, c0, kGroup, t, beta_t, s0, s1 - s0, phi + g * n_pad,
+                  m + g * n_pad, dm + g * n_pad);
+      __syncthreads();
       gather_step<kP>(a, s, dm, phi);
       __syncthreads();
     }
@@ -358,7 +329,7 @@ int with_shape(int threads, int P, F f) {
   }
 }
 
-template <bool kSkipIdle, bool kRecord>
+template <bool kRecord>
 int launch_shape(const int32_t* step_ptr, const int32_t* tgt_ptr,
            const int16_t* tgt, const int32_t* src_ptr, const int16_t* src,
            const float* w, const float* h, const float* m0,
@@ -378,18 +349,17 @@ int launch_shape(const int32_t* step_ptr, const int32_t* tgt_ptr,
     constexpr int kWidth = decltype(width)::value, kP = decltype(p)::value;
     const size_t smem = shared_bytes(a.n_pad, kP);
     cudaError_t err = cudaFuncSetAttribute(
-        colored_sweeps_nbr_kernel<kWidth, kP, kSkipIdle, kRecord>,
+        colored_sweeps_nbr_kernel<kWidth, kP, kRecord>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     if (a.R == 0) return (int)cudaSuccess;
-    colored_sweeps_nbr_kernel<kWidth, kP, kSkipIdle, kRecord>
+    colored_sweeps_nbr_kernel<kWidth, kP, kRecord>
         <<<(a.R + kP - 1) / kP, kWidth, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
   });
 }
 
 // The recording instantiation when M is non-null, else the plain one.
-template <bool kSkipIdle>
 int launch(const int32_t* step_ptr, const int32_t* tgt_ptr,
            const int16_t* tgt, const int32_t* src_ptr, const int16_t* src,
            const float* w, const float* h, const float* m0,
@@ -400,8 +370,7 @@ int launch(const int32_t* step_ptr, const int32_t* tgt_ptr,
            float* M, int R, int n_pad, int block_size, int num_sweeps,
            int mask_rows, int num_steps, int threads, int P,
            int replica_offset, void* stream) {
-  auto f = M != nullptr ? launch_shape<kSkipIdle, true>
-                        : launch_shape<kSkipIdle, false>;
+  auto f = M != nullptr ? launch_shape<true> : launch_shape<false>;
   return f(step_ptr, tgt_ptr, tgt, src_ptr, src, w, h, m0, phi0, beta_spin,
            mask, beta_sweep, beta_row, uniforms, seed, m_out, phi_out,
            m_best, e_best, energies, M, R, n_pad, block_size, num_sweeps,
@@ -428,7 +397,7 @@ int colored_sweeps_f32(
     int num_sweeps,
     int mask_rows, int num_steps, int threads, int replicas_per_cta,
     int replica_offset, void* stream) {
-  return launch<false>(step_ptr, tgt_ptr, tgt, src_ptr, src, w, h, m0, phi0,
+  return launch(step_ptr, tgt_ptr, tgt, src_ptr, src, w, h, m0, phi0,
                 beta_spin, mask, beta_sweep, beta_row, uniforms, seed, m_out,
                 phi_out, m_best, e_best, energies, M, R, n_pad, block_size,
                 num_sweeps, mask_rows, num_steps, threads, replicas_per_cta,
@@ -448,7 +417,7 @@ int colored_sweeps_streamed_f32(
     int num_sweeps,
     int mask_rows, int num_steps, int threads, int replica_offset,
     void* stream) {
-  return launch<false>(step_ptr, tgt_ptr, tgt, src_ptr, src, w, h, m0, phi0,
+  return launch(step_ptr, tgt_ptr, tgt, src_ptr, src, w, h, m0, phi0,
                 beta_spin, mask, beta_sweep, beta_row, uniforms, seed, m_out,
                 phi_out, m_best, e_best, energies, M, R, n_pad, block_size,
                 num_sweeps, mask_rows, num_steps, threads, 1, replica_offset,
@@ -468,30 +437,11 @@ int colored_sweeps_sparse_f32(
     int num_sweeps,
     int mask_rows, int num_steps, int threads, int replica_offset,
     void* stream) {
-  return launch<false>(step_ptr, tgt_ptr, tgt, src_ptr, src, w, h, m0, phi0,
+  return launch(step_ptr, tgt_ptr, tgt, src_ptr, src, w, h, m0, phi0,
                 beta_spin, mask, beta_sweep, beta_row, uniforms, seed, m_out,
                 phi_out, m_best, e_best, energies, M, R, n_pad, block_size,
                 num_sweeps, mask_rows, num_steps, threads, 1, replica_offset,
                 stream);
-}
-
-// The sequential sweeps, over the layout built from dense J in blocks of one
-// spin, with K1's replicas per CTA and widths.
-int sequential_sweeps_f32(
-    const int32_t* step_ptr, const int32_t* tgt_ptr, const int16_t* tgt,
-    const int32_t* src_ptr, const int16_t* src, const float* w,
-    const float* h, const float* m0, const float* phi0,
-    const float* beta_spin, const uint8_t* mask, const float* beta_sweep,
-    const float* beta_row, const float* uniforms, const int32_t* seed,
-    float* m_out, float* phi_out, float* m_best, float* e_best,
-    float* energies, float* M, int R, int n_pad, int block_size,
-    int num_sweeps, int mask_rows, int num_steps, int threads,
-    int replicas_per_cta, int replica_offset, void* stream) {
-  return launch<true>(step_ptr, tgt_ptr, tgt, src_ptr, src, w, h, m0, phi0,
-                      beta_spin, mask, beta_sweep, beta_row, uniforms, seed,
-                      m_out, phi_out, m_best, e_best, energies, M, R, n_pad,
-                      block_size, num_sweeps, mask_rows, num_steps, threads,
-                      replicas_per_cta, replica_offset, stream);
 }
 
 // The kernel's registers per thread at `threads` per CTA and
@@ -504,16 +454,16 @@ int colored_sweeps_nbr_occupancy(int threads, int replicas_per_cta,
     constexpr int kWidth = decltype(width)::value, kP = decltype(p)::value;
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(
-        &attr, colored_sweeps_nbr_kernel<kWidth, kP, false, false>);
+        &attr, colored_sweeps_nbr_kernel<kWidth, kP, false>);
     if (err != cudaSuccess) return (int)err;
     *registers = attr.numRegs;
     err = cudaFuncSetAttribute(
-        colored_sweeps_nbr_kernel<kWidth, kP, false, false>,
+        colored_sweeps_nbr_kernel<kWidth, kP, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem_bytes);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        ctas_per_sm, colored_sweeps_nbr_kernel<kWidth, kP, false, false>,
+        ctas_per_sm, colored_sweeps_nbr_kernel<kWidth, kP, false>,
         kWidth,
         (size_t)smem_bytes);
   });

@@ -1,9 +1,9 @@
 // Device code shared by the colored sweep kernels (colored_sweeps_nbr.cu:
-// K1, K2 and K3) and the whole-round kernels (ensemble_round.cu): the
-// Philox-4x32-10 generator both draw from, and the whole-round kernels'
-// neighbour layout and its phi update `gather_block`. The sweep kernels run
-// their own step draws and gather (colored_sweeps_nbr.cu), over P replicas
-// per CTA.
+// K1, K2 and K3), the sequential sweeps (sequential_sweeps.cu) and the
+// whole-round kernels (ensemble_round.cu): the Philox-4x32-10 generator all
+// draw from, and the whole-round kernels' neighbour layout and its phi
+// update `gather_block`. The sweep kernels run their own draws and phi
+// updates, over P replicas per CTA.
 //
 // Random numbers: Philox-4x32-10 with key = seed and counter = (spin column,
 // replica, sweep, 0) in the sweep kernels; the uniform is (bits >> 8) *

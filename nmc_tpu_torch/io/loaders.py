@@ -10,7 +10,8 @@ The reference negates (J = -J, h = -h) to match the Hamiltonian sign;
 `negate=True` does that here so loaders return ready-to-solve problems.
 Ground truths: gs_energies.txt (`file<TAB>energy`),
 groundstates_otn2d.txt (`name : energy <0/1 spins>`) and the DCL
-`NN_sol.txt` metadata (`key value` lines).
+`NN_sol.txt` metadata (`key value` lines). chimera512's MATLAB sidecars
+(`JJ.mat`, `h.mat`, `ground_energies.mat`) load through scipy.io.
 """
 
 from __future__ import annotations
@@ -116,6 +117,34 @@ def read_otn2d_groundstates(path: str) -> Dict[str, Tuple[float, np.ndarray]]:
             spins = np.array([int(s) for s in rest], dtype=np.int8)
             out[name] = (e, (2 * spins - 1).astype(np.int8))
     return out
+
+
+def load_chimera_mat(folder: str, rescale: bool = True) -> IsingProblem:
+    """chimera512's MATLAB sidecar files `JJ.mat` (csc J) + `h.mat`: they
+    hold instance 001 in the ALREADY NEGATED convention of
+    load_chimera(negate=True), uniformly scaled by 1/5. With rescale=True
+    (default) the couplings are multiplied back by 5 so the problem equals
+    load_chimera('001.txt') exactly and its raw energies match
+    `groundstates_otn2d.txt` / `ground_energies.mat`."""
+    import scipy.io as sio
+
+    J = np.asarray(sio.loadmat(os.path.join(folder, "JJ.mat"))["J"].todense(),
+                   dtype=np.float64)
+    h = np.asarray(sio.loadmat(os.path.join(folder, "h.mat"))["h"],
+                   dtype=np.float64).ravel()
+    if rescale:
+        J = 5.0 * J
+        h = 5.0 * h
+    return IsingProblem(J, h, name="001.mat")
+
+
+def read_ground_energies_mat(path: str) -> np.ndarray:
+    """`ground_energies.mat`: [num_instances] raw ground-state energies in
+    instance order; equals the energies in `groundstates_otn2d.txt`."""
+    import scipy.io as sio
+
+    return np.asarray(sio.loadmat(path)["ground_energies"],
+                      dtype=np.float64).ravel()
 
 
 def read_dcl_solution(path: str) -> Dict[str, float]:

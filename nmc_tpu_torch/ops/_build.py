@@ -47,27 +47,32 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+def library_path(name: str, csrc: Path = None, build_dir: Path = None) -> Path:
+    csrc = CSRC if csrc is None else csrc
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return ((BUILD_DIR if build_dir is None else build_dir)
+            / f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless the hashed library already exists.
-    nvcc's output (ptxas register and shared-memory report) is kept beside
-    the library as <lib>.log."""
-    out = library_path(name)
+def build(name: str, csrc: Path = None, build_dir: Path = None) -> Path:
+    """Compile <csrc>/<name>.cu (default the package's csrc/ into its
+    _build/) unless the hashed library already exists. nvcc's output
+    (ptxas register and shared-memory report) is kept beside the library
+    as <lib>.log."""
+    csrc = CSRC if csrc is None else csrc
+    build_dir = BUILD_DIR if build_dir is None else build_dir
+    out = library_path(name, csrc, build_dir)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
     os.close(fd)
     try:
         proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(csrc / f"{name}.cu")],
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")

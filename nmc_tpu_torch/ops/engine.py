@@ -19,15 +19,18 @@ wrapper launches its CUDA kernel on a CUDA device and runs its plain torch
 version (from J or the tiles) on the CPU.
 
 An uncoloured f32 layout with the sequential fixed-order sweep (the
-drivers' default, which JAX ran through XLA) takes `sequential_sweeps`:
-the same kernel body over the layout of J in blocks of one spin
-(`sequential_neighbors`, built at setup as `sweep_nbrs`), whose steps are
-runs of mutually uncoupled consecutive spins. Recorded runs (`record_m`)
-stay on these routes: the kernel writes the state after every sweep.
-The other uncoloured runs (f64, as the kernels are f32 like JAX's Pallas
-route; random block order; block-Jacobi) and random block order on a
-coloured layout run `ops/sweeps.run_sweeps` in plain torch, a route fixed
-at setup.
+drivers' default, which JAX ran through XLA) takes `sequential_sweeps`,
+JAX's blocked algorithm in its own kernel, over the layout of J's couplings
+in its row blocks (`sequential_neighbors`, built at setup as `sweep_nbrs`;
+blocks above 128 spins run in sub-blocks) and the diagonal tiles J_diag.
+On a CUDA device a layout past the kernel's limits
+(`sequential_kernel_limit`: n_pad up to 32768) raises at setup; on the
+CPU the wrapper runs `run_sweeps`. Recorded runs (`record_m`) stay on
+these routes: the kernels write the state after every sweep. The other
+uncoloured runs (f64, as the kernels are f32 like JAX's Pallas route;
+random block order; block-Jacobi) and random block order on a coloured
+layout run `ops/sweeps.run_sweeps` in plain torch, a route fixed at
+setup.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ from ..device import resolve_device, resolve_dtype
 from .sweeps import SweepResult, anneal_schedule, run_sweeps
 from .sweeps_cuda import (_cpu_uniforms, colored_sweeps,
                           colored_sweeps_sparse, colored_sweeps_streamed,
-                          sequential_neighbors, sequential_sweeps, slice_axis,
+                          sequential_kernel_limit, sequential_neighbors,
+                          sequential_sweeps, slice_axis,
                           steps_are_independent, sweep_neighbors_from_dense)
 
 # Largest n_pad the dense colored kernel K1 serves; above it the JAX package
@@ -118,7 +122,13 @@ class SweepEngine:
             if (self.within_block == "sequential" and block_order == "fixed"
                     and dt == torch.float32):
                 self.sweep_kernel = "sequential_sweeps"
-                self.sweep_nbrs = sequential_neighbors(self.J_rows)
+                limit = sequential_kernel_limit(blocked.n_pad,
+                                                blocked.block_size)
+                if limit and dev.type == "cuda":
+                    raise ValueError(f"the sequential kernel cannot take "
+                                     f"this layout: {limit}")
+                if not limit:
+                    self.sweep_nbrs = sequential_neighbors(self.J_rows)
             return
         if blocked.n_pad <= K1_MAX_N_PAD:
             self.sweep_kernel = "colored_sweeps"

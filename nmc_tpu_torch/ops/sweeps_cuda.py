@@ -3,7 +3,7 @@
 The counterparts of the three sweep kernels of
 ``nmc_tpu/ops/sweeps_pallas.py``, each running T sweeps of block-Jacobi
 heat-bath Gibbs on a graph-coloured layout with the replica state kept on
-chip for the whole launch, and of one XLA function:
+chip for the whole launch, and of one XLA function and its `vmap`:
 
   * `colored_sweeps` (K1, ``pallas_colored_sweeps``): dense J [n_pad, n_pad],
     beta = beta_t * beta_spin, mask [R, n_pad];
@@ -14,18 +14,23 @@ chip for the whole launch, and of one XLA function:
     each row block's nonzero column tiles (col_idx [nB, K], J_tiles
     [nB, K, B, B] from `block_sparse_tiles`);
   * `sequential_sweeps` (the sequential fixed-order sweep of
-    ``nmc_tpu/ops/sweeps.py:run_sweeps``, which JAX ran through XLA): the
-    same body over the layout of an uncoloured J in blocks of ONE spin
-    (`sequential_neighbors`), whose steps are runs of consecutive
-    mutually uncoupled spins, so that drawing a step at once is the
-    spin-by-spin sweep draw for draw; its plain twin is
-    `run_sweeps(within_block="sequential")`.
+    ``nmc_tpu/ops/sweeps.py:run_sweeps``, which JAX ran through XLA) and
+    `sequential_sweeps_batched` (the same over an instance axis, as
+    JAX's `EnsemblePT` vmaps it): JAX's blocked algorithm in its own
+    kernel (csrc/sequential_sweeps.cu): per row block of B spins an
+    in-block chain on one warp per replica, the block's [B, B] diagonal
+    tile J_diag in shared memory, then one phi update over the block's
+    couplings (`sequential_neighbors`: per row block of B its targets and
+    their sources, stored rank by rank). Their CPU twin is
+    `run_sweeps(within_block="sequential")`; `sequential_sweeps_reference`
+    is the plain version with the kernel's association (bit for bit on
+    the card, for the tests and chip_smoke.py; no route calls it).
 
 They take the Pallas kernels' arrays and return the same outputs; a
 `torch.Generator` stands in for the seed, and optional injected uniforms
 [T, R, n_pad] replace the kernels' Philox draws.
 
-All four launch one kernel body (csrc/colored_sweeps_nbr.cu) that reads
+The three colored kernels launch one kernel body (csrc/colored_sweeps_nbr.cu) that reads
 the couplings only through a `SweepNeighbors` layout: the row blocks cut
 into steps (maximal runs of blocks with no coupling between two of them: a
 coloured layout's colour classes), per step the targets coupled to it and
@@ -249,15 +254,6 @@ def sweep_neighbors_from_tiles(col_idx, J_tiles, *,
                             steps)
 
 
-def sequential_neighbors(J_rows) -> SweepNeighbors:
-    """The layout of `sequential_sweeps`: an uncoloured J's row blocks
-    [nB, B, n_pad] cut into blocks of one spin, so that each step is a
-    maximal run of consecutive spins with no coupling between two of them
-    (`steps_are_independent` holds)."""
-    n_pad = J_rows.shape[-1]
-    return sweep_neighbors_from_dense(J_rows.reshape(n_pad, 1, n_pad))
-
-
 def steps_are_independent(nbrs: SweepNeighbors) -> bool:
     """True when no step holds a coupled pair: no target of a step is a
     spin of the step."""
@@ -459,14 +455,17 @@ def neighbor_sweeps_reference(
 
 
 # argument kinds of each C entry point, in order ('p' pointer, 'i' int); the
-# CUDA stream follows as one more pointer. All four take the neighbour
+# CUDA stream follows as one more pointer. The three take the neighbour
 # layout (6 pointers) and the same sweep arguments (M last of the
-# pointers, null unless recorded); K1 and the sequential sweeps also the
-# replicas per CTA; the replica offset is the last int of each.
+# pointers, null unless recorded); K1 also the replicas per CTA; the
+# replica offset is the last int of each. The sequential sweeps
+# (csrc/sequential_sweeps.cu) take their layout (4 pointers), the weights
+# and the tiles, the same sweep arguments (M the last pointer), and the
+# replica and instance offsets last.
 _SIGNATURES = {"colored_sweeps_f32": "p" * 21 + "i" * 9,
                "colored_sweeps_streamed_f32": "p" * 21 + "i" * 8,
-               "colored_sweeps_sparse_f32": "p" * 21 + "i" * 8,
-               "sequential_sweeps_f32": "p" * 21 + "i" * 9}
+               "colored_sweeps_sparse_f32": "p" * 21 + "i" * 8}
+_SEQ_SIGNATURES = {"sequential_sweeps_f32": "p" * 23 + "i" * 10}
 
 
 def _bind(lib, fn: str = "colored_sweeps_f32"):
@@ -668,19 +667,23 @@ def _k1_shape(R, n_pad, device, replicas_per_cta, threads):
     return P, width
 
 
-def _k1_betas(beta_spin, R, n_pad, device):
-    """K1's beta_spin as the body's (beta_row [R], beta_spin [R, n_pad] or
-    None). A factor that is the same along each row (a scalar, 0-d, [R, 1])
-    becomes beta_row with no per-spin factor (beta_t * c either way); else
-    beta_row is 1 and beta_spin is materialised ((beta_t * 1) * b ==
-    beta_t * b)."""
+def _k1_betas(beta_spin, rows, n_pad, device):
+    """A beta_spin broadcastable to [*rows, n_pad] (rows: R, or the
+    sequential kernel's (I, R)) as the kernels' (beta_row [prod(rows)],
+    beta_spin [prod(rows), n_pad] or None). A factor that is the same along
+    each row (a scalar, 0-d, [..., 1]) becomes beta_row with no per-spin
+    factor (beta_t * c either way); else beta_row is 1 and beta_spin is
+    materialised ((beta_t * 1) * b == beta_t * b)."""
+    rows = (rows,) if isinstance(rows, int) else tuple(rows)
+    n = int(np.prod(rows))
     x = (beta_spin if isinstance(beta_spin, torch.Tensor)
          else torch.as_tensor(beta_spin, dtype=torch.float32, device=device))
     if x.ndim == 0 or x.shape[-1] == 1:
-        return _broadcast("beta_spin", x.expand(R, 1)[:, 0], (R,),
-                          torch.float32, device), None
-    return (torch.ones((R,), dtype=torch.float32, device=device),
-            _broadcast("beta_spin", x, (R, n_pad), torch.float32, device))
+        return _broadcast("beta_spin", x.expand(*rows, 1)[..., 0], rows,
+                          torch.float32, device).reshape(n), None
+    return (torch.ones((n,), dtype=torch.float32, device=device),
+            _broadcast("beta_spin", x, rows + (n_pad,), torch.float32,
+                       device).reshape(n, n_pad))
 
 
 def _row_beta_args(h, m0, phi0, beta_sweep, beta_row, mask, beta_spin,
@@ -736,8 +739,7 @@ def _launch_nbr(fn, nbrs, B, h, m0, phi0, generator, beta_sweep, beta_row,
                 record_m=False, replica_offset=0, seed=None) -> SweepResult:
     """Check the arguments and launch entry point `fn` over the layout:
     K2 or K3 (replicas None: one replica per CTA, `threads` per CTA, default
-    `sweep_threads`), or K1 or the sequential sweeps with `replicas` per
-    CTA and `threads` given. M is None unless `record_m`."""
+    `sweep_threads`), or K1 with `replicas` per CTA and `threads` given. M is None unless `record_m`."""
     device = m0.device
     R, n_pad = m0.shape
     _check_sweep_neighbors(nbrs, n_pad, B, device)
@@ -862,9 +864,388 @@ def colored_sweeps_sparse(
     return _result(*out)
 
 
+# ---- the sequential sweeps (csrc/sequential_sweeps.cu) ----------------------
+
+_LIB_SEQ = "sequential_sweeps"
+# Replicas per CTA (one warp each runs its in-block chain) the kernel is
+# built for, its CTA width (every thread joins the phi update), and the
+# largest block it takes (four spins a lane): a layout in larger blocks
+# runs in sub-blocks (`sequential_block`).
+SEQ_REPLICAS_PER_CTA = (1, 2, 4, 8, 16)
+SEQ_WIDTH = 512
+SEQ_MAX_BLOCK = 128
+
+
+def sequential_block(block_size: int) -> int:
+    """The kernel's block for a layout in blocks of `block_size`: the
+    largest divisor of it up to SEQ_MAX_BLOCK. The sweep is the same
+    fixed-order chain in any blocks; only the sums' association follows
+    the blocks (`sequential_sweeps_reference`)."""
+    return max(d for d in range(1, min(block_size, SEQ_MAX_BLOCK) + 1)
+               if block_size % d == 0)
+
+
+def _sub_blocks(J_rows, J_diag):
+    """Row blocks [..., nB, B, n_pad] and diagonal tiles [..., nB, B, B]
+    in the kernel's blocks (`sequential_block`): views, and the sub-blocks'
+    own diagonal tiles, of the given ones (either may be None)."""
+    x = J_rows if J_rows is not None else J_diag
+    *lead, nB, B = x.shape[:-1]
+    Bk = sequential_block(B)
+    if Bk == B:
+        return J_rows, J_diag
+    S = B // Bk
+    if J_rows is not None:
+        J_rows = J_rows.reshape(*lead, nB * S, Bk, J_rows.shape[-1])
+    if J_diag is not None:
+        d = torch.diagonal(J_diag.reshape(*lead, nB, S, Bk, S, Bk),
+                           dim1=-4, dim2=-2)            # [..., nB, Bk, Bk, S]
+        J_diag = d.movedim(-1, -3).reshape(*lead, nB * S, Bk,
+                                           Bk).contiguous()
+    return J_rows, J_diag
+
+
+class SequentialNeighbors(NamedTuple):
+    """The sequential kernel's coupling layout over row blocks of B spins.
+    Per block b: its targets tgt[tgt_ptr[b]:tgt_ptr[b+1]] (the spins j with
+    a coupling from a spin of b, longest source list first, then ascending
+    j) and its entries [ell_ptr[b], ell_ptr[b+1]), D_b ranks of n_tgt_b
+    entries each: entry ell_ptr[b] + d n_tgt_b + i is the d-th source
+    (offset k - b B, ascending) of the block's i-th target, or padding
+    (source 0, weight 0 in every instance) past its last, so that threads
+    owning consecutive targets read consecutive entries. A block whose
+    couplings fill at least half of its [targets, sources] rectangle is
+    stored dense (`dense[b]`): rank d is source offset d for every target,
+    with weight 0 where there is no coupling, so that the kernel needs no
+    source lookup there (every sum is the same: a zero weight adds
+    fmaf(dm, 0, acc) = acc). Weights [I, n_ell] follow the entries (0
+    where an instance lacks a union coupling). For the in-block chain,
+    byte s of next_coupled[b, l] is the first spin of block b after its
+    spin kS l + s (lane l's slot s, kS = ceil(B / 32)) that the union
+    pattern couples to it, or B: a round of the chain keeps flips up to
+    the first spin coupled to a kept one."""
+    tgt_ptr: torch.Tensor  # [nB + 1] int32
+    tgt: torch.Tensor      # [n_tgt] int16 target spin j
+    ell_ptr: torch.Tensor  # [nB + 1] int32 block b's entries
+    src: torch.Tensor      # [n_ell] int16 source offset k - b * B
+    dense: torch.Tensor    # [nB] uint8: block b stored dense
+    w: torch.Tensor        # [I, n_ell] J[i, k, j], in J's dtype
+    block_size: int
+    next_coupled: torch.Tensor  # [nB, 32] int32 (four bytes a lane)
+
+
+def _next_coupled(J_rows):
+    """`SequentialNeighbors.next_coupled` of row blocks [I, nB, B, n_pad],
+    over the union pattern of the diagonal tiles."""
+    I, nB, B, n_pad = J_rows.shape
+    kS = -(-B // 32)
+    tiles = torch.diagonal(J_rows.reshape(I, nB, B, nB, B), dim1=1, dim2=3)
+    after = torch.triu((tiles != 0).any(0).permute(2, 0, 1), 1)  # [nB, k, j]
+    first = torch.where(after.any(-1), after.int().argmax(-1), B)
+    nxt = torch.full((nB, 32 * kS), B, dtype=torch.int64,
+                     device=J_rows.device)
+    nxt[:, :B] = first
+    shift = 8 * torch.arange(kS, device=J_rows.device)
+    words = (nxt.reshape(nB, 32, kS) << shift).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32,
+                       words).to(torch.int32)
+
+
+def sequential_neighbors(J_rows) -> SequentialNeighbors:
+    """The sequential kernel's layout of J's row blocks [nB, B, n_pad] (or
+    an ensemble's [I, nB, B, n_pad], over the union pattern; I = 1 for one
+    instance): the targets and sources of `round_cuda.neighbors_from_dense`
+    per block, stored rank by rank (`SequentialNeighbors`), weights in J's
+    dtype, in the kernel's blocks (`sequential_block`)."""
+    if J_rows.ndim == 3:
+        J_rows = J_rows[None]
+    J_rows, _ = _sub_blocks(J_rows, None)
+    I, nB, B, n_pad = J_rows.shape
+    if nB * B != n_pad:
+        raise ValueError(f"J_rows {tuple(J_rows.shape)} is not square")
+    union = (J_rows != 0).any(0).transpose(1, 2)        # [nB, n_pad, B]
+    b, j, kk = torch.nonzero(union.contiguous(), as_tuple=True)
+    tgt_ptr, tgt, src_ptr, src, w = _pack_neighbors(
+        b, j, kk, J_rows[:, b, kk, j], nB, B, n_pad)
+    device = J_rows.device
+    counts = torch.diff(src_ptr.long())
+    bounds, starts = tgt_ptr.tolist(), src_ptr.tolist()
+    ell_ptr, srcs, ws, dense = [0], [], [], []
+    for blk in range(nB):
+        t0, t1 = bounds[blk], bounds[blk + 1]
+        nt, c = t1 - t0, counts[t0:t1]
+        top = int(src[starts[t0]:starts[t1]].max()) + 1 if nt else 0
+        if int(c.sum()) * 2 >= nt * top:      # dense: rank d = offset d
+            D = top
+            d = torch.arange(D, device=device)
+            srcs.append(d[:, None].expand(D, nt).reshape(-1))
+            ws.append(J_rows[:, blk, :D][:, :, tgt[t0:t1].long()]
+                      .reshape(I, -1))
+        else:                                 # ranks, padded with zeros
+            D = int(c.max())
+            d = torch.arange(D, device=device)[:, None]     # [D, nt]
+            e = torch.where(d < c[None, :],
+                            src_ptr[t0:t1].long()[None, :] + d, -1)
+            e = e.reshape(-1)
+            pad = e < 0
+            e = e.clamp(min=0)
+            srcs.append(torch.where(pad, 0, src[e].long()))
+            ws.append(torch.where(pad, 0, w[:, e]))
+        dense.append(D == top and nt > 0)
+        ell_ptr.append(ell_ptr[-1] + D * nt)
+    return SequentialNeighbors(
+        tgt_ptr=tgt_ptr, tgt=tgt,
+        ell_ptr=torch.tensor(ell_ptr, dtype=torch.int32, device=device),
+        src=torch.cat(srcs).to(torch.int16),
+        dense=torch.tensor(dense, dtype=torch.uint8, device=device),
+        w=torch.cat(ws, dim=1).contiguous(), block_size=B,
+        next_coupled=_next_coupled(J_rows))
+
+
+def _check_sequential_neighbors(nbrs, I, n_pad, B, device):
+    if not isinstance(nbrs, SequentialNeighbors):
+        raise TypeError("nbrs must be a SequentialNeighbors")
+    if nbrs.block_size != B:
+        raise ValueError(f"nbrs has block_size {nbrs.block_size}, expected {B}")
+    n_tgt, n_ell = nbrs.tgt.shape[0], nbrs.src.shape[0]
+    _check("nbrs.tgt_ptr", nbrs.tgt_ptr, (n_pad // B + 1,), torch.int32,
+           device)
+    _check("nbrs.tgt", nbrs.tgt, (n_tgt,), torch.int16, device)
+    _check("nbrs.ell_ptr", nbrs.ell_ptr, (n_pad // B + 1,), torch.int32,
+           device)
+    _check("nbrs.src", nbrs.src, (n_ell,), torch.int16, device)
+    _check("nbrs.dense", nbrs.dense, (n_pad // B,), torch.uint8, device)
+    _check("nbrs.w", nbrs.w, (I, n_ell), torch.float32, device)
+    _check("nbrs.next_coupled", nbrs.next_coupled, (n_pad // B, 32),
+           torch.int32, device)
+
+
+def _seq_shared_bytes(n_pad, B, P, n_buf):
+    """The sequential kernel's dynamic shared memory per CTA: n_buf [B, B]
+    f32 tiles, phi (f32) and m (int8) of each of its P replicas, dm
+    [B, P] (f32) and two [B] u32 flip masks."""
+    return 4 * (n_buf * B * B + P * n_pad + B * P + 2 * B) + P * n_pad
+
+
+def sequential_kernel_limit(n_pad: int, block_size: int) -> Optional[str]:
+    """Why the sequential kernel cannot take n_pad spins in blocks of
+    `block_size` (run in `sequential_block`s), or None when it can: the
+    layout's int16 spin indices and one replica with one tile in a CTA's
+    shared memory."""
+    if n_pad > _INT16_MAX + 1:
+        return (f"n_pad {n_pad} > {_INT16_MAX + 1}, the int16 spin indices "
+                "of the sequential kernel's layout")
+    nbytes = _seq_shared_bytes(n_pad, sequential_block(block_size), 1, 1)
+    if nbytes > MAX_SHARED_BYTES:
+        return (f"n_pad {n_pad} needs {nbytes} bytes of shared memory per "
+                f"CTA, above the {MAX_SHARED_BYTES} a CTA has")
+    return None
+
+
+def sequential_launch(I: int, R: int, n_pad: int, B: int,
+                      num_sms: int) -> Tuple[int, int]:
+    """(replicas per CTA P, tile buffers) of a sequential launch of I
+    instances x R replicas of a layout in blocks of B (run in
+    `sequential_block`s) on num_sms SMs: the fewest replicas per CTA at
+    which the I * ceil(R / P) CTAs need no more than one per SM, else the
+    most that fit shared memory (fewer CTAs, each weight load shared by
+    more chains), as `k1_launch` chooses; then two tile buffers where they
+    fit, else one."""
+    limit = sequential_kernel_limit(n_pad, B)
+    if limit:
+        raise ValueError(limit)
+    B = sequential_block(B)
+    fits = [P for P in SEQ_REPLICAS_PER_CTA
+            if _seq_shared_bytes(n_pad, B, P, 1) <= MAX_SHARED_BYTES]
+    P = next((P for P in fits if I * -(-R // P) <= num_sms), fits[-1])
+    return P, _tile_buffers(n_pad, B, P)
+
+
+def _tile_buffers(n_pad, B, P):
+    """Two tile buffers where they fit beside P replicas, else one."""
+    return 2 if _seq_shared_bytes(n_pad, B, P, 2) <= MAX_SHARED_BYTES else 1
+
+
+def sequential_sweeps_reference(
+    nbrs, J_diag, h, m0, phi0, generator, beta_sweep, beta_row, mask,
+    beta_spin=None, *, num_sweeps: int,
+    uniforms: Optional[torch.Tensor] = None, record_m: bool = False,
+) -> SweepResult:
+    """Plain-torch sequential sweeps of I instances with the kernel's
+    association, over [I, ...] inputs: J_diag [I, nB, B, B], h [I, n_pad],
+    m0 / phi0 [I, R, n_pad], beta_row [I, R], mask and beta_spin (or None)
+    broadcastable to [I, R, n_pad], uniforms [T, I, R, n_pad]; `nbrs` the
+    union layout (`sequential_neighbors`, weights [I, n_ell]). Per block the
+    in-block chain of run_sweeps (corr += d_i * J_diag row i, spin after
+    spin, beta = (beta_t * beta_row) * beta_spin), then per target acc = 0,
+    acc += dm_k * w_kj over its sources in ascending k (dm_k in {0, +-2}, so
+    each product is exact and the kernel's fmaf rounds as this sum does),
+    phi[j] += acc; energies in the kernel's lane order (`warp0_energy`).
+    Blocks are the kernel's (`sequential_block`; `nbrs` is built in them).
+    In f32 it equals the kernel bit for bit. Outputs carry the leading I:
+    energies [I, T, R], M [I, T, R, n_pad]. For the tests and
+    chip_smoke.py; no route calls it."""
+    I, R, n_pad = m0.shape
+    _, J_diag = _sub_blocks(None, J_diag)
+    nB, B = J_diag.shape[1], J_diag.shape[2]
+    dtype, device = m0.dtype, m0.device
+    if uniforms is not None and tuple(uniforms.shape) != (num_sweeps, I, R,
+                                                          n_pad):
+        raise ValueError(f"uniforms must be [{num_sweeps}, {I}, {R}, "
+                         f"{n_pad}], got {tuple(uniforms.shape)}")
+    # per block: its targets, and their sources and weights [D, n_tgt]
+    # rank by rank, as the kernel reads them
+    tgt_ptr, ell_ptr = nbrs.tgt_ptr.tolist(), nbrs.ell_ptr.tolist()
+    blocks = []
+    for b in range(nB):
+        t0, t1 = tgt_ptr[b], tgt_ptr[b + 1]
+        e0, e1 = ell_ptr[b], ell_ptr[b + 1]
+        D = (e1 - e0) // max(t1 - t0, 1)
+        blocks.append((nbrs.tgt[t0:t1].long(),
+                       nbrs.src[e0:e1].long().reshape(D, t1 - t0),
+                       nbrs.w[:, e0:e1].to(dtype).reshape(I, 1, D, t1 - t0)))
+    beta_sweep = torch.as_tensor(beta_sweep, dtype=dtype,
+                                 device=device).expand(num_sweeps)
+    beta_row = torch.as_tensor(beta_row, dtype=dtype,
+                               device=device).reshape(I, R, 1)
+    mask = torch.as_tensor(mask, device=device)
+    mask = (mask if mask.dtype == torch.bool else mask > 0).expand(I, R,
+                                                                   n_pad)
+    if beta_spin is not None:
+        beta_spin = torch.as_tensor(beta_spin, dtype=dtype,
+                                    device=device).expand(I, R, n_pad)
+    J_diag = J_diag.to(dtype)
+    h_rows = h.to(dtype)[:, None, :].expand(I, R, n_pad).reshape(I * R,
+                                                                 n_pad)
+
+    m = m0.clone()
+    phi = phi0.clone()
+    m_best = m0.clone()
+    e_best = torch.full((I, R), float("inf"), dtype=dtype, device=device)
+    energies = torch.empty((I, num_sweeps, R), dtype=dtype, device=device)
+    M = (torch.empty((I, num_sweeps, R, n_pad), dtype=dtype, device=device)
+         if record_m else None)
+    for t in range(num_sweeps):
+        u = _uniforms(generator, uniforms, t, (I, R, n_pad), dtype, device)
+        beta_tr = beta_sweep[t] * beta_row                      # [I, R, 1]
+        for b in range(nB):
+            s0 = b * B
+            xb = phi[..., s0:s0 + B]
+            mb = m[..., s0:s0 + B]
+            betab = (beta_tr if beta_spin is None
+                     else beta_tr * beta_spin[..., s0:s0 + B])
+            betab = betab.expand(I, R, B)
+            mb_new = mb.clone()
+            corr = torch.zeros_like(xb)
+            for i in range(B):
+                old = mb_new[..., i]
+                new = heat_bath_update(xb[..., i] + corr[..., i],
+                                       betab[..., i], u[..., s0 + i], old,
+                                       mask[..., s0 + i])
+                corr = corr + (new - old)[..., None] * J_diag[:, None, b, i]
+                mb_new[..., i] = new
+            tgt, src, wt = blocks[b]
+            dm = mb_new - mb
+            acc = torch.zeros((I, R, tgt.numel()), dtype=dtype, device=device)
+            for d in range(src.shape[0]):
+                acc = acc + dm[..., src[d]] * wt[:, :, d]
+            phi = phi.clone()
+            phi[..., tgt] += acc
+            m[..., s0:s0 + B] = mb_new
+        e = warp0_energy(h_rows, m.reshape(I * R, n_pad),
+                         phi.reshape(I * R, n_pad)).reshape(I, R)
+        better = e < e_best
+        m_best = torch.where(better[..., None], m, m_best)
+        e_best = torch.where(better, e, e_best)
+        energies[:, t] = e
+        if record_m:
+            M[:, t] = m
+    return SweepResult(m=m, phi=phi, m_best=m_best, e_best=e_best,
+                       energies=energies, M=M)
+
+
+def _seq_mask(mask, rows, n_pad, device):
+    """A mask broadcastable to [*rows, n_pad] as the kernel's [1 | prod(rows),
+    n_pad] bool rows; returns (mask, mask_rows). One row when it repeats
+    one row (a [n_pad] or [1, ..., n_pad] mask, or an expand view)."""
+    x = mask if isinstance(mask, torch.Tensor) else torch.as_tensor(
+        mask, device=device)
+    if x.device != device:
+        raise ValueError(f"mask is on {x.device}, expected {device}")
+    if x.dtype != torch.bool:
+        raise TypeError(f"mask must be torch.bool, got {x.dtype}")
+    x = x.expand(*rows, n_pad)
+    if all(st == 0 or n == 1 for st, n in zip(x.stride()[:-1], x.shape[:-1])):
+        return x.reshape(-1, n_pad)[:1].contiguous(), 1
+    return x.contiguous().reshape(-1, n_pad), int(np.prod(rows))
+
+
+def _launch_seq(nbrs, J_diag, h, m0, phi0, generator, beta_sweep, beta_spin,
+                mask, num_sweeps, uniforms, seeds, replicas_per_cta,
+                record_m, replica_offset) -> SweepResult:
+    """Check the [I, ...] arguments and launch the sequential kernel in
+    its blocks (`sequential_block`); M is None unless `record_m`."""
+    device = m0.device
+    I, R, n_pad = m0.shape
+    _, J_diag = _sub_blocks(None, J_diag)
+    nB, B = J_diag.shape[1], J_diag.shape[2]
+    if nB * B != n_pad:
+        raise ValueError(f"J_diag {tuple(J_diag.shape)} does not tile "
+                         f"{n_pad} spins")
+    f32 = torch.float32
+    _check_sequential_neighbors(nbrs, I, n_pad, B, device)
+    _check("J_diag", J_diag, (I, nB, B, B), f32, device)
+    _check("h", h, (I, n_pad), f32, device)
+    _check("m0", m0, (I, R, n_pad), f32, device)
+    _check("phi0", phi0, (I, R, n_pad), f32, device)
+    beta_sweep = _broadcast("beta_sweep", beta_sweep, (num_sweeps,), f32,
+                            device)
+    beta_row, beta_spin = _k1_betas(beta_spin, (I, R), n_pad, device)
+    mask, mask_rows = _seq_mask(mask, (I, R), n_pad, device)
+    P = (sequential_launch(I, R, n_pad, B, _num_sms(device))[0]
+         if replicas_per_cta is None else replicas_per_cta)
+    if P not in SEQ_REPLICAS_PER_CTA:
+        raise ValueError(f"the sequential kernel takes replicas_per_cta in "
+                         f"{SEQ_REPLICAS_PER_CTA}; got {P}")
+    n_buf = _tile_buffers(n_pad, B, P)
+    _check_shared("sequential_sweeps", _seq_shared_bytes(n_pad, B, P, n_buf))
+    if uniforms is not None:
+        _check("uniforms", uniforms, (num_sweeps, I, R, n_pad), f32, device)
+        seeds = None
+    elif seeds is not None:
+        _check("seeds", seeds, (I, 2), torch.int32, device)
+    elif generator is None:
+        raise ValueError("pass a torch.Generator or injected uniforms")
+    else:
+        seeds = draw_seeds(generator, (I,)).to(device, non_blocking=True)
+
+    fn = "sequential_sweeps_f32"
+    lib = bind(load_library(_LIB_SEQ), fn, _SEQ_SIGNATURES[fn])
+    f32d = dict(dtype=f32, device=device)
+    out = SweepResult(
+        m=torch.empty_like(m0), phi=torch.empty_like(m0),
+        m_best=torch.empty_like(m0), e_best=torch.empty((I, R), **f32d),
+        energies=torch.empty((I, num_sweeps, R), **f32d),
+        M=(torch.empty((I, num_sweeps, R, n_pad), **f32d) if record_m
+           else None))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, fn)(
+        nbrs.tgt_ptr.data_ptr(), nbrs.tgt.data_ptr(), nbrs.ell_ptr.data_ptr(),
+        nbrs.src.data_ptr(), nbrs.dense.data_ptr(),
+        nbrs.next_coupled.data_ptr(), nbrs.w.data_ptr(), J_diag.data_ptr(),
+        h.data_ptr(), m0.data_ptr(), phi0.data_ptr(), _ptr(beta_spin),
+        mask.data_ptr(), beta_sweep.data_ptr(), beta_row.data_ptr(),
+        _ptr(uniforms), _ptr(seeds), out.m.data_ptr(), out.phi.data_ptr(),
+        out.m_best.data_ptr(), out.e_best.data_ptr(), out.energies.data_ptr(),
+        _ptr(out.M), I, R, n_pad, B, num_sweeps, nbrs.src.shape[0], mask_rows,
+        P, n_buf, replica_offset, stream)
+    _raise_on(err, fn)
+    return out
+
+
 def sequential_sweeps(
     J_rows,       # [nB, B, n_pad] float32 row blocks of an uncoloured layout
-    J_diag,       # [nB, B, B] (read by the plain version only)
+    J_diag,       # [nB, B, B] the blocks' diagonal tiles
     h,            # [n_pad]
     m0,           # [R, n_pad] in {-1, +1}
     phi0,         # [R, n_pad]
@@ -876,19 +1257,18 @@ def sequential_sweeps(
     num_sweeps: int,
     record_m: bool = False,                    # also return M [T, R, n_pad]
     uniforms: Optional[torch.Tensor] = None,   # [T, R, n_pad] injected draws
-    nbrs: Optional[SweepNeighbors] = None,     # `sequential_neighbors` (built if None)
-    threads: Optional[int] = None,             # CTA width (k1_launch)
-    replicas_per_cta: Optional[int] = None,    # P (k1_launch)
+    nbrs=None,                                 # `sequential_neighbors` (built if None)
+    replicas_per_cta: Optional[int] = None,    # P (sequential_launch)
     replica_offset: int = 0,                   # global index of row 0
     replicas_total: Optional[int] = None,      # the whole ladder's R
     seed: Optional[torch.Tensor] = None,       # int32 [2] (CUDA)
 ) -> SweepResult:
     """T sequential fixed-order heat-bath sweeps (spin 0 .. n_pad - 1, each
     seeing every earlier flip), the function of
-    `run_sweeps(within_block="sequential")`; the CUDA kernel over the
-    one-spin-block layout on CUDA tensors (K1's launch shapes and beta
-    hand-off), that plain version on CPU tensors (which ignores `nbrs`,
-    `threads` and `replicas_per_cta`)."""
+    `run_sweeps(within_block="sequential")`; the CUDA kernel (one instance
+    of `sequential_sweeps_batched`'s launch) on CUDA tensors, that plain
+    version on CPU tensors (which ignores `nbrs` and
+    `replicas_per_cta`)."""
     rows = slice_axis("replicas", replica_offset, m0.shape[0], replicas_total)
     if m0.device.type == "cpu":
         return run_sweeps(J_rows, J_diag, h, m0, phi0, generator, beta_sweep,
@@ -900,20 +1280,103 @@ def sequential_sweeps(
     _require_cuda(m0, "sequential_sweeps")
     device = m0.device
     nB, B, n_pad = J_rows.shape
-    R = m0.shape[0]
     if nB * B != n_pad:
         raise ValueError(f"J_rows {tuple(J_rows.shape)} is not square")
     _check("J_rows", J_rows, (nB, B, n_pad), torch.float32, device)
     if nbrs is None:
         nbrs = sequential_neighbors(J_rows)
-    beta_row, beta_spin = _k1_betas(beta_spin, R, n_pad, device)
-    P, width = _k1_shape(R, n_pad, device, replicas_per_cta, threads)
-    out = _launch_nbr("sequential_sweeps_f32", nbrs, 1, h, m0, phi0,
-                      generator, beta_sweep, beta_row, update_mask, beta_spin,
-                      num_sweeps, uniforms, width, P, record_m=record_m,
-                      replica_offset=replica_offset, seed=seed)
+    if uniforms is not None:
+        uniforms = uniforms[:, None]
+    if seed is not None:
+        _check("seed", seed, (2,), torch.int32, device)
+        seed = seed[None]
+    bs = beta_spin if isinstance(beta_spin, torch.Tensor) else \
+        torch.as_tensor(beta_spin, dtype=torch.float32, device=device)
+    mask = torch.as_tensor(update_mask, device=device)
+    out = _launch_seq(nbrs, J_diag[None], h[None], m0[None], phi0[None],
+                      generator, beta_sweep, bs[None] if bs.ndim else bs,
+                      mask.expand(m0.shape[0], n_pad)[None], num_sweeps,
+                      uniforms, seed, replicas_per_cta, record_m,
+                      replica_offset)
     sequential_sweeps.launches += 1
+    return SweepResult(out.m[0], out.phi[0], out.m_best[0], out.e_best[0],
+                       out.energies[0], None if out.M is None else out.M[0])
+
+
+def sequential_sweeps_batched(
+    J_rows,       # [I, nB, B, n_pad] float32 row blocks, uncoloured layouts
+    J_diag,       # [I, nB, B, B]
+    h,            # [I, n_pad]
+    m0,           # [I, R, n_pad] in {-1, +1}
+    phi0,         # [I, R, n_pad]
+    generator,    # torch.Generator (None with uniforms or seeds)
+    beta_sweep,   # [T] or scalar, shared by the instances
+    beta_spin,    # broadcastable to [I, R, n_pad]
+    update_mask,  # broadcastable to [I, R, n_pad] bool
+    *,
+    num_sweeps: int,
+    record_m: bool = False,                    # also return M [I, T, R, n_pad]
+    uniforms: Optional[torch.Tensor] = None,   # [T, I, R, n_pad] injected draws
+    nbrs=None,                                 # `sequential_neighbors` (built if None)
+    replicas_per_cta: Optional[int] = None,    # P (sequential_launch)
+    seeds: Optional[torch.Tensor] = None,      # int32 [I, 2] (CUDA)
+) -> SweepResult:
+    """`sequential_sweeps` of I same-size instances in one launch, as JAX's
+    `EnsemblePT` runs them under `vmap`: outputs carry the leading I
+    (energies [I, T, R], e_best [I, R]). On CUDA tensors one kernel launch
+    over (replica tiles, instances), instance i drawing from its seed words
+    seeds[i] alone, so that it equals `sequential_sweeps(...,
+    seed=seeds[i])` bit for bit, and a launch over a slice of the instances
+    with their rows of seeds equals the whole launch's rows (seeds drawn
+    from `generator` when not given). On CPU tensors its plain twin:
+    `sequential_sweeps`' CPU path instance after instance (uniforms[:, i],
+    or each instance's T sweeps drawn from the generator in turn)."""
+    I, R, n_pad = m0.shape
+    if m0.device.type == "cpu":
+        if seeds is not None:
+            raise ValueError("seeds= is for CUDA launches; on the CPU pass a "
+                             "generator or uniforms")
+        bs = torch.as_tensor(beta_spin, dtype=m0.dtype)
+        bs = bs.expand(I, R, bs.shape[-1] if bs.ndim else 1)
+        mask = torch.as_tensor(update_mask).expand(I, R, n_pad)
+        res = [sequential_sweeps(
+            J_rows[i], J_diag[i], h[i], m0[i], phi0[i], generator,
+            beta_sweep, bs[i], mask[i], num_sweeps=num_sweeps,
+            record_m=record_m,
+            uniforms=None if uniforms is None else uniforms[:, i])
+            for i in range(I)]
+        return SweepResult(*(None if xs[0] is None else torch.stack(xs)
+                             for xs in zip(*res)))
+    _require_cuda(m0, "sequential_sweeps_batched")
+    device = m0.device
+    _, nB, B, _ = J_rows.shape
+    _check("J_rows", J_rows, (I, nB, B, n_pad), torch.float32, device)
+    if nbrs is None:
+        nbrs = sequential_neighbors(J_rows)
+    out = _launch_seq(nbrs, J_diag, h, m0, phi0, generator, beta_sweep,
+                      beta_spin, update_mask, num_sweeps, uniforms, seeds,
+                      replicas_per_cta, record_m, 0)
+    sequential_sweeps_batched.launches += 1
     return out
+
+
+def sequential_occupancy(n_pad: int, block_size: int, replicas_per_cta: int,
+                         n_buf: int = 1):
+    """(registers per thread, CTAs per SM) of the sequential kernel at
+    `replicas_per_cta` per CTA with its dynamic shared memory at this
+    n_pad, block size (the kernel's, `sequential_block`) and tile buffers,
+    from the CUDA runtime (builds the library)."""
+    lib = load_library(_LIB_SEQ)
+    f = lib.sequential_sweeps_occupancy
+    f.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    f.restype = ctypes.c_int
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    block_size = sequential_block(block_size)
+    _raise_on(f(block_size, replicas_per_cta,
+                _seq_shared_bytes(n_pad, block_size, replicas_per_cta, n_buf),
+                ctypes.byref(regs), ctypes.byref(ctas)),
+              "sequential_sweeps_occupancy")
+    return regs.value, ctas.value
 
 
 def sweep_occupancy(n_pad: int, threads: int, replicas_per_cta: int = 1):
@@ -936,3 +1399,4 @@ colored_sweeps.launches = 0
 colored_sweeps_streamed.launches = 0
 colored_sweeps_sparse.launches = 0
 sequential_sweeps.launches = 0
+sequential_sweeps_batched.launches = 0

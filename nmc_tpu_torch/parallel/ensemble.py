@@ -10,20 +10,23 @@ over the instances, so a round involves no cross-instance work.
 A round per instance: fresh local fields, `sweeps_per_round` sweeps at the
 slot temperatures, Metropolis label swaps on the last sweep's energies and
 the fold of the round's best state into the instance's best. The fields,
-swaps and best fold run batched over instances. The sweeps run per
-instance: on an f32 layout with the sequential sweep (the default) through
-`sequential_sweeps` over the instance's one-spin-block layout (built once
-here), one kernel launch per instance and round on the card; otherwise
-(f64, or within_block="jacobi") the plain `run_sweeps`, a route fixed at
-construction.
+swaps and best fold run batched over instances, and so do the sweeps on
+an f32 layout with the sequential sweep (the default):
+`sequential_sweeps_batched` over the instances' union layout
+(`sequential_neighbors`, built once here), one kernel launch a round on
+the card for every instance, as JAX vmaps them (on a CUDA device a
+layout past `sequential_kernel_limit` raises at construction); otherwise
+(f64, or within_block="jacobi") the plain `run_sweeps` per instance, a
+route fixed at construction.
 
 With a `group=` (a `torch.distributed` process group) the instances are
 sharded over its ranks: rank k holds instances [k I / W, (k + 1) I / W)
 (the largest rank count dividing I; the ranks past it hold none), and a
 round involves no communication. Every rank draws a round's randomness
 for all I instances and keeps its own: the sweeps' seed words in one
-[I, 2] draw on the card, or on the CPU the uniforms instance after
-instance in the unsharded order (`ensemble_nmc.InstanceDraws`), then the
+[I, 2] draw on the card (an instance's draws depend on its seed words
+alone, so a rank's launch draws the whole launch's rows), or on the CPU the uniforms instance after instance in the unsharded order
+(`ensemble_nmc.InstanceDraws`), then the
 swaps' Gumbels and uniforms; so the same seed gives the same trajectory
 at any world size (a sharded round's fields run per instance,
 `core.energy.by_rows`). `best_states` / `best_energies` gather the
@@ -41,8 +44,9 @@ import torch
 from ..core.energy import by_rows, local_fields
 from ..core.problem import IsingProblem, block_problem
 from ..device import resolve_device, resolve_dtype
-from ..ops.sweeps import run_sweeps
-from ..ops.sweeps_cuda import sequential_neighbors, sequential_sweeps
+from ..ops.sweeps import SweepResult, run_sweeps
+from ..ops.sweeps_cuda import (sequential_kernel_limit, sequential_neighbors,
+                               sequential_sweeps_batched)
 from . import distributed
 from .ensemble_nmc import InstanceDraws, RoundDraws
 from .swaps import metropolis_label_swap, swap_draws
@@ -116,8 +120,13 @@ class EnsemblePT:
         self.beta_list = put(self.beta_np)
         self.sweep_kernel = self.sweep_nbrs = None
         if cfg.within_block == "sequential" and dtype == torch.float32:
-            self.sweep_kernel = "sequential_sweeps"
-            self.sweep_nbrs = [sequential_neighbors(J) for J in self.J_rows]
+            self.sweep_kernel = "sequential_sweeps_batched"
+            limit = sequential_kernel_limit(n_pad, cfg.block_size)
+            if limit and dev.type == "cuda":
+                raise ValueError(f"the sequential kernel cannot take this "
+                                 f"layout: {limit}")
+            if self.I and not limit:
+                self.sweep_nbrs = sequential_neighbors(self.J_rows)
 
     def init_state(self, generator: torch.Generator,
                    m0=None) -> EnsembleState:
@@ -150,22 +159,26 @@ class EnsemblePT:
                               device=self.device),
             generator=generator, round_index=0)
 
-    def _sweeps(self, i, m, phi, generator, beta_slot, kw):
-        """Local instance i's sweeps of one round at the slot temperatures,
-        from `generator` or `kw`'s seed words (the kernel) or uniforms."""
+    def _sweeps(self, m, phi, sweep, beta_slot) -> SweepResult:
+        """One round's sweeps of the local instances at the slot
+        temperatures beta_slot [I, R, 1], from `sweep`'s generator, seed
+        words (the kernel) or uniforms; outputs [I, ...]."""
         cfg = self.cfg
         T = cfg.sweeps_per_round
         ones_t = torch.ones((T,), dtype=self.dtype, device=self.device)
+        if self.sweep_kernel is not None:
+            return sequential_sweeps_batched(
+                self.J_rows, self.J_diag, self.h, m, phi, sweep.generator,
+                ones_t, beta_slot, self.active, num_sweeps=T,
+                nbrs=self.sweep_nbrs, **sweep.batched_kw(0))
         act = self.active.expand(self.R, self.n_pad)
-        if self.sweep_kernel == "sequential_sweeps":
-            return sequential_sweeps(
-                self.J_rows[i], self.J_diag[i], self.h[i], m, phi, generator,
-                ones_t, beta_slot, act, num_sweeps=T, nbrs=self.sweep_nbrs[i],
-                **kw)
-        return run_sweeps(
-            self.J_rows[i], self.J_diag[i], self.h[i], m, phi, generator,
-            ones_t, beta_slot, act, num_sweeps=T,
-            within_block=cfg.within_block, uniforms=kw["uniforms"])
+        res = [run_sweeps(
+            self.J_rows[i], self.J_diag[i], self.h[i], m[i], phi[i],
+            sweep.generator, ones_t, beta_slot[i], act, num_sweeps=T,
+            within_block=cfg.within_block, uniforms=sweep.kw(i, 0)["uniforms"])
+            for i in range(self.I)]
+        return SweepResult(*(None if xs[0] is None else torch.stack(xs)
+                             for xs in zip(*res)))
 
     def round(self, state: EnsembleState,
               draws: Optional[RoundDraws] = None) -> EnsembleState:
@@ -182,14 +195,10 @@ class EnsemblePT:
                               d.sweep_uniforms, self.sweep_kernel is not None)
         phi = by_rows(local_fields, self.J_full, self.h[:, None, :], state.m,
                       sharded=self.group is not None)
-        res = [self._sweeps(
-            i, state.m[i], phi[i], sweep.generator, beta_slot[i][:, None],
-            sweep.kw(i, 0)) for i in range(self.I)]
+        res = self._sweeps(state.m, phi, sweep, beta_slot[..., None])
         sweep.finish()
-        m = torch.stack([r.m for r in res])
-        e_slot = torch.stack([r.energies[-1] for r in res])     # [I, R]
-        e_best = torch.stack([r.e_best for r in res])           # [I, R]
-        m_best = torch.stack([r.m_best for r in res])           # [I, R, n_pad]
+        m, e_best, m_best = res.m, res.e_best, res.m_best        # [I, R, ...]
+        e_slot = res.energies[:, -1]                             # [I, R]
         npairs = self.cfg.num_swapping_pairs
         if d.gumbels is None:
             g, su = swap_draws(state.generator, self.I_total, npairs, self.R,

@@ -501,6 +501,15 @@ class InstanceDraws:
                       else self.uniforms[p, :, i].contiguous()),
             seed=None if self.seeds is None else self.seeds[i, p])
 
+    def batched_kw(self, p):
+        """A batched sweep call's randomness for the local instances, phase
+        p: uniforms [T, I, rows, n_pad] or seed words [I, 2] (or neither:
+        the generator)."""
+        return dict(
+            uniforms=(None if self.uniforms is None
+                      else self.uniforms[p].contiguous()),
+            seeds=None if self.seeds is None else self.seeds[:, p].contiguous())
+
     def finish(self):
         if self._skip is not None:
             self._drop(self._skip[-1])

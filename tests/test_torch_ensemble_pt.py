@@ -8,8 +8,8 @@ fold_in(fold_in(key, round), i), split into the sweep key, whose uniforms
 acceptance uniforms are rebuilt here). In f64 (the plain route) the
 states, label maps and best states are equal after the rounds and the
 best energies within 1e-10. In f32 the port takes the sequential route
-(its plain twin on the CPU), one wrapper call per instance and round. The
-JAX engine runs on a one-device mesh.
+(its plain twin on the CPU), one batched wrapper call a round for every
+instance. The JAX engine runs on a one-device mesh.
 """
 
 import jax
@@ -102,22 +102,25 @@ def test_ensemble_pt_matches_jax_f64(rounds, pairs):
 
 
 def test_f32_takes_the_sequential_route(monkeypatch):
+    """f32 rounds go through the batched sequential wrapper, one call a
+    round over every instance with the ensemble's union layout (one
+    kernel launch a round on the card)."""
     calls = []
-    inner = tens.sequential_sweeps
+    inner = tens.sequential_sweeps_batched
 
     def counting(*a, **k):
-        calls.append(k["nbrs"])
+        calls.append((k["nbrs"], a[3].shape[0]))
         return inner(*a, **k)
-    monkeypatch.setattr(tens, "sequential_sweeps", counting)
+    monkeypatch.setattr(tens, "sequential_sweeps_batched", counting)
     probs = [IsingProblem(p.J, p.h) for p in _problems()]
     ens = EnsemblePT(probs, BETA, EnsembleConfig(
         num_replicas=len(BETA), sweeps_per_round=4, num_swapping_pairs=2,
         block_size=8), device="cpu")
-    assert ens.sweep_kernel == "sequential_sweeps"
-    assert len(ens.sweep_nbrs) == I
+    assert ens.sweep_kernel == "sequential_sweeps_batched"
+    assert ens.sweep_nbrs.w.shape[0] == I and ens.sweep_nbrs.block_size == 8
     st = ens.run(ens.init_state(torch.Generator().manual_seed(3)), 2)
-    assert len(calls) == 2 * I
-    assert all(c is ens.sweep_nbrs[k % I] for k, c in enumerate(calls))
+    assert len(calls) == 2
+    assert all(c[0] is ens.sweep_nbrs and c[1] == I for c in calls)
     for i, p in enumerate(probs):
         assert abs(p.energy(ens.best_states(st)[i])
                    - ens.best_energies(st)[i]) < 1e-4
@@ -127,7 +130,7 @@ def test_f32_takes_the_sequential_route(monkeypatch):
         device="cpu")
     assert jac.sweep_kernel is None
     jac.run(jac.init_state(torch.Generator().manual_seed(3)), 1)
-    assert len(calls) == 2 * I
+    assert len(calls) == 2
 
 
 def test_m0_seeds_the_coldest_slots_like_jax():

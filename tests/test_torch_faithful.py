@@ -6,8 +6,9 @@ array JAX's returns, element for element (random scan, fixed scan with
 injected uniforms, anneal ramps, the LRU hash-table path). The port's
 engine fed the same uniforms runs the host kernel's fixed-order chain
 (states equal; energies within 1e-12 in f64, 1e-4 in f32), through the
-engine at one spin per block and through the plain sweeps over the
-sequential route's one-spin layout (the kernel's function)."""
+engine at one spin per block and through the plain sweeps with the
+sequential kernel's association over its layout (the kernel's
+function)."""
 
 import numpy as np
 import pytest
@@ -93,8 +94,8 @@ def test_engine_matches_host_kernel_fixed_order(dtype):
 
 
 def test_layout_twin_matches_host_kernel():
-    """The plain sweeps over the sequential route's one-spin layout (the
-    kernel's steps and association) visit the host kernel's states."""
+    """The plain sweeps with the sequential kernel's association over its
+    layout visit the host kernel's states."""
     rng = np.random.default_rng(8)
     n, T, beta = 20, 10, 0.9
     J, h = random_sk(rng, n)
@@ -104,13 +105,14 @@ def test_layout_twin_matches_host_kernel():
     m0 = np.sign(rng.normal(size=n))
     mb = eng.to_blocked(torch.as_tensor(m0[None]))
     u = rng.random((T, n))
-    res = sc.neighbor_sweeps_reference(
-        nbrs, eng.h, mb, eng.fields(mb), None,
-        torch.full((T,), beta, dtype=torch.float64),
-        torch.ones(1, dtype=torch.float64), eng.active[None], num_sweeps=T,
-        record_m=True, uniforms=eng.to_blocked(torch.as_tensor(u[:, None])))
+    res = sc.sequential_sweeps_reference(
+        nbrs, eng.J_diag[None], eng.h[None], mb[None], eng.fields(mb)[None],
+        None, torch.full((T,), beta, dtype=torch.float64),
+        torch.ones((1, 1), dtype=torch.float64), eng.active[None, None],
+        num_sweeps=T, record_m=True,
+        uniforms=eng.to_blocked(torch.as_tensor(u[:, None]))[:, None])
     # the blocked layout permutes nothing here: spin i sits at column i
     M_host = mcmc_sequential(T, m0, beta, prob.J, prob.h, uniforms=u,
                              scan_order="fixed")
-    np.testing.assert_array_equal(eng.from_blocked(res.M)[:, 0].numpy(),
+    np.testing.assert_array_equal(eng.from_blocked(res.M[0])[:, 0].numpy(),
                                   M_host.T)

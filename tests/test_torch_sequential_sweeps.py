@@ -1,14 +1,16 @@
 """The sequential route's layout and plain twin, on the CPU.
 
-`sequential_sweeps` runs the sweep body (csrc/colored_sweeps_nbr.cu) over
-an uncoloured J cut into blocks of ONE spin (`sequential_neighbors`): each
-step is a maximal run of consecutive mutually uncoupled spins, so drawing
-a step at once is the fixed-order spin-by-spin sweep. Here, with inputs
-made from seeds with numpy:
-  * the steps are independent and maximal, and the pair rule
-    (`_pair_steps`) is the dense rule of `sweep_steps`;
-  * the plain sweeps over that layout (`neighbor_sweeps_reference`, the
-    kernel's steps and association) equal `run_sweeps(within_block=
+`sequential_sweeps` runs JAX's blocked sequential sweep in its own kernel
+(csrc/sequential_sweeps.cu): per row block an in-block chain through the
+diagonal tile J_diag, then one phi update over the block's couplings
+(`sequential_neighbors`, the union layout over blocks of B). Here, with
+inputs made from seeds with numpy:
+  * the pair rule (`_pair_steps`) is the dense rule of `sweep_steps`
+    (the colored layouts' steps);
+  * the layout holds every coupling of J once, by row block, sources
+    ascending per target;
+  * the plain sweeps with the kernel's association
+    (`sequential_sweeps_reference`) equal `run_sweeps(within_block=
     "sequential")` bit for bit on +-1 couplings (f32: m, phi, energies,
     M), with the same states on Gaussian couplings (phi to 1e-4 in f32),
     and JAX's sequential sweep with JAX's uniforms in f64 (to 1e-10);
@@ -17,7 +19,9 @@ made from seeds with numpy:
     layouts (recorded or not), and the plain sweeps for f64, random order
     and uncoloured Jacobi; recorded colored runs go through K1-K3's twins.
 The kernel itself runs only on a card (chip_smoke.py's sequential_kernel
-phase holds it against these plain sweeps).
+phase holds it against these plain sweeps; tests/test_torch_sequential_kernel.py
+has the twin against JAX under masks, heating and per-replica beta, and
+the batched wrapper).
 """
 
 import jax
@@ -83,21 +87,58 @@ def test_pair_steps_is_the_dense_rule(seed):
 
 
 @pytest.mark.parametrize("name", sorted(FAMILIES))
-def test_one_spin_layout_steps_are_independent_and_maximal(name):
+def test_sequential_layout_holds_every_coupling_by_block(name):
+    """The engine's layout is J's couplings by row block of B, rank by
+    rank: per block b, each target j with its sources k in the block in
+    ascending order (offsets k - b B) and weight J[k, j], then zero-weight
+    padding; a dense block (SK) holds rank d = offset d for every target,
+    weight J[b B + d, j] (zero included). Every nonzero of J once."""
     eng, _ = _engine(name)
     nbrs = eng.sweep_nbrs
     assert eng.sweep_kernel == "sequential_sweeps"
-    assert nbrs.block_size == 1 and nbrs.n_pad == eng.n_pad
-    assert sc.steps_are_independent(nbrs)
-    J = eng.J_full.numpy() != 0
-    bounds = nbrs.step_ptr.tolist()
-    assert bounds[0] == 0 and bounds[-1] == eng.n_pad
-    for s0, s1 in zip(bounds[1:-1], bounds[2:]):
-        # a step opens only where its first spin couples to the open step
-        prev = bounds[bounds.index(s0) - 1]
-        assert J[s0, prev:s0].any()
-    if name.startswith("sk"):          # dense: one live spin per step
-        assert len(bounds) - 1 == eng.n
+    B, n_pad = eng.blocked.block_size, eng.n_pad
+    assert nbrs.block_size == B and nbrs.w.shape[0] == 1
+    J = eng.J_full
+    seen = torch.zeros_like(J)
+    tgt_ptr, ell_ptr = nbrs.tgt_ptr.tolist(), nbrs.ell_ptr.tolist()
+    assert len(tgt_ptr) == len(ell_ptr) == n_pad // B + 1
+    for b in range(n_pad // B):
+        nt = tgt_ptr[b + 1] - tgt_ptr[b]
+        D = (ell_ptr[b + 1] - ell_ptr[b]) // max(nt, 1)
+        assert D * nt == ell_ptr[b + 1] - ell_ptr[b]
+        src = nbrs.src[ell_ptr[b]:ell_ptr[b + 1]].long().reshape(D, nt)
+        w = nbrs.w[0, ell_ptr[b]:ell_ptr[b + 1]].reshape(D, nt)
+        tgt = nbrs.tgt[tgt_ptr[b]:tgt_ptr[b + 1]].long()
+        if nbrs.dense[b]:
+            assert torch.equal(src, torch.arange(D)[:, None].expand(D, nt))
+            assert torch.equal(w, J[b * B:b * B + D][:, tgt])
+            assert int((J[b * B + D:(b + 1) * B] != 0).sum()) == 0
+            seen[b * B:b * B + D][:, tgt] += (w != 0).to(seen.dtype)
+            continue
+        for i in range(nt):
+            live = w[:, i] != 0
+            count = int(live.sum())
+            assert bool(live[:count].all()) and not bool(live[count:].any())
+            k = src[:count, i]
+            assert bool((k[1:] > k[:-1]).all()) and bool((k < B).all())
+            assert bool((src[count:, i] == 0).all())
+            assert torch.equal(w[:count, i], J[b * B + k, tgt[i]])
+            seen[b * B + k, tgt[i]] += 1
+    assert torch.equal(seen, (J != 0).to(seen.dtype))
+    dense = name.startswith("sk")
+    assert bool(nbrs.dense.bool().all()) == dense
+
+
+def _twin(eng, m0, phi0, beta, mask, T, u, beta_row=None, beta_spin=None):
+    """`sequential_sweeps_reference` of one instance, outputs without the
+    instance axis."""
+    R = m0.shape[0]
+    res = sc.sequential_sweeps_reference(
+        eng.sweep_nbrs, eng.J_diag[None], eng.h[None], m0[None], phi0[None],
+        None, beta, torch.ones(1, R) if beta_row is None else beta_row[None],
+        mask[None], None if beta_spin is None else beta_spin[None],
+        num_sweeps=T, uniforms=u[:, None], record_m=True)
+    return type(res)(*(x[0] for x in res))
 
 
 def _case(eng, R, T, seed):
@@ -112,9 +153,10 @@ def _case(eng, R, T, seed):
 
 @pytest.mark.parametrize("name", sorted(FAMILIES))
 def test_layout_twin_is_the_sequential_sweep(name):
-    """The plain sweeps over the one-spin layout (the kernel's function)
-    equal run_sweeps' sequential sweep draw for draw: bit for bit on +-1
-    couplings, the same states (phi within 1e-4, f32) on Gaussian ones."""
+    """The plain sweeps with the kernel's association over its layout (the
+    kernel's function) equal run_sweeps' sequential sweep draw for draw:
+    bit for bit on +-1 couplings, the same states (phi within 1e-4, f32)
+    on Gaussian ones."""
     eng, pm = _engine(name)
     R, T = 6, 5
     m0, phi0, u, beta = _case(eng, R, T, 7)
@@ -122,9 +164,7 @@ def test_layout_twin_is_the_sequential_sweep(name):
     seq = run_sweeps(eng.J_rows, eng.J_diag, eng.h, m0, phi0, None, beta,
                      torch.ones(()), mask, num_sweeps=T,
                      within_block="sequential", uniforms=u, record_m=True)
-    nbr = sc.neighbor_sweeps_reference(
-        eng.sweep_nbrs, eng.h, m0, phi0, None, beta, torch.ones(R), mask,
-        num_sweeps=T, uniforms=u, record_m=True)
+    nbr = _twin(eng, m0, phi0, beta, mask, T, u)
     assert torch.equal(seq.m, nbr.m) and torch.equal(seq.M, nbr.M)
     assert torch.equal(seq.m_best, nbr.m_best)
     assert torch.equal(nbr.M[-1], nbr.m)
@@ -141,8 +181,8 @@ def test_layout_twin_is_the_sequential_sweep(name):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_layout_twin_matches_jax_sequential_f64(seed):
     """f64, Gaussian SK with fields, JAX's uniforms injected: the plain
-    sweeps over the one-spin layout follow JAX's sequential sweep (states
-    equal, phi and energies within 1e-10)."""
+    sweeps with the kernel's association follow JAX's sequential sweep
+    (states equal, phi and energies within 1e-10)."""
     prob = j_random_sk(24, seed=seed, h_scale=0.4)
     b = j_block_problem(prob, block_size=8, dtype=np.float64)
     R, T = 4, 6
@@ -158,16 +198,18 @@ def test_layout_twin_matches_jax_sequential_f64(seed):
                       key, jnp.asarray(beta), 1.0, jnp.asarray(mask),
                       num_sweeps=T, within_block="sequential", record_m=True)
     nbrs = sc.sequential_neighbors(t64(b.J_rows))
-    tr = sc.neighbor_sweeps_reference(
-        nbrs, t64(b.h), t64(m0), t64(phi0), None, t64(beta),
-        torch.ones(R, dtype=torch.float64), torch.as_tensor(mask),
+    tr = sc.sequential_sweeps_reference(
+        nbrs, t64(b.J_diag)[None], t64(b.h)[None], t64(m0)[None],
+        t64(phi0)[None], None, t64(beta),
+        torch.ones((1, R), dtype=torch.float64), torch.as_tensor(mask)[None],
         num_sweeps=T, record_m=True,
-        uniforms=torch.as_tensor(jax_sweep_uniforms(key, T, R, b.n_pad)))
-    np.testing.assert_array_equal(tr.m.numpy(), np.asarray(jr.m))
-    np.testing.assert_array_equal(tr.M.numpy(), np.asarray(jr.M))
-    np.testing.assert_allclose(tr.phi.numpy(), np.asarray(jr.phi), atol=1e-10)
-    np.testing.assert_allclose(tr.energies.numpy(), np.asarray(jr.energies),
+        uniforms=torch.as_tensor(jax_sweep_uniforms(key, T, R, b.n_pad))[:, None])
+    np.testing.assert_array_equal(tr.m[0].numpy(), np.asarray(jr.m))
+    np.testing.assert_array_equal(tr.M[0].numpy(), np.asarray(jr.M))
+    np.testing.assert_allclose(tr.phi[0].numpy(), np.asarray(jr.phi),
                                atol=1e-10)
+    np.testing.assert_allclose(tr.energies[0].numpy(),
+                               np.asarray(jr.energies), atol=1e-10)
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_uncounted():
@@ -179,7 +221,7 @@ def test_wrapper_on_cpu_runs_the_plain_version_uncounted():
     a = sc.sequential_sweeps(eng.J_rows, eng.J_diag, eng.h, m0, phi0,
                              torch.Generator().manual_seed(5), beta,
                              torch.ones(()), mask, num_sweeps=T,
-                             record_m=True, nbrs=eng.sweep_nbrs, threads=128,
+                             record_m=True, nbrs=eng.sweep_nbrs,
                              replicas_per_cta=8)
     r = run_sweeps(eng.J_rows, eng.J_diag, eng.h, m0, phi0,
                    torch.Generator().manual_seed(5), beta, torch.ones(()),
@@ -195,15 +237,18 @@ def test_wrapper_on_cpu_runs_the_plain_version_uncounted():
 
 
 def test_ctypes_signature_has_the_record_pointer():
-    """Every entry point takes 21 pointers (M the last) and its ints."""
-    src = (t_engine.__file__.rsplit("/ops/", 1)[0]
-           + "/csrc/colored_sweeps_nbr.cu")
-    text = open(src).read()
-    for fn, kinds in sc._SIGNATURES.items():
-        body = text[text.index(f"int {fn}("):]
-        params = body[body.index("(") + 1:body.index(")")].split(",")
-        assert len(params) == len(kinds) + 1, fn   # + the stream
-        assert "float* M" in params[len(kinds) - kinds.count("i") - 1], fn
+    """Every entry point of the colored body and of the sequential kernel
+    takes 21 pointers (M the last) and its ints, as its ctypes signature
+    says."""
+    csrc = t_engine.__file__.rsplit("/ops/", 1)[0] + "/csrc/"
+    for lib, sigs in (("colored_sweeps_nbr", sc._SIGNATURES),
+                      ("sequential_sweeps", sc._SEQ_SIGNATURES)):
+        text = open(csrc + lib + ".cu").read()
+        for fn, kinds in sigs.items():
+            body = text[text.index(f"int {fn}("):]
+            params = body[body.index("(") + 1:body.index(")")].split(",")
+            assert len(params) == len(kinds) + 1, fn   # + the stream
+            assert "float* M" in params[len(kinds) - kinds.count("i") - 1], fn
 
 
 @pytest.mark.parametrize("record", [False, True])

@@ -14,7 +14,7 @@ inputs made from seeds with numpy:
     sweeps with JAX's uniforms injected (to 1e-10, Gaussian couplings too);
   * `SweepEngine` builds the layout once for every colored layout (K1's
     too) and passes it to every launch; an uncoloured f32 one gets the
-    sequential route's one-spin-block layout instead, an f64 one none;
+    sequential kernel's block layout instead, an f64 one none;
     the int16 limit raises; the CTA width rule is a function of (R, SMs).
 The kernel itself runs only on a card (chip_smoke.py holds it against
 these plain sweeps).
@@ -406,8 +406,7 @@ def test_engine_builds_k1_layout_once_and_none_uncoloured(name, monkeypatch):
         want = sc.sequential_neighbors(eng.J_rows)
         for x, y in zip(eng.sweep_nbrs, want):
             assert x == y if isinstance(x, int) else torch.equal(x, y)
-        assert eng.sweep_nbrs.block_size == 1
-        assert sc.steps_are_independent(eng.sweep_nbrs)
+        assert eng.sweep_nbrs.block_size == eng.blocked.block_size
         assert built == [] and seen == []
         eng64 = SweepEngine(prob, dtype=torch.float64, device="cpu")
         assert eng64.sweep_kernel is None and eng64.sweep_nbrs is None
