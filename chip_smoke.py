@@ -334,6 +334,14 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def _per_round(timings):
+    """A flushed `timings` dict of an engine's rounds (its stage seconds
+    and counters) over its own "rounds"; per-round lists left out."""
+    n = timings["rounds"]
+    return {k: v / n for k, v in timings.items()
+            if k != "rounds" and not isinstance(v, list)}
+
+
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
@@ -1375,6 +1383,7 @@ def _ensemble_main_path(size, rounds, chunks, kernel):
             state, per_chunk, timings=timings if c == chunks - 1 else None)
         eb, mb = ens.best(state)
         chunk_seconds.append(time.perf_counter() - t0)
+    ens.flush()
     launches = read_counts()
     check(launches[kernel] == rounds,
           f"{kernel} launched {launches[kernel]} times for {rounds} rounds")
@@ -1398,8 +1407,7 @@ def _ensemble_main_path(size, rounds, chunks, kernel):
         "launches": launches[kernel], "setup_seconds": setup,
         "chunk_seconds": chunk_seconds,
         "seconds_per_round": sum(chunk_seconds) / rounds,
-        "last_chunk_split_seconds_per_round": {
-            k: v / per_chunk for k, v in timings.items()},
+        "last_chunk_split_seconds_per_round": _per_round(timings),
         "best_energy_mean": float(eb.mean()),
         "bests_vs_f64_max_abs_err": best_err,
         "labels_moved": moved,
@@ -1612,6 +1620,7 @@ def _icm_main_path(size, rounds, chunks, kernel, hybrid_cold=0):
             houdayer_stats=stats)
         eb, mb = ens.best(state)
         chunk_seconds.append(time.perf_counter() - t0)
+    ens.flush()
     launches = read_counts()
     check(launches[kernel] == rounds,
           f"{kernel} launched {launches[kernel]} times for {rounds} rounds")
@@ -1637,8 +1646,7 @@ def _icm_main_path(size, rounds, chunks, kernel, hybrid_cold=0):
         "houdayer": ens.houdayer, "launches": launches[kernel],
         "setup_seconds": setup, "chunk_seconds": chunk_seconds,
         "seconds_per_round": sum(chunk_seconds) / rounds,
-        "last_chunk_split_seconds_per_round": {
-            k: v / per_chunk for k, v in timings.items()},
+        "last_chunk_split_seconds_per_round": _per_round(timings),
         "fixpoint": stats,
         "best_energy_mean": float(eb.mean()),
         "bests_vs_f64_max_abs_err": best_err,
@@ -2582,7 +2590,8 @@ def phase_solve_chimera2048():
         ens.init_state(torch.Generator(device=DEVICE).manual_seed(0)), 2)
     timings = {}
     state = ens.run_scanned(state, 4, timings=timings)
-    one = {"split_seconds_per_round": {k: v / 4 for k, v in timings.items()},
+    ens.flush()
+    one = {"split_seconds_per_round": _per_round(timings),
            "k5_alone": _icm_kernel_ms(torch, ens, state)}
     emit({"phase": "solve_chimera2048", "N": prob.n,
           "reduced": {"sweeps": [200000, 11520], "dm_starts": [2048, 0]},
@@ -3800,7 +3809,8 @@ def phase_ensemble_pt():
     64 replicas (J 0.42 GB in f32), a geometric ladder from 0.1 to 3, 32
     sweeps a round through the batched sequential route (one launch a
     round for every instance), one round to warm up and then 2 timed;
-    seconds per round, launches, and each best energy against the f64
+    seconds per round, launches, 2 more rounds with a `timings` dict for
+    their fields / round / swaps split, and each best energy against the f64
     energy of its best state; then one round's launch alone (CUDA events,
     its Philox draws) beside its bound, and the same launch on injected
     uniforms held bit for bit against its plain twin
@@ -3835,6 +3845,14 @@ def phase_ensemble_pt():
           and all(v == 0 for k, v in launches.items()
                   if k != "sequential_sweeps_batched"),
           f"EnsemblePT launches {launches}")
+    # the same rounds again with a `timings` dict: their stage split
+    timings = {}
+    for _ in range(rounds):
+        state = ens.round(state, timings=timings)
+    ens.flush()
+    check(set(timings) == {"fields", "round", "swaps", "rounds", "host_s",
+                           "host_syncs"} and timings["rounds"] == rounds,
+          f"EnsemblePT timings {timings}")
     best_m, best_e = ens.best_states(state), ens.best_energies(state)
     check(best_m.shape == (SK_INSTANCES, SK_N) and np.isfinite(best_e).all()
           and np.isin(best_m, [-1.0, 1.0]).all(), "EnsemblePT bests")
@@ -3884,6 +3902,7 @@ def phase_ensemble_pt():
           "n_pad": ens.n_pad, "replicas": SK_REPLICAS,
           "sweeps_per_round": T, "setup_seconds": setup,
           "warmup_round_seconds": warm, "seconds_per_round": per_round,
+          "split_seconds_per_round": _per_round(timings),
           "launches": launches["sequential_sweeps_batched"],
           "launch_ms": launch_ms, "launch_plain_twin_ms": plain_ms,
           "twin_bit_equal": True, "twin_max_abs_err": twin_err,
@@ -4102,6 +4121,7 @@ def _sharded_cli(tag, argv, prob, seen, rounds):
     energy of the engine's best state and returns (record, launches,
     seconds)."""
     rc_, rec, seconds, counts, _ = _cli(argv)
+    seen["npt"].flush()
     check(rc_ in (None, 0) and rec is not None and set(rec) ==
           JAX_SHARDED_KEYS, f"sharded {tag}: record {rec}")
     check(rec["rounds"] == rounds and rec["processes"] == 1
@@ -4124,8 +4144,9 @@ def phase_sharded_npt(card):
     launch a round over 1 x 32 slots), and SK-1000 uncoloured with
     --nmc-coldest 2 through sequential_sweeps (9 phases a round). Each
     record against the f64 energy of the best state, the launches, the
-    seconds per round split into lbp / round / swaps, and one K5 launch
-    at that shape alone (CUDA events) beside its bound."""
+    seconds per round split into lbp / round / swaps (on chimera through
+    `--metrics`, whose one `round_spans` record is checked), and one K5
+    launch at that shape alone (CUDA events) beside its bound."""
     import tempfile
     import torch
     import torch.distributed as dist
@@ -4144,9 +4165,12 @@ def phase_sharded_npt(card):
     seen = {}
     orig = sharded_pt.ShardedNPT.run_scanned
 
-    def recording(self, state, num_rounds, **kw):
-        st, met = orig(self, state, num_rounds,
-                       timings=seen.setdefault("timings", {}), **kw)
+    def recording(self, state, num_rounds, timings=None, **kw):
+        # the CLI's own dict under --metrics, else one of the phase's
+        if timings is None:
+            timings = seen.setdefault("timings", {})
+        seen["timings"] = timings
+        st, met = orig(self, state, num_rounds, timings=timings, **kw)
         seen.update(npt=self, state=st)
         return st, met
 
@@ -4160,11 +4184,18 @@ def phase_sharded_npt(card):
             path = f"{tmp}/chimera16.txt"
             _write_chimera(path, c16)
             n = SHARDED_ROUNDS_C2048
+            spans_path = f"{tmp}/spans.jsonl"
             rec, counts, secs, e32, e64 = _sharded_cli(
                 "chimera16x16", ["sharded", "--instance", path, "--format",
                                  "chimera", "--coloring", "--nmc-coldest",
                                  "4", "--rounds", str(n), "--chunk-rounds",
-                                 str(n)], c16.normalized()[0], seen, n)
+                                 str(n), "--metrics", spans_path],
+                c16.normalized()[0], seen, n)
+            with open(spans_path) as f:
+                logged = [json.loads(ln) for ln in f]
+            check(len(logged) == 1 and logged[0]["kind"] == "round_spans"
+                  and logged[0]["rank"] == 0 and logged[0]["rounds"] == n,
+                  f"chimera16x16: --metrics record {logged}")
             npt, state = seen["npt"], seen["state"]
             check(npt.round_path == "K5" and npt.R_local == 32
                   and counts["ensemble_round_sparse"] == n
@@ -4174,8 +4205,8 @@ def phase_sharded_npt(card):
             out["chimera16x16"] = {
                 "record": rec, "best_f32": e32, "best_f64": e64,
                 "launches": counts, "seconds": secs,
-                "seconds_per_round": {k: v / n for k, v in
-                                      seen.pop("timings").items()},
+                "round_spans_record": logged[0],
+                "seconds_per_round": _per_round(seen.pop("timings")),
                 "k5_alone": k5}
             launches["ensemble_round_sparse"] = n
             sk = random_sk(SK_N, seed=0)
@@ -4194,8 +4225,7 @@ def phase_sharded_npt(card):
             out["sk1000"] = {
                 "record": rec, "best_f32": e32, "best_f64": e64,
                 "launches": counts, "seconds": secs,
-                "seconds_per_round": {k: v / n for k, v in
-                                      seen.pop("timings").items()}}
+                "seconds_per_round": _per_round(seen.pop("timings"))}
             launches["sequential_sweeps"] = 9 * n
     finally:
         sharded_pt.ShardedNPT.run_scanned = orig

@@ -190,7 +190,9 @@ def cmd_icm(args):
 def cmd_sharded(args):
     """Replica-sharded NPT over the process group (one card, or several
     cards or hosts through torchrun or the NMC_TPU_* launch variables,
-    parallel/distributed.py); rank 0 prints the record."""
+    parallel/distributed.py); rank 0 prints the record. With `--metrics`
+    every rank logs one `round_spans` record a chunk: its rank, the chunk's
+    stage seconds and counters (`ShardedNPT.round`'s `timings`)."""
     import torch
 
     from .parallel import distributed
@@ -213,12 +215,16 @@ def cmd_sharded(args):
                      group=distributed.global_group(), device=device)
     state = npt.init_state(
         torch.Generator(device=device).manual_seed(args.seed))
+    log = _metrics(args) if args.metrics else None
     rounds_done = 0
     while rounds_done < args.rounds:
         k = min(args.chunk_rounds, args.rounds - rounds_done)
-        state, metrics = npt.run_scanned(state, k)
+        timings = None if log is None else {}
+        state, metrics = npt.run_scanned(state, k, timings=timings)
         rounds_done += k
         e_best, m_best = npt.best(state)
+        if log is not None:
+            log.log("round_spans", rank=distributed.rank(), **timings)
         if args.target_energy is not None and \
                 float(prob.energy(m_best)) <= args.target_energy:
             break

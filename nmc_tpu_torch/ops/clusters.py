@@ -49,6 +49,7 @@ from scipy.sparse import csr_matrix
 from scipy.sparse.csgraph import connected_components
 
 from ..native import CSRAdjacency, connected_components_masked
+from ..utils.metrics import host_sync
 
 def find_clusters(
     J: np.ndarray,
@@ -237,12 +238,12 @@ def _label_fixpoint(propagate, labels0, diff, max_iters: int, *,
             last = torch.where(changed, it, last)
             labels = new
             it += 1
-        if not bool(changed):
+        if not host_sync(bool, changed):
             break
     if stats is not None:
         stats["steps"] = max(stats.get("steps", 0), it)
         stats["iterations"] = max(stats.get("iterations", 0),
-                                  min(int(last) + 2, max_iters))
+                                  min(host_sync(int, last) + 2, max_iters))
     return labels
 
 

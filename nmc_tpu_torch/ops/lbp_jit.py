@@ -22,7 +22,9 @@ tanh saturates to 1.0 and cannot discriminate the reference's thresholds
 through atanh instead).
 
 The convergence test reads one flag per chain on the host per iteration,
-so a solve costs one host sync per iteration for the whole batch.
+so a solve costs one host sync per iteration for the whole batch. Inside
+an engine round that records (`utils.metrics.RoundSpans`) each ladder
+counts one "lbp_refreshes" and each iteration one "lbp_iterations".
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Callable, Sequence, Tuple
 
 import torch
 
+from ..utils.metrics import count, host_sync
 from .lbp import atanh_saturated
 from .lbp_sparse import EdgeGraph, _in_sum
 
@@ -41,14 +44,16 @@ def iterate_per_chain(step: Callable, carry: Tuple[torch.Tensor, ...],
                       max_iterations: int):
     """Run `step(carry) -> (new_carry, converged [C])` until every chain has
     converged or `max_iterations` steps ran; a converged chain's carry is
-    frozen. Returns (carry, converged [C])."""
+    frozen. Returns (carry, converged [C]). Each step counts one
+    "lbp_iterations" in a recording round."""
     C = carry[0].shape[0]
     conv = torch.zeros(C, dtype=torch.bool, device=carry[0].device)
     for _ in range(max_iterations):
         live = ~conv
-        if not bool(live.any()):
+        if not host_sync(bool, live.any()):
             break
         new, c = step(carry)
+        count("lbp_iterations")
         carry = tuple(torch.where(live.reshape((C,) + (1,) * (x.ndim - 1)),
                                   y, x) for x, y in zip(carry, new))
         conv = conv | (live & c)
@@ -63,7 +68,8 @@ def _rel_change(new, old, dims):
 def _ladder(solve, h, epsilon, m_star, ladder, init):
     """The lambda ladder: `solve(h_lambda, messages) -> (logits, messages,
     converged)`; the marginal is replaced where a rung converged or none
-    has yet."""
+    has yet. One ladder counts one "lbp_refreshes"."""
+    count("lbp_refreshes")
     marginal = torch.zeros_like(h)
     have_prev = torch.zeros(h.shape[0], dtype=torch.bool, device=h.device)
     msgs = init
@@ -90,7 +96,7 @@ def convexified_marginal_dense(
     messages (h_msgs[i, j], u_msgs[i, j] per chain)."""
     dtype, device = h.dtype, h.device
     n = h.shape[-1]
-    beta = torch.as_tensor(beta, dtype=dtype, device=device)
+    beta = host_sync(torch.as_tensor, beta, dtype=dtype, device=device)
     J_full = J_full.to(dtype)
     tanh_bJ = torch.tanh(beta * J_full)
     off_diag = 1.0 - torch.eye(n, dtype=dtype, device=device)
@@ -133,7 +139,7 @@ def convexified_marginal_sparse(
     zero messages."""
     dtype, device = h.dtype, h.device
     g = graph.tensors(device, dtype)
-    beta = torch.as_tensor(beta, dtype=dtype, device=device)
+    beta = host_sync(torch.as_tensor, beta, dtype=dtype, device=device)
     w_e = w_e.to(dtype)
     tanh_bw = torch.tanh(beta * w_e)
 

@@ -26,6 +26,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..utils.metrics import host_sync
 from .lbp import atanh_saturated
 from .lbp_jit import _ladder, _rel_change, iterate_per_chain
 
@@ -135,8 +136,8 @@ def slot_gather_index(esp: EdgeSlotPlanes, device):
     dummy = esp.nbr < 0
     src = np.where(dummy, n, esp.nbr)
     rev = np.where(dummy, n * D, esp.nbr * D + esp.rev_slot)
-    return (torch.as_tensor(src, dtype=torch.int64, device=device),
-            torch.as_tensor(rev, dtype=torch.int64, device=device))
+    return (host_sync(torch.as_tensor, src, dtype=torch.int64, device=device),
+            host_sync(torch.as_tensor, rev, dtype=torch.int64, device=device))
 
 
 def convexified_marginal_planes(
@@ -158,7 +159,7 @@ def convexified_marginal_planes(
     C, n = h.shape
     D = esp.degree
     src, rev = slot_gather_index(esp, device)
-    beta = torch.as_tensor(beta, dtype=dtype, device=device)
+    beta = host_sync(torch.as_tensor, beta, dtype=dtype, device=device)
     w = w_slot.to(dtype)
     tanh_bw = torch.tanh(beta * w)
     zero = torch.zeros((C, 1), dtype=dtype, device=device)

@@ -36,7 +36,7 @@ instances on every rank. Without a group the instance count is never cut.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,6 +47,7 @@ from ..device import resolve_device, resolve_dtype
 from ..ops.sweeps import SweepResult, run_sweeps
 from ..ops.sweeps_cuda import (sequential_kernel_limit, sequential_neighbors,
                                sequential_sweeps_batched)
+from ..utils.metrics import RoundSpans
 from . import distributed
 from .ensemble_nmc import InstanceDraws, RoundDraws
 from .swaps import metropolis_label_swap, swap_draws
@@ -127,6 +128,7 @@ class EnsemblePT:
                                  f"layout: {limit}")
             if self.I and not limit:
                 self.sweep_nbrs = sequential_neighbors(self.J_rows)
+        self._spans = RoundSpans("EnsemblePT", dev)
 
     def init_state(self, generator: torch.Generator,
                    m0=None) -> EnsembleState:
@@ -181,44 +183,57 @@ class EnsemblePT:
                              for xs in zip(*res)))
 
     def round(self, state: EnsembleState,
-              draws: Optional[RoundDraws] = None) -> EnsembleState:
+              draws: Optional[RoundDraws] = None,
+              timings: Optional[Dict[str, Any]] = None) -> EnsembleState:
         """One round of every instance. `draws` may inject its draws for
         the whole ensemble: sweep_uniforms [1, T, I, R, n_pad] (one phase),
-        gumbels [I, num_pairs, R - 1] and swap_uniforms [I, num_pairs]."""
+        gumbels [I, num_pairs, R - 1] and swap_uniforms [I, num_pairs].
+        With a `timings` dict the round records sync-free stage spans
+        (`utils.metrics.RoundSpans`): the device seconds of "fields" (the
+        round's draws and fresh local fields), "round" (the sweeps) and
+        "swaps" (label swaps and the best fold), with "rounds", "host_s"
+        and "host_syncs"; it lands in the dict once the card has passed
+        it, at the latest at `best_states`, `best_energies` or `flush`."""
         d = draws if draws is not None else RoundDraws()
         lo, hi = self.i0, self.i0 + self.I
         if self.I == 0:
             return state._replace(round_index=state.round_index + 1)
-        beta_slot = self.beta_list[state.slot_to_beta]           # [I, R]
-        sweep = InstanceDraws(self, state.generator, 1,
-                              self.cfg.sweeps_per_round, self.R,
-                              d.sweep_uniforms, self.sweep_kernel is not None)
-        phi = by_rows(local_fields, self.J_full, self.h[:, None, :], state.m,
-                      sharded=self.group is not None)
-        res = self._sweeps(state.m, phi, sweep, beta_slot[..., None])
-        sweep.finish()
-        m, e_best, m_best = res.m, res.e_best, res.m_best        # [I, R, ...]
-        e_slot = res.energies[:, -1]                             # [I, R]
-        npairs = self.cfg.num_swapping_pairs
-        if d.gumbels is None:
-            g, su = swap_draws(state.generator, self.I_total, npairs, self.R,
-                               lo, self.I)
-        else:
-            g, su = d.gumbels[lo:hi], d.swap_uniforms[lo:hi]
-        swap = metropolis_label_swap(
-            state.beta_to_slot, self.beta_list.to(torch.float32),
-            e_slot.to(torch.float32), num_pairs=npairs, gumbels=g,
-            uniforms=su)
-        r = torch.argmin(e_best, dim=1, keepdim=True)            # [I, 1]
-        e_r = torch.gather(e_best, 1, r)[:, 0]
-        m_r = torch.gather(m_best, 1,
-                           r[..., None].expand(-1, 1, self.n_pad))[:, 0]
-        improved = e_r < state.best_e
+        spans = self._spans
+        with spans.round(timings):
+            with spans.stage("fields"):
+                beta_slot = self.beta_list[state.slot_to_beta]       # [I, R]
+                sweep = InstanceDraws(self, state.generator, 1,
+                                      self.cfg.sweeps_per_round, self.R,
+                                      d.sweep_uniforms,
+                                      self.sweep_kernel is not None)
+                phi = by_rows(local_fields, self.J_full, self.h[:, None, :],
+                              state.m, sharded=self.group is not None)
+            with spans.stage("round"):
+                res = self._sweeps(state.m, phi, sweep, beta_slot[..., None])
+                sweep.finish()
+            with spans.stage("swaps"):
+                m, e_best, m_best = res.m, res.e_best, res.m_best  # [I, R, ..]
+                e_slot = res.energies[:, -1]                       # [I, R]
+                npairs = self.cfg.num_swapping_pairs
+                if d.gumbels is None:
+                    g, su = swap_draws(state.generator, self.I_total, npairs,
+                                       self.R, lo, self.I)
+                else:
+                    g, su = d.gumbels[lo:hi], d.swap_uniforms[lo:hi]
+                swap = metropolis_label_swap(
+                    state.beta_to_slot, self.beta_list.to(torch.float32),
+                    e_slot.to(torch.float32), num_pairs=npairs, gumbels=g,
+                    uniforms=su)
+                r = torch.argmin(e_best, dim=1, keepdim=True)      # [I, 1]
+                e_r = torch.gather(e_best, 1, r)[:, 0]
+                m_r = torch.gather(m_best, 1,
+                                   r[..., None].expand(-1, 1, self.n_pad))[:, 0]
+                improved = e_r < state.best_e
+                best_e = torch.where(improved, e_r, state.best_e)
+                best_m = torch.where(improved[:, None], m_r, state.best_m)
         return EnsembleState(
             m=m, beta_to_slot=swap.beta_to_slot,
-            slot_to_beta=swap.slot_to_beta,
-            best_e=torch.where(improved, e_r, state.best_e),
-            best_m=torch.where(improved[:, None], m_r, state.best_m),
+            slot_to_beta=swap.slot_to_beta, best_e=best_e, best_m=best_m,
             generator=state.generator, round_index=state.round_index + 1)
 
     def run(self, state: EnsembleState, num_rounds: int, *,
@@ -234,8 +249,18 @@ class EnsemblePT:
     def best_states(self, state: EnsembleState) -> np.ndarray:
         """[I, n] best states per instance, original spin order (every
         instance, gathered over the group)."""
-        return distributed.host_gather(state.best_m[:, self._inv_perm],
-                                       self.group)
+        out = distributed.host_gather(state.best_m[:, self._inv_perm],
+                                      self.group)
+        self._spans.collect()
+        return out
 
     def best_energies(self, state: EnsembleState) -> np.ndarray:
-        return distributed.host_gather(state.best_e, self.group)
+        out = distributed.host_gather(state.best_e, self.group)
+        self._spans.collect()
+        return out
+
+    def flush(self) -> None:
+        """Sum every round recorded with a `timings` dict into it, waiting
+        for the card to pass them (the best calls do so without
+        waiting)."""
+        self._spans.flush()

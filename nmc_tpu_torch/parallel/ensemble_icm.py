@@ -69,7 +69,7 @@ sweep kernels through one `SweepEngine` per instance.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -84,8 +84,9 @@ from ..ops.engine import K1_MAX_N_PAD, SweepEngine
 from ..ops.round_cuda import (ensemble_round, ensemble_round_sparse,
                               neighbors_from_dense, neighbors_from_tiles,
                               round_kernel_limit)
+from ..utils.metrics import RoundSpans, host_sync
 from . import distributed
-from .ensemble_nmc import InstanceDraws, _clock, _pad_problem, _union_tiles
+from .ensemble_nmc import InstanceDraws, _pad_problem, _union_tiles
 from .swaps import metropolis_label_swap, swap_draws
 
 
@@ -318,6 +319,7 @@ class EnsembleICM:
             self._houd = NeighborPlanes(put(col_idx, torch.int64),
                                         index.to(torch.int64), n_pad,
                                         b0.block_size)
+        self._spans = RoundSpans("EnsembleICM", dev)
 
     # ------------------------------------------------------------------
     def init_state(self, generator: torch.Generator,
@@ -406,7 +408,7 @@ class EnsembleICM:
         T = (cfg.sweeps_per_round if not self.hybrid
              else cfg.sweeps_per_round // (3 * self._cycles))
         ones_t = torch.ones((T,), dtype=dt, device=dev)
-        heat = torch.tensor(1.0 / cfg.temp_x, dtype=dt, device=dev)
+        heat = host_sync(torch.tensor, 1.0 / cfg.temp_x, dtype=dt, device=dev)
         one = torch.ones((), dtype=dt, device=dev)
         draws = InstanceDraws(self, state.generator,
                               3 * self._cycles if self.hybrid else 1, T, Rk,
@@ -533,14 +535,16 @@ class EnsembleICM:
         num_rounds: int,
         *,
         draws: Optional[Callable[[int], ICMDraws]] = None,
-        timings: Optional[Dict[str, float]] = None,
+        timings: Optional[Dict[str, Any]] = None,
         houdayer_stats: Optional[Dict[str, int]] = None,
     ) -> EnsembleICMState:
         """`num_rounds` full ensemble rounds. `draws(round_index)` may
-        inject a round's draws. With a `timings` dict, the device is
-        synchronised between the stages and their host seconds are added
-        under "round" (the sweep stage), "houdayer" (pairing, moves,
-        masks) and "swaps" (carried energies, best fold, label swaps).
+        inject a round's draws. With a `timings` dict each round records
+        sync-free stage spans (`utils.metrics.RoundSpans`): the device
+        seconds of "round" (the sweep stage), "houdayer" (pairing, moves,
+        masks) and "swaps" (carried energies, best fold, label swaps), with
+        "rounds", "host_s" and "host_syncs"; a round lands in the dict once
+        the card has passed it, at the latest at `best` or `flush`.
         `houdayer_stats` receives the fixed-point loops' most "steps" and
         "iterations" (`ops/clusters._label_fixpoint`)."""
         cfg = self.cfg
@@ -550,39 +554,40 @@ class EnsembleICM:
         ii = torch.arange(I, device=self.device)
         if I == 0:       # a rank past the instance shards holds none
             return state._replace(round_index=state.round_index + num_rounds)
+        spans = self._spans
         for _ in range(num_rounds):
             d = draws(state.round_index) if draws is not None else ICMDraws()
-            t = _clock(timings, self.device)
-            if self.round_path == "plain":
-                m, mb, eb = self._plain_sweeps(state, d.sweep_uniforms)
-            else:
-                m, mb, eb = self._kernel_sweeps(
-                    state, None if d.sweep_uniforms is None
-                    else d.sweep_uniforms[:, :, lo:hi].contiguous())
-            t = _clock(timings, self.device, "round", t)
-            m, moves, flips, cl, dn = self._houdayer(state, m, d,
-                                                     houdayer_stats)
-            t = _clock(timings, self.device, "houdayer", t)
-            flat = m.reshape(I, S * R, n)
-            e = by_rows(energy, self.J_full, self.h[:, None, :], flat,
-                        sharded=self.group is not None)        # [I, S*R]
-            r = torch.argmin(e, dim=1)
-            e_min = e[ii, r]
-            imp = e_min < eb
-            mb = torch.where(imp[:, None], flat[ii, r], mb)
-            eb = torch.where(imp, e_min, eb)
-            npairs = cfg.num_swapping_pairs
-            if d.gumbels is None:
-                g, su = swap_draws(state.generator, self.I_total * S, npairs,
-                                   R, lo * S, I * S)
-            else:
-                g = d.gumbels[lo:hi].reshape(I * S, npairs, R - 1)
-                su = d.swap_uniforms[lo:hi].reshape(I * S, npairs)
-            swap = metropolis_label_swap(
-                state.beta_to_slot.reshape(I * S, R), beta32,
-                e.reshape(I * S, R).to(torch.float32), num_pairs=npairs,
-                gumbels=g, uniforms=su)
-            _clock(timings, self.device, "swaps", t)
+            with spans.round(timings):
+                with spans.stage("round"):
+                    if self.round_path == "plain":
+                        m, mb, eb = self._plain_sweeps(state, d.sweep_uniforms)
+                    else:
+                        m, mb, eb = self._kernel_sweeps(
+                            state, None if d.sweep_uniforms is None
+                            else d.sweep_uniforms[:, :, lo:hi].contiguous())
+                with spans.stage("houdayer"):
+                    m, moves, flips, cl, dn = self._houdayer(state, m, d,
+                                                             houdayer_stats)
+                with spans.stage("swaps"):
+                    flat = m.reshape(I, S * R, n)
+                    e = by_rows(energy, self.J_full, self.h[:, None, :], flat,
+                                sharded=self.group is not None)  # [I, S*R]
+                    r = torch.argmin(e, dim=1)
+                    e_min = e[ii, r]
+                    imp = e_min < eb
+                    mb = torch.where(imp[:, None], flat[ii, r], mb)
+                    eb = torch.where(imp, e_min, eb)
+                    npairs = cfg.num_swapping_pairs
+                    if d.gumbels is None:
+                        g, su = swap_draws(state.generator, self.I_total * S,
+                                           npairs, R, lo * S, I * S)
+                    else:
+                        g = d.gumbels[lo:hi].reshape(I * S, npairs, R - 1)
+                        su = d.swap_uniforms[lo:hi].reshape(I * S, npairs)
+                    swap = metropolis_label_swap(
+                        state.beta_to_slot.reshape(I * S, R), beta32,
+                        e.reshape(I * S, R).to(torch.float32),
+                        num_pairs=npairs, gumbels=g, uniforms=su)
             state = EnsembleICMState(
                 m=m, beta_to_slot=swap.beta_to_slot.reshape(I, S, R),
                 slot_to_beta=swap.slot_to_beta.reshape(I, S, R),
@@ -591,10 +596,17 @@ class EnsembleICM:
                 icm_moves=moves, icm_flips=flips, cl=cl, dn=dn)
         return state
 
+    def flush(self) -> None:
+        """Sum every round recorded with a `timings` dict into it, waiting
+        for the card to pass them (`best` does so without waiting)."""
+        self._spans.flush()
+
     def best(self, state: EnsembleICMState):
         """([I] best energies, [I, n] best states in original order), numpy,
         every instance (gathered over the group); the one host sync of a
         chunk."""
-        return (distributed.host_gather(state.e_best, self.group),
-                distributed.host_gather(state.m_best[:, self._inv_perm],
-                                        self.group))
+        out = (distributed.host_gather(state.e_best, self.group),
+               distributed.host_gather(state.m_best[:, self._inv_perm],
+                                       self.group))
+        self._spans.collect()
+        return out

@@ -40,7 +40,8 @@ does: the kernels by beta_row * (1 + f32(temp_x_inv - 1)), the plain round
 by base_row * f32(1 / temp_x).
 
 `run_scanned` runs rounds with no host sync except the LBP convergence
-tests of refresh rounds; `best` is the one sync per chunk. Randomness comes
+tests of refresh rounds and the `utils.metrics.host_sync` calls; `best`
+is the one sync per chunk. Randomness comes
 from the state's `torch.Generator`; `RoundDraws` inject a round's draws so
 tests can replay the JAX engine's keys.
 
@@ -69,8 +70,7 @@ same engines run their plain twins, which are `run_sweeps`.
 from __future__ import annotations
 
 import dataclasses
-import time
-from typing import Callable, Dict, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -87,6 +87,7 @@ from ..ops.round_cuda import (ensemble_round, ensemble_round_sparse,
                               neighbors_from_dense, neighbors_from_tiles,
                               phase_list, round_kernel_limit)
 from ..ops.sweeps_cuda import draw_seeds
+from ..utils.metrics import RoundSpans, host_sync
 from . import distributed
 from .sharded_pt import ShardedNPTConfig
 from .swaps import metropolis_label_swap, swap_draws
@@ -238,6 +239,7 @@ class EnsembleNMC:
                 dtype=dtype, device=dev) for i, b in enumerate(blocked)]
         self._on_kernels = all(e.sweep_kernel is not None
                                for e in self._engines)
+        self._spans = RoundSpans("EnsembleNMC", dev)
         if group is not None and dev.type == "cuda" and not self._on_kernels:
             raise ValueError(
                 "a sharded EnsembleNMC on cuda runs its phases on the sweep "
@@ -342,6 +344,18 @@ class EnsembleNMC:
             self.J_full, self.h, self.active, state.m, cl, do_nmc, base,
             state.generator, block_size=self.blocked0.block_size, **kw)
 
+    def _fold(self, state, res):
+        """(carried states, carried energies, bests) after a kernel round:
+        the per-slot round bests folded into the per-instance best."""
+        r = torch.argmin(res.e_best, dim=1, keepdim=True)            # [I, 1]
+        e_r = torch.gather(res.e_best, 1, r)[:, 0]
+        m_r = torch.gather(
+            res.m_best, 1, r[..., None].expand(-1, 1, self.n_pad))[:, 0]
+        imp = e_r < state.e_best
+        return (res.m, res.e_carried,
+                torch.where(imp[:, None], m_r, state.m_best),
+                torch.where(imp, e_r, state.e_best))
+
     def _plain_round(self, state, cl, do_nmc, uniforms):
         """The JAX engine's XLA round, instance by instance: per phase a
         fresh phi and one sweep call of the instance's engine; returns
@@ -350,7 +364,7 @@ class EnsembleNMC:
         R, n = self.R, self.n_pad
         T = cfg.sweeps_per_phase
         dt, dev = self.dtype, self.device
-        heat = torch.tensor(1.0 / cfg.temp_x, dtype=dt, device=dev)
+        heat = host_sync(torch.tensor, 1.0 / cfg.temp_x, dtype=dt, device=dev)
         one = torch.ones((), dtype=dt, device=dev)
         ones_t = torch.ones((T,), dtype=dt, device=dev)
         act = self.active.expand(R, n)
@@ -362,8 +376,8 @@ class EnsembleNMC:
             dn = do_nmc[i][:, None]
             cli = cl[i]
             base_row = torch.where(
-                do_nmc[i], torch.tensor(cfg.global_beta, dtype=dt,
-                                        device=dev),
+                do_nmc[i], host_sync(torch.tensor, cfg.global_beta, dtype=dt,
+                                     device=dev),
                 self.beta_list[state.slot_to_beta[i]])[:, None]
             m, mb, eb = state.m[i], state.m_best[i], state.e_best[i]
             h, J = self.h[i], self.J_full[i]
@@ -398,51 +412,50 @@ class EnsembleNMC:
         num_rounds: int,
         *,
         draws: Optional[Callable[[int], RoundDraws]] = None,
-        timings: Optional[Dict[str, float]] = None,
+        timings: Optional[Dict[str, Any]] = None,
     ) -> EnsembleNMCState:
         """`num_rounds` full ensemble rounds. `draws(round_index)` may
-        inject a round's draws. With a `timings` dict, the device is
-        synchronised between the stages and their host seconds are added
-        under "lbp" (backbone refresh), "round" (the sweep phases: one
+        inject a round's draws. With a `timings` dict each round records
+        sync-free stage spans (`utils.metrics.RoundSpans`): the device
+        seconds of "lbp" (backbone refresh), "round" (the sweep phases: one
         kernel launch, or the plain round) and "swaps" (best fold and label
-        swaps); without it nothing syncs outside the LBP refreshes."""
+        swaps), with "rounds", "host_s", "host_syncs" and, once a round
+        has refreshed, "lbp_refreshes" and "lbp_iterations"; a round lands
+        in the dict once the card has passed it, at the latest at `best` or
+        `flush`. Nothing syncs the host but the LBP convergence tests and
+        the `host_sync` calls."""
         cfg = self.cfg
         beta32 = self.beta_list.to(torch.float32)
         lo, hi = self.i0, self.i0 + self.I
         if self.I == 0:      # a rank past the instance shards holds none
             return state._replace(round_index=state.round_index + num_rounds)
+        spans = self._spans
         for _ in range(num_rounds):
             d = draws(state.round_index) if draws is not None else RoundDraws()
-            t = _clock(timings, self.device)
-            cl, do_nmc = self._refresh(state)
-            t = _clock(timings, self.device, "lbp", t)
-            if self.round_path == "plain":
-                m, e_car, mb, eb = self._plain_round(state, cl, do_nmc,
-                                                     d.sweep_uniforms)
-                t = _clock(timings, self.device, "round", t)
-            else:
-                res = self._kernel_round(
-                    state, cl, do_nmc, None if d.sweep_uniforms is None
-                    else d.sweep_uniforms[:, :, lo:hi].contiguous())
-                t = _clock(timings, self.device, "round", t)
-                # fold the per-slot round bests into the per-instance best
-                r = torch.argmin(res.e_best, dim=1, keepdim=True)    # [I, 1]
-                e_r = torch.gather(res.e_best, 1, r)[:, 0]
-                m_r = torch.gather(
-                    res.m_best, 1, r[..., None].expand(-1, 1, self.n_pad))[:, 0]
-                imp = e_r < state.e_best
-                mb = torch.where(imp[:, None], m_r, state.m_best)
-                eb = torch.where(imp, e_r, state.e_best)
-                m, e_car = res.m, res.e_carried
-            if d.gumbels is None:
-                g, su = swap_draws(state.generator, self.I_total,
-                                   cfg.num_swapping_pairs, self.R, lo, self.I)
-            else:
-                g, su = d.gumbels[lo:hi], d.swap_uniforms[lo:hi]
-            swap = metropolis_label_swap(
-                state.beta_to_slot, beta32, e_car.to(torch.float32),
-                num_pairs=cfg.num_swapping_pairs, gumbels=g, uniforms=su)
-            _clock(timings, self.device, "swaps", t)
+            with spans.round(timings):
+                with spans.stage("lbp"):
+                    cl, do_nmc = self._refresh(state)
+                with spans.stage("round"):
+                    if self.round_path == "plain":
+                        m, e_car, mb, eb = self._plain_round(
+                            state, cl, do_nmc, d.sweep_uniforms)
+                    else:
+                        res = self._kernel_round(
+                            state, cl, do_nmc, None if d.sweep_uniforms is None
+                            else d.sweep_uniforms[:, :, lo:hi].contiguous())
+                with spans.stage("swaps"):
+                    if self.round_path != "plain":
+                        m, e_car, mb, eb = self._fold(state, res)
+                    if d.gumbels is None:
+                        g, su = swap_draws(state.generator, self.I_total,
+                                           cfg.num_swapping_pairs, self.R, lo,
+                                           self.I)
+                    else:
+                        g, su = d.gumbels[lo:hi], d.swap_uniforms[lo:hi]
+                    swap = metropolis_label_swap(
+                        state.beta_to_slot, beta32, e_car.to(torch.float32),
+                        num_pairs=cfg.num_swapping_pairs, gumbels=g,
+                        uniforms=su)
             state = EnsembleNMCState(
                 m=m, beta_to_slot=swap.beta_to_slot,
                 slot_to_beta=swap.slot_to_beta, generator=state.generator,
@@ -450,13 +463,20 @@ class EnsembleNMC:
                 cl=cl, do_nmc_slot=do_nmc)
         return state
 
+    def flush(self) -> None:
+        """Sum every round recorded with a `timings` dict into it, waiting
+        for the card to pass them (`best` does so without waiting)."""
+        self._spans.flush()
+
     def best(self, state: EnsembleNMCState):
         """([I] best energies, [I, n] best states in original order), numpy,
         every instance (gathered over the group); the one host sync of a
         chunk."""
-        return (distributed.host_gather(state.e_best, self.group),
-                distributed.host_gather(state.m_best[:, self._inv_perm],
-                                        self.group))
+        out = (distributed.host_gather(state.e_best, self.group),
+               distributed.host_gather(state.m_best[:, self._inv_perm],
+                                       self.group))
+        self._spans.collect()
+        return out
 
 
 class InstanceDraws:
@@ -554,19 +574,6 @@ def round_route(blocked, J_full, round_kernel, dtype, device, put,
             f"round_kernel={round_kernel!r} on {device.type}: no round "
             "kernel fits: " + "; ".join(fails))
     return path, nbrs, tiles
-
-
-def _clock(timings, device, key=None, t0=None):
-    """Timing marks for `run_scanned`: with a dict, synchronise the device
-    and add the seconds since `t0` under `key`."""
-    if timings is None:
-        return None
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    now = time.perf_counter()
-    if key is not None:
-        timings[key] = timings.get(key, 0.0) + now - t0
-    return now
 
 
 def _union_tiles(blocked):

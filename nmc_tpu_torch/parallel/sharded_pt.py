@@ -46,7 +46,7 @@ each rank keeps its rows.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Sequence
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,6 +61,7 @@ from ..ops.lbp_jit import (convexified_marginal_dense,
                            convexified_marginal_sparse)
 from ..ops.round_cuda import (ensemble_round, ensemble_round_sparse,
                               phase_list)
+from ..utils.metrics import RoundSpans, host_sync
 from . import distributed
 from .swaps import metropolis_label_swap
 
@@ -182,6 +183,7 @@ class ShardedNPT:
         path, self.round_nbrs, self._stream_tiles = round_route(
             [b], self.J_full[None], cfg.round_kernel, dtype, dev, put)
         self.round_path = "phases" if path == "plain" else path
+        self._spans = RoundSpans("ShardedNPT", dev)
         if (self.round_path == "phases" and dev.type == "cuda"
                 and eng.sweep_kernel is None):
             raise ValueError(
@@ -263,7 +265,8 @@ class ShardedNPT:
         do_nmc = self.do_nmc_by_beta[self._rows(slot_to_beta)]
         cl = torch.zeros_like(m, dtype=torch.bool)
         J_abs = torch.abs(self.J_full)
-        for r in torch.nonzero(do_nmc).flatten().tolist():
+        for r in host_sync(torch.Tensor.tolist,
+                           torch.nonzero(do_nmc).flatten()):
             cl[r] = backbone_mask_device(
                 self._lbp(m[r:r + 1]), J_abs, cfg.threshold_initial,
                 cfg.threshold_cutoff, cfg.threshold_step,
@@ -295,8 +298,8 @@ class ShardedNPT:
     def _base(self, slot_to_beta, do_nmc):
         """[R_local] the rank's slot betas, global_beta on NMC slots."""
         return torch.where(
-            do_nmc, torch.tensor(self.cfg.global_beta, dtype=self.dtype,
-                                 device=self.device),
+            do_nmc, host_sync(torch.tensor, self.cfg.global_beta,
+                              dtype=self.dtype, device=self.device),
             self.beta_list[self._rows(slot_to_beta)])
 
     def _phase_args(self, kind, cl, do_nmc, base):
@@ -306,8 +309,8 @@ class ShardedNPT:
         dn, base_row = do_nmc[:, None], base[:, None]
         act = self.active.expand_as(cl)
         if kind == "C":
-            heat = torch.tensor(1.0 / self.cfg.temp_x, dtype=self.dtype,
-                                device=self.device)
+            heat = host_sync(torch.tensor, 1.0 / self.cfg.temp_x,
+                             dtype=self.dtype, device=self.device)
             one = torch.ones((), dtype=self.dtype, device=self.device)
             return (base_row * torch.where(dn & cl, heat, one),
                     torch.where(dn, cl & act, act))
@@ -347,41 +350,53 @@ class ShardedNPT:
 
     # ------------------------------------------------------------------
     def round(self, state: ShardedPTState, draws=None,
-              timings: Optional[Dict[str, float]] = None):
+              timings: Optional[Dict[str, Any]] = None):
         """One swap round; returns (state, RoundMetrics). `draws` (a
-        `RoundDraws` for the whole ladder) may inject its draws; with a
-        `timings` dict the card is synchronised between the stages and
-        their seconds added under "lbp", "round" and "swaps"."""
-        from .ensemble_nmc import RoundDraws, _clock
+        `RoundDraws` for the whole ladder) may inject its draws. With a
+        `timings` dict the round records sync-free stage spans
+        (`utils.metrics.RoundSpans`): the device seconds of "lbp", "round"
+        and "swaps" (the all-reduce of the carried energies inside it),
+        with "rounds", "host_s", "host_syncs", "compute_ms_by_round" (this
+        rank's device ms from the previous round's all-reduce to this
+        one's) and, once a round has refreshed, "lbp_refreshes" and
+        "lbp_iterations"; it lands in the dict once the card has passed it,
+        at the latest at `best` or `flush`."""
+        from .ensemble_nmc import RoundDraws
         cfg = self.cfg
         d = draws if draws is not None else RoundDraws()
-        t = _clock(timings, self.device)
-        if not self.any_nmc:
-            cl = self.active.expand_as(state.m).clone()
-            do_nmc = state.do_nmc_slot
-        elif state.round_index % cfg.lbp_every == 0:
-            cl, do_nmc = self._clusters(state.m, state.slot_to_beta)
-        else:
-            cl, do_nmc = state.cl, state.do_nmc_slot
-        t = _clock(timings, self.device, "lbp", t)
-        base = self._base(state.slot_to_beta, do_nmc)
-        u = d.sweep_uniforms
-        if self.round_path == "phases":
-            u = None if u is None else u[:, :, 0, self.r0:self.r0
-                                         + self.R_local].contiguous()
-            m, mb, eb, e_car = self._phase_round(state, cl, do_nmc, base, u)
-        else:
-            u = None if u is None else u[:, :, :, self.r0:self.r0
-                                         + self.R_local].contiguous()
-            m, mb, eb, e_car = self._kernel_round(state, cl, do_nmc, base, u)
-        t = _clock(timings, self.device, "round", t)
-        e_all = distributed.gather_rows(e_car, self.r0, self.R, self.group)
-        swap = metropolis_label_swap(
-            state.beta_to_slot[None], self.beta_list.to(torch.float32),
-            e_all[None].to(torch.float32), num_pairs=cfg.num_swapping_pairs,
-            generator=state.generator, gumbels=d.gumbels,
-            uniforms=d.swap_uniforms)
-        _clock(timings, self.device, "swaps", t)
+        spans = self._spans
+        with spans.round(timings):
+            with spans.stage("lbp"):
+                if not self.any_nmc:
+                    cl = self.active.expand_as(state.m).clone()
+                    do_nmc = state.do_nmc_slot
+                elif state.round_index % cfg.lbp_every == 0:
+                    cl, do_nmc = self._clusters(state.m, state.slot_to_beta)
+                else:
+                    cl, do_nmc = state.cl, state.do_nmc_slot
+            with spans.stage("round"):
+                base = self._base(state.slot_to_beta, do_nmc)
+                u = d.sweep_uniforms
+                r0, r1 = self.r0, self.r0 + self.R_local
+                if self.round_path == "phases":
+                    u = None if u is None else u[:, :, 0, r0:r1].contiguous()
+                    m, mb, eb, e_car = self._phase_round(state, cl, do_nmc,
+                                                         base, u)
+                else:
+                    u = None if u is None else u[:, :, :, r0:r1].contiguous()
+                    m, mb, eb, e_car = self._kernel_round(state, cl, do_nmc,
+                                                          base, u)
+            with spans.stage("swaps"):
+                spans.mark("collective_in")
+                e_all = distributed.gather_rows(e_car, self.r0, self.R,
+                                                self.group)
+                spans.mark("collective_out")
+                swap = metropolis_label_swap(
+                    state.beta_to_slot[None], self.beta_list.to(torch.float32),
+                    e_all[None].to(torch.float32),
+                    num_pairs=cfg.num_swapping_pairs,
+                    generator=state.generator, gumbels=d.gumbels,
+                    uniforms=d.swap_uniforms)
         new = ShardedPTState(
             m=m, beta_to_slot=swap.beta_to_slot[0],
             slot_to_beta=swap.slot_to_beta[0], generator=state.generator,
@@ -402,10 +417,11 @@ class ShardedNPT:
 
     def run_scanned(self, state: ShardedPTState, num_rounds: int, *,
                     draws: Optional[Callable[[int], object]] = None,
-                    timings: Optional[Dict[str, float]] = None):
+                    timings: Optional[Dict[str, Any]] = None):
         """`num_rounds` rounds; returns (state, RoundMetrics stacked over
         the rounds). JAX fuses them into one lax.scan dispatch; here they
-        are a loop that syncs the host only in the LBP refreshes."""
+        are a loop that syncs the host only in the LBP refreshes and the
+        `host_sync` calls. `timings` as in `round`."""
         out = []
         for _ in range(num_rounds):
             state, met = self.round(
@@ -424,7 +440,13 @@ class ShardedNPT:
         eb = self._gather(state.e_best).cpu().numpy()
         i = int(eb.argmin())
         m = self._gather(state.m_best)[i].cpu().numpy()
+        self._spans.collect()
         return float(eb[i]), m[np.asarray(self.blocked.inv_perm)]
+
+    def flush(self) -> None:
+        """Sum every round recorded with a `timings` dict into it, waiting
+        for the card to pass them (`best` does so without waiting)."""
+        self._spans.flush()
 
     def states_by_temperature(self, state: ShardedPTState) -> np.ndarray:
         """States ordered by temperature index [R, n], numpy (gathered)."""

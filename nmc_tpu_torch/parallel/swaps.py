@@ -9,7 +9,8 @@ no pair is left), and the Metropolis rule is u < min(1, exp(dB * dE)) with
 states fixed and labels exchanged.
 
 Both functions take a leading instance axis I (the JAX engine vmaps them
-over instances) and stay on the device: no host sync. Their draws come from
+over instances) and stay on the device but for one copy of a constant
+from host memory, which waits for the stream (`utils.metrics.host_sync`). Their draws come from
 a `torch.Generator`, or are injected (`gumbels` [I, num_pairs, R - 1],
 `uniforms` [I, num_pairs]) so that tests can replay JAX's keys.
 """
@@ -19,6 +20,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from ..utils.metrics import host_sync
 
 
 def _gumbel(shape, generator, dtype, device):
@@ -56,7 +59,8 @@ def select_pairs_device(
     gumbels = gumbels.to(device)
     avail = torch.ones((I, P), dtype=torch.bool, device=device)
     cols = torch.arange(P, device=device)
-    neg_inf = torch.tensor(float("-inf"), dtype=gumbels.dtype, device=device)
+    neg_inf = host_sync(torch.tensor, float("-inf"), dtype=gumbels.dtype,
+                        device=device)
     picks = []
     for k in range(num_pairs):
         scores = torch.where(avail, gumbels[:, k], neg_inf)

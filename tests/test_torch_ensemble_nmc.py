@@ -210,8 +210,10 @@ def test_run_scanned_with_generator_timings_and_best():
         s = ens.init_state(torch.Generator().manual_seed(4))
         s = ens.run_scanned(s, 3, timings=timings)
         finals.append(s)
-    assert set(timings) == {"lbp", "round", "swaps"}
+    assert set(timings) == {"lbp", "round", "swaps", "rounds", "host_s",
+                            "host_syncs", "lbp_refreshes", "lbp_iterations"}
     assert all(v >= 0 for v in timings.values())
+    assert timings["rounds"] == 3 and timings["lbp_refreshes"] == 2
     for f in ("m", "beta_to_slot", "e_best", "cl"):
         assert torch.equal(getattr(finals[0], f), getattr(finals[1], f))
     eb, mb = ens.best(finals[0])
