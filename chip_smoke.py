@@ -290,7 +290,8 @@ uncoloured chimera, and EnsemblePT's batched launch);
 one card each, over NCCL, and holds every result bit for bit against
 world 1 (it needs W cards).
 `--sweep-times` times K1-K3 alone at their launch and throughput shapes
-and K4/K5 a round (not with `--sequential`), then the sequential route
+and K4/K5 a round at their launches, at each CTA width (not with
+`--sequential`), then the sequential route
 at EnsemblePT's single-instance launch, on the uncoloured chimera 8x8
 and at the contrived ICM round's launch, EnsemblePT's seconds per round
 and the compat shims' seconds, with the chip_smoke.py and package of
@@ -298,6 +299,7 @@ CHECKOUT (default: this one), to compare two checkouts in turns on one
 card.
 """
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -1136,6 +1138,32 @@ def _round_fns(ens):
             functools.partial(rc.ensemble_round_reference, *pre, **bs))
 
 
+def _c26_16_slots():
+    """(EnsembleNMC, launch keywords) of one card's launch in the four-card
+    sharded run: chimera 26x26, 16 slots of a 64-slot ladder (geometric
+    over beta 0.25-16), replica offset 16."""
+    from nmc_tpu_torch.io.generators import chimera_graph
+    from nmc_tpu_torch.parallel import EnsembleNMC, ShardedNPTConfig
+    R = 16
+    ens = EnsembleNMC([chimera_graph(26, 26, seed=0).normalized()[0]],
+                      np.geomspace(0.25, 16.0, R), [False] * R,
+                      ShardedNPTConfig(use_coloring=True, block_size=128,
+                                       num_cycles=3, sweeps_per_phase=64),
+                      device=DEVICE)
+    return ens, dict(replica_offset=R, replicas_total=4 * R)
+
+
+@contextlib.contextmanager
+def _round_width(rc, threads):
+    """The round wrappers' CTA width forced to `threads` inside."""
+    own = rc.round_threads
+    rc.round_threads = lambda slots, sms: threads
+    try:
+        yield
+    finally:
+        rc.round_threads = own
+
+
 def _tiles_of(torch, ens):
     """K5's union tiles (col_idx, J_tiles) of an engine's dense layout."""
     from types import SimpleNamespace
@@ -1210,10 +1238,11 @@ def _k4_equals_k5(torch, ens, inputs):
 
 
 def _occupancy(torch, shapes):
-    """ptxas's report for the round kernel's library, and per shape the
-    dynamic shared memory per CTA, the registers and the CTAs per SM the
-    CUDA runtime allows for them; at least 5 (one wave of 640 CTAs on 132
-    SMs)."""
+    """ptxas's report for the round kernel's library, and per shape (n_pad,
+    the widest step's spins) and CTA width the dynamic shared memory per
+    CTA, the registers and the CTAs per SM the CUDA runtime allows for
+    them: at least 5 at 256 threads up to n_pad 2048 (one wave of 640 CTAs
+    on 132 SMs), else at least 1."""
     from nmc_tpu_torch.ops import _build
     from nmc_tpu_torch.ops import round_cuda as rc
     log = _build.library_path("ensemble_round").with_suffix(".log")
@@ -1221,13 +1250,27 @@ def _occupancy(torch, shapes):
               if "registers" in ln or "spill" in ln] if log.exists() else [])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {"ptxas": ptxas, "sm_count": sms}
-    for n_pad in shapes:
-        regs, ctas = rc.kernel_occupancy(n_pad, 128)
-        out[f"n_pad_{n_pad}"] = {
-            "dynamic_smem_bytes": rc._shared_bytes(n_pad, 128),
-            "registers": regs, "ctas_per_sm": ctas}
-        check(ctas >= 5, f"round kernel: {ctas} CTAs per SM at n_pad {n_pad}")
+    for n_pad, step_spins in shapes:
+        for width in rc.ROUND_WIDTHS:
+            least = 5 if width == rc.ROUND_WIDTHS[0] and n_pad <= 2048 else 1
+            regs, ctas = rc.kernel_occupancy(n_pad, step_spins, width)
+            out[f"n_pad_{n_pad}_threads_{width}"] = {
+                "dynamic_smem_bytes": rc._shared_bytes(n_pad, step_spins),
+                "registers": regs, "ctas_per_sm": ctas}
+            check(ctas >= least, f"round kernel: {ctas} CTAs per SM at "
+                  f"n_pad {n_pad}, {width} threads")
     return out
+
+
+def _steps(ens, slots):
+    """The round layout's steps and row blocks a sweep and the CTA width of
+    a launch of `slots` CTAs."""
+    from nmc_tpu_torch.ops import round_cuda as rc
+    nb = ens.round_nbrs
+    return {"steps_per_sweep": nb.step_ptr.numel() - 1,
+            "blocks_per_sweep": ens.n_pad // nb.block_size,
+            "step_spins": nb.step_spins,
+            "cta_width": rc.round_threads(slots, rc._num_sms(ens.device))}
 
 
 def phase_round_kernels():
@@ -1267,7 +1310,11 @@ def phase_round_kernels():
         res.update(instances=count, n_pad=ens.n_pad,
                    num_blocks=ens.blocked0.num_blocks,
                    layout_entries=int(ens.round_nbrs.src.shape[0]),
-                   layout_targets=int(ens.round_nbrs.tgt.shape[0]))
+                   layout_targets=int(ens.round_nbrs.tgt.shape[0]),
+                   **_steps(ens, count * ENS_R))
+        check(res["steps_per_sweep"] == 3,
+              f"{name}: {res['steps_per_sweep']} steps a sweep, not the 3 "
+              "colour classes")
         if want == "K5":
             res["tiles_per_row_block"] = int(ens._stream_tiles[0].shape[1])
         out[name] = res
@@ -1283,7 +1330,8 @@ def phase_round_kernels():
     m0, cl, dn, beta, _ = _round_inputs(torch, g_ens, 22)
     out["k4_k5_bit_equal_philox_gaussian"], _ = _k4_equals_k5(
         torch, g_ens, (m0, cl, dn, beta))
-    out["occupancy"] = _occupancy(torch, (640, 2048))
+    out["occupancy"] = _occupancy(torch, (
+        (640, 256), (2048, 768), (5504, 2048)))
 
     for name in ("ensemble_round", "ensemble_round_sparse"):
         def run(eng, m, gen, beta, sweeps, name=name):
@@ -1387,6 +1435,17 @@ def _ensemble_main_path(size, rounds, chunks, kernel):
     launches = read_counts()
     check(launches[kernel] == rounds,
           f"{kernel} launched {launches[kernel]} times for {rounds} rounds")
+    # the round counters: the launch's steps and the block walk's, a sweep
+    from nmc_tpu_torch.ops.round_cuda import phase_list
+    cfg = ens.cfg
+    sweeps = timings["rounds"] * cfg.sweeps_per_phase * len(
+        phase_list(cfg.num_cycles, cfg.full_update_frequency))
+    steps = _steps(ens, len(probs) * ENS_R)
+    counted = {"round_steps_per_sweep": timings["round_steps"] / sweeps,
+               "round_blocks_per_sweep": timings["round_blocks"] / sweeps}
+    check(counted == {"round_steps_per_sweep": steps["steps_per_sweep"],
+                      "round_blocks_per_sweep": steps["blocks_per_sweep"]},
+          f"round counters {counted} against the layout's {steps}")
     check(all(v == 0 for k, v in launches.items() if k != kernel),
           f"other kernels launched: {launches}")
     e64 = np.array([p.energy(mb[i]) for i, p in enumerate(probs)])
@@ -1408,6 +1467,7 @@ def _ensemble_main_path(size, rounds, chunks, kernel):
         "chunk_seconds": chunk_seconds,
         "seconds_per_round": sum(chunk_seconds) / rounds,
         "last_chunk_split_seconds_per_round": _per_round(timings),
+        **counted, "cta_width": steps["cta_width"],
         "best_energy_mean": float(eb.mean()),
         "bests_vs_f64_max_abs_err": best_err,
         "labels_moved": moved,
@@ -1951,7 +2011,8 @@ def _round_work(torch, ens, state, cfg_kw, flips, sweeps_per_round):
     P = len(phase_list(cfg_kw["num_cycles"], 1))
     ops = (attempts * OPS_PER_ATTEMPT + flips * 2 * degree
            + 3 * I * R * n_pad * sweeps_per_round + 2 * R * nnz * (P + 1))
-    j_bytes = sum(t.numel() * t.element_size() for t in ens.round_nbrs[:5])
+    j_bytes = sum(t.numel() * t.element_size() for t in ens.round_nbrs
+                  if isinstance(t, torch.Tensor))
     nbytes = (j_bytes + 4 * I * n_pad + n_pad              # J, h, act
               + 4 * I * R * n_pad + I * R * n_pad          # m0, cl
               + I * R + 4 * I * R + 8                      # do_nmc, beta, seed
@@ -4197,6 +4258,14 @@ def phase_sharded_npt(card):
                   and logged[0]["rank"] == 0 and logged[0]["rounds"] == n,
                   f"chimera16x16: --metrics record {logged}")
             npt, state = seen["npt"], seen["state"]
+            steps = _steps(npt, npt.R_local)
+            sweeps = n * npt.cfg.sweeps_per_phase * 3 * npt.cfg.num_cycles
+            check(logged[0].get("round_steps") == sweeps
+                  * steps["steps_per_sweep"]
+                  and logged[0].get("round_blocks") == sweeps
+                  * steps["blocks_per_sweep"],
+                  f"chimera16x16: the record's round counters against "
+                  f"{steps}")
             check(npt.round_path == "K5" and npt.R_local == 32
                   and counts["ensemble_round_sparse"] == n
                   and sum(counts.values()) == n,
@@ -4207,7 +4276,9 @@ def phase_sharded_npt(card):
                 "launches": counts, "seconds": secs,
                 "round_spans_record": logged[0],
                 "seconds_per_round": _per_round(seen.pop("timings")),
-                "k5_alone": k5}
+                "k5_alone": k5, **steps}
+            out["chimera26x26_16_slots_k5_alone"] = _k5_c26_16_slots(torch,
+                                                                     rc)
             launches["ensemble_round_sparse"] = n
             sk = random_sk(SK_N, seed=0)
             np.save(f"{tmp}/J.npy", sk.J)
@@ -4231,6 +4302,39 @@ def phase_sharded_npt(card):
         sharded_pt.ShardedNPT.run_scanned = orig
     emit(out)
     return launches
+
+
+def _k5_c26_16_slots(torch, rc):
+    """K5 at one card's launch of the four-card sharded run: chimera 26x26,
+    16 slots of a 64-slot ladder (replica offset 16), one 576-sweep round
+    with Philox, timed by CUDA events (median of 5 after a warm-up) at the
+    CTA width the wrapper takes and at 256 threads, beside the bound of
+    the launch's work (`_round_work`)."""
+    from types import SimpleNamespace
+    full = dict(num_cycles=3, sweeps_per_phase=64)
+    ens, kw = _c26_16_slots()
+    R = kw["replica_offset"]
+    m0, cl, dn, beta, gen = _round_inputs(torch, ens, 7)
+    kernel = _round_fns(ens)[0]
+    kw.update(full)
+    flips = torch.zeros((1, R), dtype=torch.int32, device=DEVICE)
+    kernel(m0, cl, dn, beta, gen, flips=flips, **kw)
+
+    def median_ms():
+        return float(np.median([_event_ms(torch, lambda: kernel(
+            m0, cl, dn, beta, gen, **kw))[0] for _ in range(5)]))
+
+    out = {"n_pad": ens.n_pad, "ms": median_ms(), **_steps(ens, R)}
+    with _round_width(rc, rc.ROUND_WIDTHS[0]):
+        out["ms_at_256_threads"] = median_ms()
+    attempts, ops, nbytes = _round_work(
+        torch, ens, SimpleNamespace(m=m0, cl=cl, do_nmc_slot=dn), full,
+        int(flips.sum()), 9 * 64)
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_HBM_BYTES
+    out.update(attempts=attempts, bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               share_of_bound=1e3 * max(t_ops, t_bytes) / out["ms"])
+    return out
 
 
 def _sharded_k5_alone(torch, rc, npt, state):
@@ -4463,76 +4567,42 @@ def phase_throughput(card, c2048, r4096, ens512, ens2048):
 
 # Timing variants of csrc/ensemble_round.cu, each a list of (text, its
 # replacement) applied to a copy of the source: "no_*" drop one piece of a
-# block step or sweep (their results are wrong; they only split the time);
-# the others keep the arithmetic and are held bit for bit against the
-# kernel. A patch that no longer applies fails the run.
+# step or sweep (their results are wrong; they only split the time); the
+# others keep the arithmetic and are held bit for bit against the kernel.
+# A patch that no longer applies fails the run.
 _NO_ENERGY = ("        if (tid < 32) {\n          const float e = warp0_energy",
               "        if (false) {\n          const float e = warp0_energy")
-_NO_GATHER = ("          nmc::gather_block(a.nb, w, b, dm, phi);",
-              "          if (false) nmc::gather_block(a.nb, w, b, dm, phi);")
+_NO_GATHER = ("          gather_step(a, w, s, dm, s0, phi);",
+              "          if (false) gather_step(a, w, s, dm, s0, phi);")
 _NO_PHILOX = ("nmc::philox4x32_10_word0(\n                      (uint32_t)col, "
               "r_key, tg, inst_key, seed0, seed1);",
               "(uint32_t)col * 0x9E3779B9u ^ tg * 0x85EBCA6Bu ^ r_key "
               "^ seed0;")
 _NO_TANHF = ("0.5f * (1.0f + tanhf(betab * phi[col]))",
              "0.5f + 0.25f * betab * phi[col]")
-# each target's source loads issued four at a time before its FMAs
-_GATHER_4 = [("__device__ void rebuild_phi(", """template <typename X>
-__device__ __forceinline__ void gather_4(const nmc::Neighbors& nb,
-                                         const float* w, int b, const X* x,
-                                         float* phi) {
-  const int t1 = __ldg(nb.tgt_ptr + b + 1);
-  for (int t = __ldg(nb.tgt_ptr + b) + threadIdx.x; t < t1; t += blockDim.x) {
-    const int j = __ldg(nb.tgt + t);
-    const int e1 = __ldg(nb.src_ptr + t + 1);
-    float acc = 0.f;
-    for (int e = __ldg(nb.src_ptr + t); e < e1; e += 4) {
-      int k[4];
-      float wv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        k[q] = e + q < e1 ? (int)__ldg(nb.src + e + q) : 0;
-        wv[q] = e + q < e1 ? __ldg(w + e + q) : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        if (e + q < e1) acc = fmaf((float)x[k[q]], wv[q], acc);
-    }
-    phi[j] += acc;
-  }
-}
-
-__device__ void rebuild_phi("""),
-             ("    nmc::gather_block(a.nb, w, b, m + b * a.B, phi);",
-              "    gather_4(a.nb, w, b, m + b * a.B, phi);"),
-             ("          nmc::gather_block(a.nb, w, b, dm, phi);",
-              "          gather_4(a.nb, w, b, dm, phi);")]
 # the shared-memory carveout set to what 5 CTAs need, the rest left to L1
-_CARVEOUT = [("  if (I == 0 || R == 0) return (int)cudaSuccess;",
-              "  err = cudaFuncSetAttribute(ensemble_round_kernel, "
-              "cudaFuncAttributePreferredSharedMemoryCarveout, (int)((5 * "
-              "(smem + 1024) * 100 + 233471) / 233472));\n"
-              "  if (err != cudaSuccess) return (int)err;\n"
-              "  if (I == 0 || R == 0) return (int)cudaSuccess;")]
+_CARVEOUT = [("    if (I == 0 || R == 0) return (int)cudaSuccess;",
+              "    const size_t carve = (5 * (smem + 1024) * 100 + 233471) "
+              "/ 233472;\n"
+              "    err = cudaFuncSetAttribute(kernel, "
+              "cudaFuncAttributePreferredSharedMemoryCarveout, "
+              "(int)(carve < 100 ? carve : 100));\n"
+              "    if (err != cudaSuccess) return (int)err;\n"
+              "    if (I == 0 || R == 0) return (int)cudaSuccess;")]
 # CTA c takes slot c % R of instance c / R, whatever its SM
 _NO_CLAIMS = [("  const int r = claim[0], inst = claim[1];",
                "  const int r = blockIdx.x % a.R, inst = blockIdx.x / a.R;")]
-# 128 threads per CTA (one per spin of a block in the draws), 10 CTAs per SM
-_THREADS_128 = [("__launch_bounds__(kThreads, kMinCtasPerSm)",
-                 "__launch_bounds__(128, 10)"),
-                ("ensemble_round_kernel<<<I * R, kThreads,",
-                 "ensemble_round_kernel<<<I * R, 128,"),
-                ("ctas_per_sm, ensemble_round_kernel, kThreads,",
-                 "ctas_per_sm, ensemble_round_kernel, 128,")]
+# the wide launches (one slot an SM) at 512 threads instead of 1024
+_WIDE_512 = [("    case kWide: return f(ensemble_round_kernel<kWide>, kWide);",
+              "    case kWide: return f(ensemble_round_kernel<512>, 512);")]
 ROUND_ABLATIONS = {
     "as_is": [], "no_sweep_energy": [_NO_ENERGY], "no_gather": [_NO_GATHER],
     "no_philox": [_NO_PHILOX], "no_tanhf": [_NO_TANHF],
     "no_energy_gather_philox_tanhf": [_NO_ENERGY, _NO_GATHER, _NO_PHILOX,
                                       _NO_TANHF],
-    "gather_4_loads_at_once": _GATHER_4, "l1_carveout": _CARVEOUT,
-    "no_slot_claims": _NO_CLAIMS, "threads_128": _THREADS_128}
-_SAME_ARITHMETIC = ("gather_4_loads_at_once", "l1_carveout",
-                    "no_slot_claims", "threads_128")
+    "l1_carveout": _CARVEOUT, "no_slot_claims": _NO_CLAIMS,
+    "wide_512": _WIDE_512}
+_SAME_ARITHMETIC = ("l1_carveout", "no_slot_claims", "wide_512")
 
 
 def _variant_library(variant, lib, headers, patches, phase="variants"):
@@ -4602,41 +4672,58 @@ def _ablate(phase, lib, headers, variants, cases, turns):
 
 
 def round_ablation(turns=9):
-    """`_ablate` over ROUND_ABLATIONS, timed as the throughput phase times
-    K4 and K5: one 576-sweep round at the ensemble configurations (20
-    instances x 32 slots, random states). Each variant first runs a short
-    round on injected uniforms, held bit for bit against the kernel as is
-    where the variant keeps its arithmetic (_SAME_ARITHMETIC)."""
+    """`_ablate` over ROUND_ABLATIONS, timed as `_round_kernel_times` times
+    K4 and K5: one 576-sweep round at the ensemble configurations (20 instances
+    x 32 slots, random states), K5 at chimera 26x26 x 16 slots (the wide
+    CTA), and K5 at 20 x 16x16 over a layout of one block a step (the
+    block-by-block walk's barriers in the same binary). Each variant first
+    runs a short round on injected uniforms, held bit for bit against the
+    kernel as is where the variant keeps its arithmetic
+    (_SAME_ARITHMETIC)."""
     import torch
     from nmc_tpu_torch.ops import round_cuda as rc
     full = dict(num_cycles=3, sweeps_per_phase=64)
     reference = {}
 
-    def case(name, size):
-        _, ens, _ = _ensemble(size, 20)
+    def case(name, ens, **kw):
         m0, cl, dn, beta, gen = _round_inputs(torch, ens, 21)
         u = torch.rand((9, 4) + tuple(m0.shape), generator=gen, device=DEVICE)
         kernel, args = _round_fns(ens)[0], (m0, cl, dn, beta)
+        nbrs = kw.get("nbrs", ens.round_nbrs)
 
         def probe(variant):
             short = kernel(*args, None, uniforms=u, num_cycles=3,
-                           sweeps_per_phase=4)
+                           sweeps_per_phase=4, **kw)
             if variant == "as_is":
                 reference[name] = short
             elif variant in _SAME_ARITHMETIC:
                 check(all(torch.equal(a, b) for a, b in
                           zip(short, reference[name])),
                       f"{variant}: {name} differs from the kernel")
-            kernel(*args, gen, **full)                    # warm-up
-            regs, ctas = rc.kernel_occupancy(ens.n_pad, 128)
-            return {"registers": regs, "ctas_per_sm": ctas}
+            kernel(*args, gen, **full, **kw)              # warm-up
+            slots = m0.shape[0] * m0.shape[1]
+            width = rc.round_threads(slots, rc._num_sms(m0.device))
+            regs, ctas = rc.kernel_occupancy(ens.n_pad, nbrs.step_spins,
+                                             width)
+            return {"registers": regs, "ctas_per_sm": ctas,
+                    "cta_width": width,
+                    "steps_per_sweep": nbrs.step_ptr.numel() - 1}
 
-        return probe, lambda: kernel(*args, gen, **full)
+        return probe, lambda: kernel(*args, gen, **full, **kw)
 
+    cases = {}
+    for name, size in (("ensemble_round", 8), ("ensemble_round_sparse", 16)):
+        _, ens, _ = _ensemble(size, 20)
+        cases[name] = case(name, ens)
+    col_idx, J_tiles = ens._stream_tiles
+    cases["ensemble_round_sparse_block_steps"] = case(
+        "ensemble_round_sparse_block_steps", ens,
+        nbrs=rc.neighbors_from_tiles(
+            col_idx, J_tiles, steps=range(ens.blocked0.num_blocks + 1)))
+    c26, c26_kw = _c26_16_slots()
+    cases["c26_16_slots"] = case("c26_16_slots", c26, **c26_kw)
     _ablate("round_ablation", "ensemble_round", ["sweep_common.cuh"],
-            ROUND_ABLATIONS, {name: case(name, size) for name, size in (
-                ("ensemble_round", 8), ("ensemble_round_sparse", 16))},
-            turns)
+            ROUND_ABLATIONS, cases, turns)
 
 
 # ---- the exact kernels' ablation (chip_smoke.py --exact-ablation) ----
@@ -4934,9 +5021,8 @@ def sequential_ablation(turns=7):
 def sweep_times(tree, kernels=True):
     """K1, K2 and K3 alone (CUDA events, beta 2) at their main-path launch
     shapes (`_launch_shapes`) and their throughput shapes (K1 R = 2048 x
-    1024, K2/K3 SWEEP_THROUGHPUT) and K4 / K5 (one 576-sweep round with
-    Philox, 20 chimera 8x8 / 16x16 x 32 slots, median of 5), unless not
-    `kernels`; then the sequential route alone (CUDA events, Philox) at
+    1024, K2/K3 SWEEP_THROUGHPUT) and K4 / K5 a round at their launches
+    (`_round_kernel_times`), unless not `kernels`; then the sequential route alone (CUDA events, Philox) at
     EnsemblePT's single-instance launch (Gaussian SK-1000, SEQ_SHAPE, beta
     2), on the uncoloured Gaussian chimera 8x8 (R = 256 x 16, beta 2) and
     at the contrived ICM round's launch (R = 320, 576 sweeps, its slot
@@ -5014,18 +5100,57 @@ def _kernel_times(torch, c, out):
             "throughput_ms": c._throughput_one(
                 torch, name, prob, eng, *shape, 4,
                 with_plain=False)["kernel_ms_per_call"]}
+    _round_kernel_times(torch, c, out)
+
+
+def _round_kernel_times(torch, c, out):
+    """K4 and K5 alone (CUDA events, Philox, median of 5 after a warm-up;
+    the ICM shape through `_icm_kernel_ms`) at their launches: one
+    576-sweep round at 20 chimera 8x8 / 16x16 instances x 32 slots (the
+    ensembles'), a pure-ICM round at 20 x 320 slots (EnsembleICM's), and
+    K5 at chimera 26x26 x 16 slots (`_c26_16_slots`); with the chip_smoke.py
+    `c` and package of a checkout, into `out`. Where the package has CTA
+    widths, each launch is also timed at every width, forced
+    (`round_ms_by_width`)."""
+    from nmc_tpu_torch.ops import round_cuda as rc
+    widths = getattr(rc, "ROUND_WIDTHS", ())
+    full = dict(num_cycles=3, sweeps_per_phase=64)
+
+    def timed(call):
+        call()
+        return float(np.median([c._event_ms(torch, call)[0]
+                                for _ in range(5)]))
+
+    def by_width(res, ms):
+        res["round_ms"] = ms()
+        if widths:
+            res["cta_width"] = rc.round_threads(res["slots"],
+                                                rc._num_sms(DEVICE))
+        res["round_ms_by_width"] = {}
+        for w in widths:
+            with _round_width(rc, w):
+                res["round_ms_by_width"][w] = ms()
+        out[res.pop("name")] = res
+
     for name, size in (("ensemble_round", 8), ("ensemble_round_sparse", 16)):
         _, ens, _ = c._ensemble(size, 20)
         m0, cl, dn, beta, gen = c._round_inputs(torch, ens, 5)
         kernel = c._round_fns(ens)[0]
-
-        def call():
-            return kernel(m0, cl, dn, beta, gen, num_cycles=3,
-                          sweeps_per_phase=64)
-
-        call()
-        out[name] = {"round_ms": float(np.median(
-            [c._event_ms(torch, call)[0] for _ in range(5)]))}
+        by_width({"name": name, "slots": 20 * 32},
+                 lambda: timed(lambda: kernel(m0, cl, dn, beta, gen,
+                                              **full)))
+        _, ens, _ = c._icm_ensemble(size, 20)
+        state = ens.init_state(torch.Generator(device=DEVICE).manual_seed(5))
+        by_width({"name": f"{name}_icm", "slots": 20 * 320},
+                 lambda: c._icm_kernel_ms(torch, ens, state)[
+                     "kernel_ms_per_round"])
+        del ens, state
+    ens, kw = _c26_16_slots()
+    m0, cl, dn, beta, gen = c._round_inputs(torch, ens, 7)
+    kernel = c._round_fns(ens)[0]
+    by_width({"name": "ensemble_round_sparse_c26_16_slots", "slots": 16},
+             lambda: timed(lambda: kernel(m0, cl, dn, beta, gen, **kw,
+                                          **full)))
 
 
 def main():

@@ -20,16 +20,25 @@ state, which the replica-exchange test reads.
     variant only changes how the tiles reach VMEM, so there is one K5.
 
 Both kernels read the couplings only through a `RoundNeighbors` layout:
-per row block, each target spin with a coupling from the block and its
-sources in ascending order, with per-instance weights. It is built once
-from dense J (`neighbors_from_dense`) or from the union tiles
+the row blocks cut into steps by the rule of the sweep kernels
+(`sweeps_cuda.sweep_steps`: maximal runs of consecutive blocks with no
+coupling between two of them, a colored layout's colour classes), per
+step each target spin with a coupling from the step and its sources in
+ascending order, with per-instance weights. A launch walks a sweep step
+by step: every spin of a step draws at once, then each target sums its
+sources block by block as the block-by-block walk does. The layout is
+built once from dense J (`neighbors_from_dense`) or from the union tiles
 (`neighbors_from_tiles`), which give the same layout for the same
-couplings; `EnsembleNMC` builds it at setup and passes it as `nbrs=`,
-and a wrapper called without it builds it. The two entry points launch
-one kernel body, so on one layout and one seed K4 and K5 agree bit for
-bit. `ensemble_round_neighbors_reference` runs the round in plain torch
-over the layout with the kernel's association (for the tests and
-chip_smoke.py; no route calls it).
+couplings; the engines build it at setup and pass it as `nbrs=`, and a
+wrapper called without it builds it. The two entry points launch one
+kernel body, so on one layout and one seed K4 and K5 agree bit for bit.
+`ensemble_round_neighbors_reference` runs the round in plain torch over
+the layout with the kernel's association (for the tests and
+chip_smoke.py; no route calls it). The CTA width follows from the
+launch's slot count (`round_threads`). While an engine records a round
+(`utils.metrics.RoundSpans`), a launch adds its sweeps' steps and the
+block steps a block-by-block walk would take to the counters
+"round_steps" and "round_blocks".
 
 The heated beta is beta_row * (1 + f32(temp_x_inv - 1)), computed in f32
 as the Pallas kernels compute it (the plain XLA round of the JAX engine
@@ -57,24 +66,30 @@ whole ensemble in the unsliced order and keeps its rows; `seed=` (int32
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.metrics import count
 from ._build import bind, load_library
 from .sweeps import heat_bath_update
 from .sweeps_cuda import (_INT16_MAX, MAX_SHARED_BYTES, _broadcast, _check,
-                          _check_shared, _cpu_uniforms, _pack_neighbors, _ptr,
-                          _raise_on, _require_cuda, _seed, slice_axis)
+                          _check_shared, _cpu_uniforms, _num_sms, _ptr,
+                          _raise_on, _require_cuda, _seed, _step_layout,
+                          slice_axis, warp0_energy)
 
 _LIB = "ensemble_round"
 # argument kinds of each C entry point, in order ('p' pointer, 'i' int,
 # 'f' float); the CUDA stream follows as one more pointer. Both take the
-# neighbour layout (5 pointers) and the same round arguments, the replica
-# and instance offsets last.
-_SIGNATURES = {"ensemble_round_f32": "p" * 19 + "i" * 8 + "f" + "ii",
-               "ensemble_round_sparse_f32": "p" * 19 + "i" * 8 + "f" + "ii"}
+# neighbour layout (5 pointers) and the same round arguments, then the
+# replica and instance offsets and the CTA width.
+_SIGNATURES = {"ensemble_round_f32": "p" * 20 + "i" * 10 + "f" + "iii",
+               "ensemble_round_sparse_f32": "p" * 20 + "i" * 10 + "f" + "iii"}
+# The CTA widths the round kernel is built for: 256 threads, five CTAs an
+# SM, where the slots fill the SMs; 1024, one CTA an SM, where every slot
+# has an SM of its own (`round_threads`).
+ROUND_WIDTHS = (256, 1024)
 
 
 class EnsembleRoundResult(NamedTuple):
@@ -85,53 +100,71 @@ class EnsembleRoundResult(NamedTuple):
 
 
 class RoundNeighbors(NamedTuple):
-    """The round kernels' coupling layout over a family's union graph. Per
-    row block b of `block_size` spins: the targets j with a coupling from a
-    spin of b (longest source list first, then ascending j), and per target
-    its sources k in b (ascending k); the weights follow the source
-    entries."""
-    tgt_ptr: torch.Tensor  # [nB + 1] int32: block b's targets tgt_ptr[b]:tgt_ptr[b+1]
-    tgt: torch.Tensor      # [n_tgt] int16 target spin j
-    src_ptr: torch.Tensor  # [n_tgt + 1] int32: target t's sources
-    src: torch.Tensor      # [nnz] int16 source offset k - b * block_size
-    w: torch.Tensor        # [I, nnz] float32 J[i, k, j]; exactly 0 where
-                           # instance i lacks the union edge
+    """The round kernels' coupling layout over a family's union graph. The
+    row blocks of `block_size` spins are cut into steps, maximal runs of
+    consecutive blocks with no coupling between two of them (the rule of
+    `sweeps_cuda.sweep_steps`; on a colored layout its colour classes).
+    Per step: the targets j with a coupling from a spin of the step
+    (longest source list first, then ascending j), and per target its
+    sources k in the step in ascending k, so block after block; the
+    weights follow the source entries."""
+    step_ptr: torch.Tensor  # [n_steps + 1] int32: step s holds row blocks step_ptr[s]:step_ptr[s+1]
+    tgt_ptr: torch.Tensor   # [n_steps + 1] int32: step s's targets tgt_ptr[s]:tgt_ptr[s+1]
+    tgt: torch.Tensor       # [n_tgt] int16 target spin j
+    src_ptr: torch.Tensor   # [n_tgt + 1] int32: target t's sources
+    src: torch.Tensor       # [nnz] int16 source spin k
+    w: torch.Tensor         # [I, nnz] float32 J[i, k, j]; exactly 0 where
+                            # instance i lacks the union edge
     block_size: int
+    step_spins: int         # the widest step's spins
 
 
-def _round_neighbors(b, j, kk, w, nB, B) -> RoundNeighbors:
-    """The layout from union entries (row block b, target j, source offset
-    kk) sorted by (b, j, kk), with their weights w [I, nnz]
-    (`sweeps_cuda._pack_neighbors`: per block, longest source list first)."""
-    tgt_ptr, tgt, src_ptr, src, w = _pack_neighbors(b, j, kk, w, nB, B, nB * B)
-    return RoundNeighbors(tgt_ptr=tgt_ptr, tgt=tgt, src_ptr=src_ptr, src=src,
-                          w=w.to(torch.float32), block_size=B)
+def _round_neighbors(k, j, w, nB, B, steps) -> RoundNeighbors:
+    """The layout of union entries (source k, target j) with their weights
+    w [I, nnz], cut into `steps` (default `sweeps_cuda.sweep_steps`'
+    rule)."""
+    steps, tgt_ptr, tgt, src_ptr, src, w = _step_layout(k, j, w, nB, B, steps)
+    return RoundNeighbors(
+        step_ptr=torch.tensor(steps, dtype=torch.int32, device=k.device),
+        tgt_ptr=tgt_ptr, tgt=tgt, src_ptr=src_ptr, src=src,
+        w=w.to(torch.float32), block_size=B,
+        step_spins=B * int(np.diff(steps).max()))
 
 
-def neighbors_from_dense(J, block_size: int) -> RoundNeighbors:
+def neighbors_from_dense(J, block_size: int, *,
+                         steps: Optional[Sequence[int]] = None
+                         ) -> RoundNeighbors:
     """The layout of dense J [I, n_pad, n_pad] (rows are sources) over its
-    union nonzero pattern, blocked by `block_size`."""
+    union nonzero pattern, blocked by `block_size`; `steps` (boundaries
+    over the blocks) replaces the rule's."""
     I, n_pad, _ = J.shape
     B = block_size
     if n_pad % B:
         raise ValueError("n_pad must be a multiple of block_size")
-    nB = n_pad // B
-    union = (J != 0).any(0).reshape(nB, B, n_pad).transpose(1, 2)
-    b, j, kk = torch.nonzero(union.contiguous(), as_tuple=True)  # (b, j, kk)
-    return _round_neighbors(b, j, kk, J[:, b * B + kk, j], nB, B)
+    k, j = torch.nonzero((J != 0).any(0), as_tuple=True)
+    return _round_neighbors(k, j, J[:, k, j], n_pad // B, B, steps)
 
 
-def neighbors_from_tiles(col_idx, J_tiles) -> RoundNeighbors:
+def neighbors_from_tiles(col_idx, J_tiles, *,
+                         steps: Optional[Sequence[int]] = None
+                         ) -> RoundNeighbors:
     """The layout of union block-sparse tiles J_tiles [I, nB, K, B, B] over
     col_idx [nB, K]; padding tiles (zero in every instance, aliasing column
-    block 0) give no entries."""
+    block 0) give no entries. `steps` as in `neighbors_from_dense`."""
     I, nB, K, B, _ = J_tiles.shape
-    n_pad = nB * B
-    b, k, kk, jj = torch.nonzero((J_tiles != 0).any(0), as_tuple=True)
-    j = col_idx.to(b.device).long()[b, k] * B + jj
-    order = torch.argsort((b * n_pad + j) * B + kk, stable=True)
-    b, k, kk, jj, j = (x[order] for x in (b, k, kk, jj, j))
-    return _round_neighbors(b, j, kk, J_tiles[:, b, k, kk, jj], nB, B)
+    b, t, kk, jj = torch.nonzero((J_tiles != 0).any(0), as_tuple=True)
+    j = col_idx.to(b.device).long()[b, t] * B + jj
+    return _round_neighbors(b * B + kk, j, J_tiles[:, b, t, kk, jj], nB, B,
+                            steps)
+
+
+def round_threads(slots: int, num_sms: int) -> int:
+    """The round kernel's CTA width for a launch of `slots` CTAs (I * R)
+    on num_sms SMs: 1024 threads, one CTA an SM, when every slot has an SM
+    of its own; else 256, five CTAs an SM (a wave of 660 on 132 SMs). A
+    step of 1,000-2,800 spins gives work to more threads than 256, but
+    where the slots fill the SMs the narrow CTAs share them."""
+    return ROUND_WIDTHS[1] if slots <= num_sms else ROUND_WIDTHS[0]
 
 
 def _check_neighbors(nbrs, I, n_pad, B, device):
@@ -139,9 +172,16 @@ def _check_neighbors(nbrs, I, n_pad, B, device):
         raise TypeError("nbrs must be a RoundNeighbors")
     if nbrs.block_size != B:
         raise ValueError(f"nbrs has block_size {nbrs.block_size}, expected {B}")
+    n_steps = nbrs.step_ptr.shape[0] - 1
     n_tgt, nnz = nbrs.tgt.shape[0], nbrs.src.shape[0]
-    _check("nbrs.tgt_ptr", nbrs.tgt_ptr, (n_pad // B + 1,), torch.int32,
+    if not 1 <= n_steps <= n_pad // B:
+        raise ValueError(f"nbrs has {n_steps} steps for {n_pad // B} blocks")
+    if not B <= nbrs.step_spins <= n_pad:
+        raise ValueError(f"nbrs has steps of {nbrs.step_spins} spins for "
+                         f"n_pad {n_pad}")
+    _check("nbrs.step_ptr", nbrs.step_ptr, (n_steps + 1,), torch.int32,
            device)
+    _check("nbrs.tgt_ptr", nbrs.tgt_ptr, (n_steps + 1,), torch.int32, device)
     _check("nbrs.tgt", nbrs.tgt, (n_tgt,), torch.int16, device)
     _check("nbrs.src_ptr", nbrs.src_ptr, (n_tgt + 1,), torch.int32, device)
     _check("nbrs.src", nbrs.src, (nnz,), torch.int16, device)
@@ -150,29 +190,36 @@ def _check_neighbors(nbrs, I, n_pad, B, device):
 
 def neighbor_phi_fns(nbrs: RoundNeighbors, h):
     """(phi_of, phi_add) for `_round_reference` over the layout, with the
-    kernel's association: per target acc = 0, acc += x_k * w_kj over its
-    sources in ascending k (x_k in {0, +-1, +-2}, so each product is exact
-    and the kernel's fmaf rounds as this sum does), then phi[j] += acc;
-    phi_of starts from h and adds row block after row block."""
+    kernel's association: per row block b and target j, acc = 0, acc +=
+    x_k * w_kj over j's sources in b in ascending k (x_k in {0, +-1,
+    +-2}, so each product is exact and the kernel's fmaf rounds as this
+    sum does), then phi[j] += acc; phi_of starts from h and adds row block
+    after row block. The kernel walks a step's blocks inside each target's
+    source list, which adds the same sums in the same order."""
     B = nbrs.block_size
     I = nbrs.w.shape[0]
     n_pad = h.shape[-1]
-    dtype = h.dtype
-    tgt_ptr = nbrs.tgt_ptr.tolist()
-    src_ptr = nbrs.src_ptr.long()
-    counts = src_ptr[1:] - src_ptr[:-1]
+    dtype, device = h.dtype, h.device
+    src = nbrs.src.long()
+    counts = torch.diff(nbrs.src_ptr.long())
+    t_of = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=device), counts)
+    w = nbrs.w.to(dtype)
     blocks = []
     for b in range(n_pad // B):
-        t0, t1 = tgt_ptr[b], tgt_ptr[b + 1]
-        D = int(counts[t0:t1].max()) if t1 > t0 else 0
+        # block b's entries: a run of ascending k per target
+        e = torch.nonzero(src // B == b).squeeze(1)
+        t, inv, cnt = torch.unique_consecutive(
+            t_of[e], return_inverse=True, return_counts=True)
+        D = int(cnt.max()) if e.numel() else 0
+        pos = (torch.arange(e.numel(), device=device)
+               - (torch.cumsum(cnt, 0) - cnt)[inv])
         # the sources of block b's targets padded to D with weight 0
-        d = torch.arange(D, device=h.device)
-        e = src_ptr[t0:t1, None] + d
-        live = d < counts[t0:t1, None]
-        e = torch.where(live, e, 0)
-        idx = torch.where(live, nbrs.src.long()[e], 0)
-        wt = torch.where(live, nbrs.w.to(dtype)[:, e], 0)[:, None]
-        blocks.append((nbrs.tgt.long()[t0:t1], idx, wt))
+        idx = torch.zeros((t.numel(), D), dtype=torch.long, device=device)
+        idx[inv, pos] = src[e] - b * B
+        wt = torch.zeros((I, t.numel(), D), dtype=dtype, device=device)
+        wt[:, inv, pos] = w[:, e]
+        blocks.append((nbrs.tgt.long()[t], idx, wt[:, None]))
     h3 = h[:, None, :]
 
     def phi_add(phi, x, b):
@@ -214,10 +261,12 @@ def _bind(lib, fn: str):
 
 def _round_reference(phi_of, phi_add, B, h, act, m0, cl, do_nmc, beta_row,
                      generator, *, num_cycles, sweeps_per_phase,
-                     full_update_frequency, temp_x_inv, uniforms, flips):
+                     full_update_frequency, temp_x_inv, uniforms, flips,
+                     energy=None):
     """The round in plain torch over all instances at once; `phi_of(m)`
     rebuilds phi = J m + h, `phi_add(phi, dm, b)` adds row block b's
-    change."""
+    change, `energy(m, phi)` sums -1/2 m.(phi + h) ([I, R]; default
+    `torch.sum`'s order)."""
     I, R, n_pad = m0.shape
     dtype, device = m0.dtype, m0.device
     T = sweeps_per_phase
@@ -237,6 +286,9 @@ def _round_reference(phi_of, phi_add, B, h, act, m0, cl, do_nmc, beta_row,
         I, R, 1)
     heat = torch.tensor(heated_factor(temp_x_inv), dtype=dtype, device=device)
     h3 = h.to(dtype)[:, None, :]
+    if energy is None:
+        def energy(m, phi):
+            return -0.5 * torch.sum(m * (phi + h3), dim=-1)
 
     m = m0.clone()
     e_best = torch.full((I, R), float("inf"), dtype=dtype, device=device)
@@ -270,7 +322,7 @@ def _round_reference(phi_of, phi_add, B, h, act, m0, cl, do_nmc, beta_row,
                 n_flips += (dm != 0).sum(-1)
                 phi = phi_add(phi, dm, b)
                 m[..., s:s + B] = new
-            e = -0.5 * torch.sum(m * (phi + h3), dim=-1)
+            e = energy(m, phi)
             better = e < e_phase
             e_phase = torch.where(better, e, e_phase)
             m_phase = torch.where(better[..., None], m, m_phase)
@@ -279,7 +331,7 @@ def _round_reference(phi_of, phi_add, B, h, act, m0, cl, do_nmc, beta_row,
         e_best = torch.where(better, e_phase, e_best)
         m_best = torch.where(better[..., None], m_phase, m_best)
     phi = phi_of(m)
-    e_carried = -0.5 * torch.sum(m * (phi + h3), dim=-1)
+    e_carried = energy(m, phi)
     if flips is not None:
         flips.copy_(n_flips)
     return EnsembleRoundResult(m=m, m_best=m_best, e_best=e_best,
@@ -359,14 +411,23 @@ def ensemble_round_neighbors_reference(
     flips: Optional[torch.Tensor] = None,
 ) -> EnsembleRoundResult:
     """Plain-torch round over a `RoundNeighbors` layout with the kernels'
-    phi association (`neighbor_phi_fns`); for the tests and chip_smoke.py,
-    no route calls it."""
+    phi association (`neighbor_phi_fns`) and their energy sum (warp 0's
+    lane order, `sweeps_cuda.warp0_energy`), so that in f32 it equals the
+    kernels bit for bit; for the tests and chip_smoke.py, no route calls
+    it."""
     phi_of, phi_add = neighbor_phi_fns(nbrs, h.to(m0.dtype))
+    I, R, n_pad = m0.shape
+    h_rows = h.to(m0.dtype)[:, None, :].expand(I, R, n_pad).reshape(-1, n_pad)
+
+    def energy(m, phi):
+        return warp0_energy(h_rows, m.reshape(-1, n_pad),
+                            phi.reshape(-1, n_pad)).reshape(I, R)
+
     return _round_reference(
         phi_of, phi_add, nbrs.block_size, h, act, m0, cl, do_nmc, beta_row,
         generator, num_cycles=num_cycles, sweeps_per_phase=sweeps_per_phase,
         full_update_frequency=full_update_frequency, temp_x_inv=temp_x_inv,
-        uniforms=uniforms, flips=flips)
+        uniforms=uniforms, flips=flips, energy=energy)
 
 
 def _round_args(h, act, m0, cl, do_nmc, beta_row, generator, uniforms, flips,
@@ -396,21 +457,23 @@ def _round_args(h, act, m0, cl, do_nmc, beta_row, generator, uniforms, flips,
     return act, cl, do_nmc, beta_row, seed, out
 
 
-def _shared_bytes(n_pad, B):
-    """Dynamic shared memory per CTA: phi (f32), dm [B] (f32), m, the
-    phase-best m and the phase flags (1 byte each per spin)."""
-    return 7 * n_pad + 4 * B
+def _shared_bytes(n_pad, step_spins):
+    """Dynamic shared memory per CTA: phi (f32), dm over the widest step
+    (f32), m, the phase-best m and the phase flags (1 byte each per
+    spin)."""
+    return 7 * n_pad + 4 * step_spins
 
 
-def round_kernel_limit(n_pad: int, block_size: int) -> Optional[str]:
-    """Why the round kernels cannot take a layout of n_pad spins in blocks
-    of `block_size`, or None when they can: the neighbour layout's int16
-    spin indices and the CTA's shared memory (one replica's state) are
-    their only limits on the layout."""
+def round_kernel_limit(n_pad: int, step_spins: int) -> Optional[str]:
+    """Why the round kernels cannot take a layout of n_pad spins whose
+    widest step holds `step_spins` (a layout's block size at least), or
+    None when they can: the neighbour layout's int16 spin indices and the
+    CTA's shared memory (one replica's state) are their only limits on the
+    layout."""
     if n_pad > _INT16_MAX + 1:
         return (f"n_pad {n_pad} > {_INT16_MAX + 1}, the int16 spin indices "
                 "of the round kernels' neighbour layout")
-    nbytes = _shared_bytes(n_pad, block_size)
+    nbytes = _shared_bytes(n_pad, step_spins)
     if nbytes > MAX_SHARED_BYTES:
         return (f"n_pad {n_pad} needs {nbytes} bytes of shared memory per "
                 f"CTA, above the {MAX_SHARED_BYTES} a CTA has")
@@ -428,22 +491,34 @@ def _launch(fn, nbrs, h, act, m0, cl, do_nmc, beta_row, generator, *,
     act, cl, do_nmc, beta_row, seed, out = _round_args(
         h, act, m0, cl, do_nmc, beta_row, generator, uniforms, flips,
         num_cycles, sweeps_per_phase, full_update_frequency, seed)
-    _check_shared(fn, _shared_bytes(n_pad, B))
+    _check_shared(fn, _shared_bytes(n_pad, nbrs.step_spins))
     # the kernel's per-instance slot counters (CTAs claim slots by SM id)
     claims = torch.zeros(I, dtype=torch.int32, device=device)
     lib = _bind(load_library(_LIB), fn)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(lib, fn)(
-        nbrs.tgt_ptr.data_ptr(), nbrs.tgt.data_ptr(), nbrs.src_ptr.data_ptr(),
-        nbrs.src.data_ptr(), nbrs.w.data_ptr(), h.data_ptr(), act.data_ptr(),
-        m0.data_ptr(), cl.data_ptr(), do_nmc.data_ptr(), beta_row.data_ptr(),
+        nbrs.step_ptr.data_ptr(), nbrs.tgt_ptr.data_ptr(),
+        nbrs.tgt.data_ptr(), nbrs.src_ptr.data_ptr(), nbrs.src.data_ptr(),
+        nbrs.w.data_ptr(), h.data_ptr(), act.data_ptr(), m0.data_ptr(),
+        cl.data_ptr(), do_nmc.data_ptr(), beta_row.data_ptr(),
         _ptr(uniforms), _ptr(seed), out.m.data_ptr(), out.m_best.data_ptr(),
         out.e_best.data_ptr(), out.e_carried.data_ptr(), _ptr(flips),
-        claims.data_ptr(), I, R, n_pad, B, nbrs.src.shape[0], num_cycles,
-        sweeps_per_phase, full_update_frequency, heated_factor(temp_x_inv),
-        replica_offset, instance_offset, stream)
+        claims.data_ptr(), I, R, n_pad, B, nbrs.step_ptr.shape[0] - 1,
+        nbrs.step_spins, nbrs.src.shape[0], num_cycles, sweeps_per_phase,
+        full_update_frequency, heated_factor(temp_x_inv), replica_offset,
+        instance_offset, round_threads(I * R, _num_sms(device)), stream)
     _raise_on(err, fn)
     return out
+
+
+def _count_steps(nbrs, n_pad, kw):
+    """Add the launch's sweep steps and the block steps a block-by-block
+    walk of the same sweeps takes to the open round's counters (host
+    integers of the layout: no sync)."""
+    sweeps = kw["sweeps_per_phase"] * len(
+        phase_list(kw["num_cycles"], kw["full_update_frequency"]))
+    count("round_steps", (nbrs.step_ptr.shape[0] - 1) * sweeps)
+    count("round_blocks", n_pad // nbrs.block_size * sweeps)
 
 
 def _slice_kw(m0, generator, uniforms, seed, replica_offset, replicas_total,
@@ -498,17 +573,18 @@ def ensemble_round(
         sweeps_per_phase=sweeps_per_phase,
         full_update_frequency=full_update_frequency, temp_x_inv=temp_x_inv,
         flips=flips)
+    I, R, n_pad = m0.shape
     if m0.device.type == "cpu":
         return ensemble_round_reference(J, h, act, m0, cl, do_nmc, beta_row,
                                         generator, block_size=block_size,
                                         **kw)
     _require_cuda(m0, "ensemble_round")
-    I, R, n_pad = m0.shape
     if n_pad % block_size:
         raise ValueError("n_pad must be a multiple of block_size")
     _check("J", J, (I, n_pad, n_pad), torch.float32, m0.device)
     if nbrs is None:
         nbrs = neighbors_from_dense(J, block_size)
+    _count_steps(nbrs, n_pad, kw)
     out = _launch("ensemble_round_f32", nbrs, h, act, m0, cl, do_nmc,
                   beta_row, generator, **kw, **launch_kw)
     ensemble_round.launches += 1
@@ -542,13 +618,13 @@ def ensemble_round_sparse(
         sweeps_per_phase=sweeps_per_phase,
         full_update_frequency=full_update_frequency, temp_x_inv=temp_x_inv,
         flips=flips)
+    I, R, n_pad = m0.shape
     if m0.device.type == "cpu":
         return ensemble_round_sparse_reference(
             col_idx, J_tiles, h, act, m0, cl, do_nmc, beta_row, generator,
             **kw)
     _require_cuda(m0, "ensemble_round_sparse")
     device = m0.device
-    I, R, n_pad = m0.shape
     _, nB, K, B, _ = J_tiles.shape
     if nB * B != n_pad:
         raise ValueError("tile layout does not match n_pad")
@@ -556,23 +632,25 @@ def ensemble_round_sparse(
     _check("J_tiles", J_tiles, (I, nB, K, B, B), torch.float32, device)
     if nbrs is None:
         nbrs = neighbors_from_tiles(col_idx, J_tiles)
+    _count_steps(nbrs, n_pad, kw)
     out = _launch("ensemble_round_sparse_f32", nbrs, h, act, m0, cl, do_nmc,
                   beta_row, generator, **kw, **launch_kw)
     ensemble_round_sparse.launches += 1
     return out
 
 
-def kernel_occupancy(n_pad: int, block_size: int = 128):
-    """(registers per thread, CTAs per SM) of the round kernel with its
-    dynamic shared memory at this shape, from the CUDA runtime (builds the
+def kernel_occupancy(n_pad: int, step_spins: int, threads: int = 256):
+    """(registers per thread, CTAs per SM) of the round kernel at `threads`
+    per CTA with its dynamic shared memory at this shape (n_pad spins, the
+    widest step `step_spins`), from the CUDA runtime (builds the
     library)."""
     lib = load_library(_LIB)
     f = lib.ensemble_round_occupancy
-    f.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+    f.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                   ctypes.POINTER(ctypes.c_int)]
     f.restype = ctypes.c_int
     regs, ctas = ctypes.c_int(), ctypes.c_int()
-    _raise_on(f(_shared_bytes(n_pad, block_size), ctypes.byref(regs),
+    _raise_on(f(threads, _shared_bytes(n_pad, step_spins), ctypes.byref(regs),
                 ctypes.byref(ctas)), "ensemble_round_occupancy")
     return regs.value, ctas.value
 

@@ -205,9 +205,12 @@ def _pair_steps(b, c, nB) -> List[int]:
     return bounds + [nB]
 
 
-def _sweep_neighbors(k, j, w, nB, B, steps) -> SweepNeighbors:
-    """The layout of the couplings w of (source k, target j) in blocks of B;
-    `steps` gives the step boundaries over blocks (default `sweep_steps`)."""
+def _step_layout(k, j, w, nB, B, steps):
+    """(steps, tgt_ptr, tgt, src_ptr, src, w) of the couplings w [I, nnz]
+    of (source k, target j) in blocks of B, cut into `steps`, the step
+    boundaries over blocks (default `_pair_steps`; returned as a list):
+    per step its targets and per target its sources in the step, ascending
+    k (`_pack_neighbors`)."""
     n_pad = nB * B
     device = k.device
     if steps is None:
@@ -215,18 +218,25 @@ def _sweep_neighbors(k, j, w, nB, B, steps) -> SweepNeighbors:
     steps = list(steps)
     if steps[0] != 0 or steps[-1] != nB or np.any(np.diff(steps) <= 0):
         raise ValueError(f"steps {steps} do not cut {nB} blocks")
-    bounds = torch.tensor(steps, dtype=torch.int64, device=device)
     n_steps = len(steps) - 1
     step_of_block = torch.repeat_interleave(
-        torch.arange(n_steps, device=device), torch.diff(bounds))
+        torch.arange(n_steps, device=device),
+        torch.diff(torch.tensor(steps, device=device)))
     g = step_of_block[k // B]
     order = torch.argsort((g * n_pad + j) * n_pad + k)
-    g, j, k, w = g[order], j[order], k[order], w[order]
-    tgt_ptr, tgt, src_ptr, src, w = _pack_neighbors(g, j, k, w[None], n_steps,
-                                                    n_pad, n_pad)
-    return SweepNeighbors(step_ptr=bounds.to(torch.int32), tgt_ptr=tgt_ptr,
-                          tgt=tgt, src_ptr=src_ptr, src=src, w=w[0],
-                          block_size=B, n_pad=n_pad)
+    return (steps, *_pack_neighbors(g[order], j[order], k[order],
+                                    w[:, order], n_steps, n_pad, n_pad))
+
+
+def _sweep_neighbors(k, j, w, nB, B, steps) -> SweepNeighbors:
+    """The layout of the couplings w of (source k, target j) in blocks of B;
+    `steps` gives the step boundaries over blocks (default `sweep_steps`)."""
+    steps, tgt_ptr, tgt, src_ptr, src, w = _step_layout(k, j, w[None], nB,
+                                                        B, steps)
+    return SweepNeighbors(
+        step_ptr=torch.tensor(steps, dtype=torch.int32, device=k.device),
+        tgt_ptr=tgt_ptr, tgt=tgt, src_ptr=src_ptr, src=src, w=w[0],
+        block_size=B, n_pad=nB * B)
 
 
 def sweep_neighbors_from_dense(J_blocks, *,
@@ -954,8 +964,8 @@ def _next_coupled(J_rows):
 def sequential_neighbors(J_rows) -> SequentialNeighbors:
     """The sequential kernel's layout of J's row blocks [nB, B, n_pad] (or
     an ensemble's [I, nB, B, n_pad], over the union pattern; I = 1 for one
-    instance): the targets and sources of `round_cuda.neighbors_from_dense`
-    per block, stored rank by rank (`SequentialNeighbors`), weights in J's
+    instance): per block the targets with a coupling from it and their
+    sources in it, stored rank by rank (`SequentialNeighbors`), weights in J's
     dtype, in the kernel's blocks (`sequential_block`)."""
     if J_rows.ndim == 3:
         J_rows = J_rows[None]

@@ -282,6 +282,12 @@ class EnsembleICM:
                 self._stream_tiles = (put(col_idx, torch.int32),
                                       put(J_tiles))
                 self.round_nbrs = neighbors_from_tiles(*self._stream_tiles)
+            # the kernels hold dm over the layout's widest step
+            limit = round_kernel_limit(n_pad, self.round_nbrs.step_spins)
+            if limit:
+                fails.append(limit)
+                self.round_path = "plain"
+                self._stream_tiles = self.round_nbrs = None
         if self.round_path == "plain" and (
                 cfg.round_kernel == "on"
                 or (cfg.round_kernel == "auto" and dev.type == "cuda"

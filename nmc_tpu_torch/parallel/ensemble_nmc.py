@@ -566,6 +566,11 @@ def round_route(blocked, J_full, round_kernel, dtype, device, put,
             path = "K5"
             tiles = (put(col_idx, torch.int32), put(J_tiles))
             nbrs = neighbors_from_tiles(*tiles)
+        # the kernels hold dm over the layout's widest step
+        limit = round_kernel_limit(n_pad, nbrs.step_spins)
+        if limit:
+            fails.append(limit)
+            path, nbrs, tiles = "plain", None, None
     if path == "plain" and (
             round_kernel == "on"
             or (round_kernel == "auto" and device.type == "cuda"

@@ -4,7 +4,7 @@ K4 and K5 read the couplings only through a `RoundNeighbors` layout built
 from dense J or from the family's union tiles. Here, with inputs made from
 seeds with numpy:
   * the layouts from dense J and from the tiles are equal, scatter back
-    to J exactly, list a block's targets longest source list first and
+    to J exactly, list a step's targets longest source list first and
     each target's sources in ascending order, take no entry from a
     padding tile and hold weight 0 where an instance lacks a union edge;
   * the plain round over the layout (`ensemble_round_neighbors_reference`,
@@ -14,7 +14,14 @@ seeds with numpy:
     integer-valued, and on Gaussian couplings with equal states and
     energies to 1e-5 (the sums associate differently);
   * `EnsembleNMC` builds the layout once at setup and passes it to every
-    launch.
+    launch;
+  * the layout's steps are `sweep_steps` of the same couplings and, on a
+    colored layout, its colour classes (chimera 8x8, the union of 20
+    chimera 16x16, chimera 26x26; one block a step on dense uncoloured J);
+  * the kernels' step gather (per target its step's sources block by
+    block, acc from 0 per block) equals the block-by-block `phi_add` bit
+    for bit on Gaussian couplings;
+  * the CTA width is a function of the launch's slot count and the SMs.
 The kernels themselves run only on a card (chip_smoke.py holds them against
 this plain round).
 """
@@ -31,6 +38,7 @@ from nmc_tpu.ops.round_pallas import (_phase_list, pallas_ensemble_round,
                                       pallas_ensemble_round_streamed)
 from nmc_tpu.parallel.ensemble_nmc import _union_tiles
 from nmc_tpu_torch.ops import round_cuda as rc
+from nmc_tpu_torch.ops.sweeps_cuda import sweep_steps
 from nmc_tpu_torch.parallel import EnsembleNMC, ShardedNPTConfig
 from nmc_tpu_torch.parallel import ensemble_nmc as ten
 
@@ -87,13 +95,12 @@ def _layouts(kind, gaussian=False, seeds=(3, 4)):
 
 
 def _entries(nbrs):
-    """(row block, target, source offset) of every entry, numpy."""
-    src_ptr = nbrs.src_ptr.long()
-    counts = (src_ptr[1:] - src_ptr[:-1]).numpy()
-    tgt_ptr = nbrs.tgt_ptr.long().numpy()
-    t_block = np.repeat(np.arange(len(tgt_ptr) - 1), np.diff(tgt_ptr))
-    return (np.repeat(t_block, counts), np.repeat(nbrs.tgt.numpy(), counts),
-            nbrs.src.numpy())
+    """(row block, target, source offset in the block) of every entry,
+    numpy."""
+    B = nbrs.block_size
+    counts = np.diff(nbrs.src_ptr.numpy())
+    k = nbrs.src.numpy().astype(np.int64)
+    return k // B, np.repeat(nbrs.tgt.numpy(), counts), k % B
 
 
 def _inputs(blocked, seed, cl_frac=0.3):
@@ -118,12 +125,15 @@ def test_layouts_from_dense_and_tiles_agree_and_scatter_back(kind, gaussian):
     probs, blocked, J, (col_idx, J_tiles), nd, nt = _layouts(kind, gaussian)
     B = blocked[0].block_size
     assert nd.block_size == nt.block_size == B
-    for f in ("tgt_ptr", "tgt", "src_ptr", "src", "w"):
+    assert nd.step_spins == nt.step_spins
+    for f in ("step_ptr", "tgt_ptr", "tgt", "src_ptr", "src", "w"):
         x, y = getattr(nd, f), getattr(nt, f)
         assert x.dtype == y.dtype and torch.equal(x, y), f
     assert (nd.tgt.dtype, nd.src.dtype) == (torch.int16, torch.int16)
     assert (nd.tgt_ptr.dtype, nd.src_ptr.dtype) == (torch.int32, torch.int32)
+    assert nd.step_ptr.dtype == torch.int32
     b, j, kk = _entries(nd)
+    w = nd.w.numpy()
     k = b * B + kk
     # the entries are the union's nonzero couplings, each once: no padding
     # tile adds one (chimera: a padding tile aliases column block 0 beside
@@ -135,22 +145,24 @@ def test_layouts_from_dense_and_tiles_agree_and_scatter_back(kind, gaussian):
         assert any(col_idx[r, 0] == 0 and real[r, 0] and not real[r].all()
                    for r in range(col_idx.shape[0]))
     back = np.zeros_like(J)
-    back[:, k, j] = nd.w.numpy()
+    back[:, k, j] = w
     np.testing.assert_array_equal(back, J)
-    # within a block the targets go by source count, longest first, then
-    # by j; within a target the sources ascend
+    # within a step the targets go by source count, longest first, then
+    # by j; within a target the sources ascend, and all lie in its step
+    n = J.shape[1]
     count = np.diff(nd.src_ptr.numpy())
-    t_block = np.repeat(np.arange(len(nd.tgt_ptr) - 1),
-                        np.diff(nd.tgt_ptr.numpy()))
-    key = (t_block * (B + 1) + B - count) * J.shape[1] + nd.tgt.numpy()
+    t_step = np.repeat(np.arange(len(nd.tgt_ptr) - 1),
+                       np.diff(nd.tgt_ptr.numpy()))
+    key = (t_step * (n + 1) + n - count) * n + nd.tgt.numpy()
     assert (np.diff(key) > 0).all() and count.min() >= 1
     t_of = np.repeat(np.arange(len(count)), count)
-    assert (np.diff(kk)[t_of[1:] == t_of[:-1]] > 0).all()
+    assert (np.diff(k)[t_of[1:] == t_of[:-1]] > 0).all()
+    steps = nd.step_ptr.numpy()
+    assert (np.searchsorted(steps, b, side="right") - 1 == t_step[t_of]).all()
     # the second instance lacks DROP[kind] (both directions): weight
     # exactly 0 there, the first instance's nonzero (original spin i sits
     # at blocked position inv_perm[i])
     pos = blocked[0].inv_perm
-    w = nd.w.numpy()
     for a, c in DROP[kind]:
         for src, dst in ((pos[a], pos[c]), (pos[c], pos[a])):
             e = np.flatnonzero((k == src) & (j == dst))
@@ -159,8 +171,9 @@ def test_layouts_from_dense_and_tiles_agree_and_scatter_back(kind, gaussian):
 
 
 def test_layout_holds_the_int16_limit():
-    """Targets up to n_pad - 1 = 32767 and source offsets up to B - 1 fit
-    the int16 layout; a larger n_pad is refused."""
+    """Targets and sources up to n_pad - 1 = 32767 fit the int16 layout
+    (row blocks 0 and nB - 1 couple, so they fall in two steps); a larger
+    n_pad is refused."""
     B, nB = 128, 256
     tiles = torch.zeros((1, nB, 1, B, B))
     col_idx = torch.zeros((nB, 1), dtype=torch.int32)
@@ -168,8 +181,9 @@ def test_layout_holds_the_int16_limit():
     tiles[0, nB - 1, 0, B - 1, 5] = 0.5                        # 32767 -> 5
     nbrs = rc.neighbors_from_tiles(col_idx, tiles)
     assert nbrs.tgt.tolist() == [nB * B - 1, 5]
-    assert nbrs.src.tolist() == [5, B - 1]
-    assert nbrs.tgt_ptr.tolist() == [0, 1] + [1] * (nB - 2) + [2]
+    assert nbrs.src.tolist() == [5, nB * B - 1]
+    assert nbrs.step_ptr.tolist() == [0, nB - 1, nB]
+    assert nbrs.tgt_ptr.tolist() == [0, 1, 2]
     with pytest.raises(ValueError, match="int16"):
         rc.neighbors_from_tiles(torch.zeros((nB + 1, 1), dtype=torch.int32),
                                 torch.zeros((1, nB + 1, 1, B, B)))
@@ -270,13 +284,13 @@ def test_neighbor_phi_is_the_kernel_association():
     w = nd.w.numpy()
     want = np.repeat(h[:, None, :], R, axis=1).astype(np.float32)
     src_ptr = nd.src_ptr.numpy()
-    tgt_blocks = np.repeat(np.arange(len(nd.tgt_ptr) - 1),
-                           np.diff(nd.tgt_ptr.numpy()))
+    t_of = np.repeat(np.arange(len(src_ptr) - 1), np.diff(src_ptr))
     for bb in range(m0.shape[2] // B):
-        for t in np.flatnonzero(tgt_blocks == bb):
+        for t in np.unique(t_of[b == bb]):
             acc = np.zeros((I, R), np.float32)
             for e in range(src_ptr[t], src_ptr[t + 1]):
-                acc = acc + m0[:, :, bb * B + kk[e]] * w[:, None, e]
+                if b[e] == bb:
+                    acc = acc + m0[:, :, bb * B + kk[e]] * w[:, None, e]
             want[:, :, nd.tgt[t]] += acc
     np.testing.assert_array_equal(phi, want)
     np.testing.assert_allclose(phi, m0 @ J + h[:, None, :], rtol=0,
@@ -342,3 +356,141 @@ def test_engine_builds_the_layout_once(size, path, monkeypatch):
     ens.run_scanned(state, 2)
     assert len(built) == 1 and len(seen) == 2
     assert all(n is ens.round_nbrs for n in seen)
+
+
+def _chimera_blocked(size, count, B=128):
+    """`count` +-1 chimera size x size instances blocked with their union
+    colouring in blocks of B, and the colour classes' boundaries in
+    blocks; each instance's dense J is dropped once it is blocked."""
+    union = 0
+    for s in range(count):
+        union = union + np.abs(chimera_graph(size, size, seed=s).J)
+    groups = color_groups(union)
+    del union
+    blocked = [block_problem(chimera_graph(size, size, seed=s).normalized()[0],
+                             block_size=B, groups=groups, dtype=np.float32)
+               for s in range(count)]
+    classes = np.cumsum([0] + [-(-len(g) // B) for g in groups])
+    return blocked, classes.tolist()
+
+
+def _block_pattern(blocked):
+    """[nB, nB]: row block b couples to block c in some instance."""
+    nB, B = blocked[0].num_blocks, blocked[0].block_size
+    adj = np.zeros((nB, nB), dtype=bool)
+    for bl in blocked:
+        adj |= np.any(bl.J_rows.reshape(nB, B, nB, B) != 0, axis=(1, 3))
+    return adj
+
+
+@pytest.mark.parametrize("case", ["chimera8x8", "chimera16x16_x20",
+                                  "chimera26x26", "dense_uncoloured"])
+def test_steps_are_sweep_steps_and_the_colour_classes(case):
+    """The layout's steps are the sweep kernels' rule on the same union
+    couplings, and on a colored layout its colour classes (chimera 16x16:
+    3 steps for 16 blocks); dense uncoloured J takes one block a step.
+    Dense J (K4's input) up to n_pad 1536, the union tiles (K5's) above."""
+    if case == "dense_uncoloured":
+        rng = np.random.default_rng(11)
+        J = rng.normal(size=(96, 96)).astype(np.float32)
+        J = J + J.T
+        np.fill_diagonal(J, 0.0)
+        blocked = [block_problem(JProblem(J, np.zeros(96)), block_size=16,
+                                 dtype=np.float32)]
+        classes = list(range(7))
+    else:
+        size, count = {"chimera8x8": (8, 1), "chimera16x16_x20": (16, 20),
+                       "chimera26x26": (26, 1)}[case]
+        blocked, classes = _chimera_blocked(size, count)
+    B, n_pad = blocked[0].block_size, blocked[0].n_pad
+    if n_pad <= 1536:
+        nbrs = rc.neighbors_from_dense(torch.as_tensor(_dense(blocked)), B)
+    else:
+        col_idx, J_tiles = _union_tiles(blocked)
+        nbrs = rc.neighbors_from_tiles(torch.as_tensor(col_idx),
+                                       torch.as_tensor(J_tiles))
+    steps = nbrs.step_ptr.tolist()
+    assert steps == sweep_steps(_block_pattern(blocked)) == classes
+    assert nbrs.step_spins == B * max(np.diff(steps))
+    if case == "chimera16x16_x20":
+        assert len(steps) - 1 == 3 and blocked[0].num_blocks == 16
+    # every target of a step lies outside it on a colored layout
+    bounds = nbrs.step_ptr.long() * B
+    t_step = torch.repeat_interleave(torch.arange(len(steps) - 1),
+                                     torch.diff(nbrs.tgt_ptr.long()))
+    inside = ((nbrs.tgt.long() >= bounds[t_step])
+              & (nbrs.tgt.long() < bounds[t_step + 1]))
+    assert bool(inside.any()) == (case == "dense_uncoloured")
+
+
+def _step_gather(nbrs, phi, x, s, from_phi=False):
+    """The kernels' gather of step s in numpy: per target, its sources in
+    the step in ascending k; acc starts at 0 and adds x_k * w_kj (exact
+    products, x in {0, +-2}) over one row block's sources, then phi[j] +=
+    acc where the block changes and at the end. `from_phi` models the
+    sweep kernels' association instead (acc from phi[j], one chain)."""
+    B = nbrs.block_size
+    tgt_ptr, src_ptr = nbrs.tgt_ptr.numpy(), nbrs.src_ptr.numpy()
+    src, tgt, w = nbrs.src.numpy(), nbrs.tgt.numpy(), nbrs.w.numpy()
+    s0 = int(nbrs.step_ptr[s]) * B
+    phi = phi.copy()
+    for t in range(tgt_ptr[s], tgt_ptr[s + 1]):
+        j = tgt[t]
+        p = phi[..., j]
+        acc = p.copy() if from_phi else np.zeros_like(p)
+        blk = src[src_ptr[t]] // B
+        for e in range(src_ptr[t], src_ptr[t + 1]):
+            k = int(src[e])
+            if k // B != blk and not from_phi:
+                p, acc, blk = p + acc, np.zeros_like(p), k // B
+            acc = acc + x[..., k - s0] * w[:, None, e]
+        phi[..., j] = acc if from_phi else p + acc
+    return phi
+
+
+@pytest.mark.parametrize("size,B", [(2, 8), (8, 32)])
+def test_step_gather_is_the_block_walk_bit_for_bit(size, B):
+    """On Gaussian f32 couplings and dm drawn in {0, +-2}, the step gather
+    in the round kernels' association equals `neighbor_phi_fns`' phi_add
+    over the step's blocks in order, bit for bit, in every step of a
+    multi-block layout; the sweep kernels' association (acc from phi[j])
+    rounds differently."""
+    probs = [chimera_graph(size, size, seed=s, pm=False).normalized()[0]
+             for s in (5, 6)]
+    groups = color_groups(sum(np.abs(p.J) for p in probs))
+    blocked = [block_problem(p, block_size=B, groups=groups,
+                             dtype=np.float32) for p in probs]
+    nbrs = rc.neighbors_from_dense(torch.as_tensor(_dense(blocked)), B)
+    steps = nbrs.step_ptr.tolist()
+    assert max(np.diff(steps)) > 1          # some step spans several blocks
+    n_pad = blocked[0].n_pad
+    rng = np.random.default_rng(size)
+    h = np.stack([b.h for b in blocked])
+    _, phi_add = rc.neighbor_phi_fns(nbrs, torch.as_tensor(h))
+    phi0 = rng.normal(size=(2, R, n_pad)).astype(np.float32)
+    dm = (2 * rng.integers(-1, 2, size=(2, R, n_pad))).astype(np.float32)
+    differs = False
+    for s in range(len(steps) - 1):
+        s0, s1 = steps[s] * B, steps[s + 1] * B
+        got = _step_gather(nbrs, phi0, dm[..., s0:s1], s)
+        want = torch.as_tensor(phi0)
+        for b in range(steps[s], steps[s + 1]):
+            want = phi_add(want, torch.as_tensor(dm[..., b * B:(b + 1) * B]),
+                           b)
+        np.testing.assert_array_equal(got, want.numpy())
+        assert (got != phi0).any()
+        k1 = _step_gather(nbrs, phi0, dm[..., s0:s1], s, from_phi=True)
+        differs |= bool((k1 != got).any())
+    assert differs
+
+
+@pytest.mark.parametrize("slots,sms,threads", [
+    (640, 132, 256), (6400, 132, 256), (320, 132, 256), (133, 132, 256),
+    (132, 132, 1024), (16, 132, 1024), (1, 132, 1024), (16, 8, 256)])
+def test_cta_width_follows_the_slot_count(slots, sms, threads):
+    """256 threads (five CTAs an SM) where the slots fill the SMs: the
+    ensembles' 20 x 32 and EnsembleICM's 20 x 320; 1024 (one CTA an SM)
+    where every slot has an SM of its own: ShardedNPT's 16 a card."""
+    assert rc.round_threads(slots, sms) == threads
+    assert threads in rc.ROUND_WIDTHS
+

@@ -20,6 +20,7 @@ import torch
 
 from nmc_tpu_torch.io.generators import chimera_graph, random_sk
 from nmc_tpu_torch.ops import clusters, lbp_jit, lbp_planes
+from nmc_tpu_torch.ops import round_cuda as rc
 from nmc_tpu_torch.parallel import (EnsembleConfig, EnsembleICM,
                                     EnsembleICMConfig, EnsembleNMC,
                                     EnsemblePT, ShardedNPT, ShardedNPTConfig)
@@ -40,6 +41,14 @@ KEYS = {
     "EnsemblePT": BASE_KEYS | {"fields", "round", "swaps"},
     "EnsembleICM": BASE_KEYS | {"round", "houdayer", "swaps"},
 }
+# the round kernels' step counters: a K4/K5 launch on the card adds them,
+# the plain round on the CPU walks no steps and counts none
+STEPS = {"round_steps", "round_blocks"}
+# the sweeps of one K4 launch a round: 3 phases a cycle, 2 cycles, of 3
+# sweeps each (ICM: sweeps_per_round 6 over the 6 phases)
+KERNEL_SWEEPS = {"EnsembleNMC": 18, "ShardedNPT": 18, "EnsembleICM": 6}
+ENGINE_MODULES = {"EnsembleNMC": ensemble_nmc, "ShardedNPT": sharded_pt,
+                  "EnsembleICM": ensemble_icm}
 STAGES = {"EnsembleNMC": 3, "ShardedNPT": 3, "EnsemblePT": 3,
           "EnsembleICM": 3}
 
@@ -144,6 +153,46 @@ def test_each_engine_fills_its_key_set_as_json(runs, name):
         per_round = 1 if name == "EnsembleNMC" else sum(DO_NMC)
         assert timings["lbp_refreshes"] == ROUNDS * per_round
         assert timings["lbp_iterations"] >= timings["lbp_refreshes"]
+
+
+def _count_like_a_launch(monkeypatch, module):
+    """Stand `module`'s K4 wrapper in with one that first counts the steps
+    of its sweeps as a launch on the card does (`round_cuda._count_steps`),
+    then runs the plain round."""
+    plain = module.ensemble_round
+
+    def counted(J, *args, nbrs, **kw):
+        rc._count_steps(nbrs, J.shape[-1], dict(
+            num_cycles=kw["num_cycles"],
+            sweeps_per_phase=kw["sweeps_per_phase"],
+            full_update_frequency=kw.get("full_update_frequency", 1)))
+        return plain(J, *args, nbrs=nbrs, **kw)
+
+    monkeypatch.setattr(module, "ensemble_round", counted)
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_SWEEPS))
+def test_round_kernel_engines_count_steps_and_blocks(runs, name,
+                                                     monkeypatch):
+    """The plain round on the CPU counts no steps. A K4/K5 launch adds its
+    sweeps' steps (the layout's, a colour class each) and the block steps
+    a block-by-block walk would take: host integers of the layout, so
+    counting them syncs nothing."""
+    d = runs[name]
+    timings = {}
+    d.best(d.run(ROUNDS, timings))
+    assert not STEPS & set(timings)
+    _count_like_a_launch(monkeypatch, ENGINE_MODULES[name])
+    timings = {}
+    d.best(d.run(ROUNDS, timings))
+    assert set(timings) == KEYS[name] | STEPS
+    nbrs = d.eng.round_nbrs
+    n_steps = nbrs.step_ptr.numel() - 1
+    n_blocks = d.eng.n_pad // nbrs.block_size
+    sweeps = ROUNDS * KERNEL_SWEEPS[name]
+    assert d.eng.round_path == "K4" and 1 <= n_steps <= n_blocks
+    assert timings["round_steps"] == sweeps * n_steps
+    assert timings["round_blocks"] == sweeps * n_blocks
 
 
 @pytest.mark.parametrize("converge_at,max_iterations",
@@ -341,3 +390,35 @@ def test_sharded_cli_logs_round_spans_a_chunk(tmp_path):
         assert set(r) == {"kind", "t", "rank"} | KEYS["ShardedNPT"]
         assert len(r["compute_ms_by_round"]) == r["rounds"]
         assert r["lbp_refreshes"] == 2 * r["rounds"]
+
+
+def test_sharded_cli_round_spans_carry_the_round_kernel_steps(
+        tmp_path, monkeypatch):
+    """On a colored chimera the `sharded` command routes to K4. Each
+    `round_spans` record carries the steps and block steps its launches
+    count, and none where the plain round ran them on the CPU."""
+    from nmc_tpu_torch.cli import main
+    from nmc_tpu_torch.io.writers import save_edgelist
+    path = str(tmp_path / "chimera.txt")
+    save_edgelist(path, chimera_graph(2, 2, seed=3))
+
+    def spans(tag):
+        out = tmp_path / f"{tag}.jsonl"
+        with redirect_stdout(io.StringIO()):
+            main(["sharded", "--instance", path, "--device", "cpu",
+                  "--replicas", "8", "--rounds", "2", "--chunk-rounds", "2",
+                  "--sweeps-per-phase", "4", "--cycles", "1", "--coloring",
+                  "--block-size", "8", "--metrics", str(out)])
+        recs = [json.loads(ln) for ln in out.read_text().splitlines()]
+        recs = [r for r in recs if r["kind"] == "round_spans"]
+        assert len(recs) == 1
+        return recs[0]
+
+    assert not STEPS & set(spans("plain"))
+    _count_like_a_launch(monkeypatch, sharded_pt)
+    r = spans("counted")
+    assert STEPS <= set(r)
+    # 2 rounds of one cycle, 3 phases of 4 sweeps; each colour class's
+    # blocks make one step
+    assert r["round_blocks"] % 24 == 0 and r["round_steps"] % 24 == 0
+    assert 0 < r["round_steps"] < r["round_blocks"]
