@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Dict, List
 
 import numpy as np
@@ -121,6 +122,17 @@ def load_check(workload: str, root: str = HERE) -> Dict:
 
 def load_limits(workload: str, root: str = HERE) -> Dict[str, float]:
     return {k: v["limit"] for k, v in load_check(workload, root)["limits"].items()}
+
+
+def control_precision(workload: str, root: str = HERE) -> str:
+    """The precision of the cell's control: the first word of its limits'
+    "upper_from", which every limit of the cell has to share."""
+    words = {re.split(r"[\s,]", v["upper_from"], maxsplit=1)[0]
+             for v in load_check(workload, root)["limits"].values()}
+    if len(words) != 1:
+        raise ValueError(f"checks/{workload}.json names the controls "
+                         f"{sorted(words)}; a cell has one")
+    return words.pop()
 
 
 def verdict(nums: Dict[str, float], limits: Dict[str, float]):

@@ -12,20 +12,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-# the configuration keys a tiny CPU cell changes, per workload
-TINY = {
-    "chimera2048_x20.nmc": dict(instances={"family": "chimera", "m": 3,
-                                           "t": 4, "count": 3}),
-    "chimera2048_x20.pt": dict(instances={"family": "chimera", "m": 3,
-                                          "t": 4, "count": 3}),
-    "sk1000_x100.pt": dict(instances={"family": "sk", "n": 40, "count": 3},
-                           sweeps_per_round=4),
-    "chimera5408_sharded.pt_4chip": dict(
-        instances={"family": "chimera", "m": 3, "t": 4, "count": 1}),
-}
-COMMON = dict(replicas=8, sweeps_per_phase=4, num_cycles=2,
-              num_swapping_pairs=2, block_size=16)
-
 
 def pytest_configure(config):
     # tiny cells are many small operations: one thread a test process
@@ -35,16 +21,19 @@ def pytest_configure(config):
         "markers", "card: needs a CUDA card; skips inside the test without one")
 
 
-def tiny_cell(workload):
-    """The cell `workload` as BENCHMARK.json resolves it, at a size the CPU
-    runs in seconds."""
+def tiny_path(workload, root=ROOT):
+    """perfbench/tiny/<workload>.json: the configuration keys the cell's
+    tiny CPU version changes."""
+    return os.path.join(root, "perfbench", "tiny", f"{workload}.json")
+
+
+def tiny_cell(workload, root=ROOT):
+    """The cell `workload` as BENCHMARK.json under `root` resolves it, at a
+    size the CPU runs in seconds."""
     from perfbench import harness
-    cell = harness.resolve(workload)
-    cfg = dict(cell["config"])
-    for k, v in {**COMMON, **TINY[workload]}.items():
-        if k in cfg or k == "instances":
-            cfg[k] = v
-    cell["config"] = cfg
+    cell = harness.resolve(workload, root)
+    cell["config"] = {**cell["config"],
+                      **harness.load_json(tiny_path(workload, root))}
     return cell
 
 

@@ -7,9 +7,11 @@ window's seconds, the periodic best call every `best_every` rounds,
 recording a CUDA event between consecutive rounds. The window ends on a
 synchronise after its last round; on several ranks the ranks agree on the
 last round at a best call. With `trace` the window runs under
-torch.profiler and the engine's stage timings, which synchronise between
-stages. After the window: the peak memory, then the output check
-(`check.py`) against the reference once the engine is freed.
+torch.profiler and hands the engine a `timings` dict, into which it sums
+its stage spans: CUDA events between stages, read once the card has
+passed a round, with no synchronise between stages. After the window: the
+peak memory, then the output check (`check.py`) against the reference
+once the engine is freed.
 
 `assemble` turns the ranks' records into the result line, reading each of
 the cell's metrics with its reader `metrics/<name>.py`.
@@ -46,8 +48,11 @@ def load_json(*parts):
 
 def resolve(workload: str, root: str = ROOT) -> Dict:
     """The cell of BENCHMARK.json named `workload`, with its configuration,
-    traffic mix, metrics and check limits, all found by name."""
+    traffic mix, metrics and check limits, all found by name under `root`:
+    BENCHMARK.json and the configuration's file there, the traffic mix and
+    the check limits in its perfbench/."""
     bench = load_json(root, "BENCHMARK.json")
+    here = os.path.join(root, "perfbench")
     cell = next((w for w in bench["workloads"] if w["name"] == workload), None)
     if cell is None:
         raise KeyError(f"no workload {workload!r} in BENCHMARK.json")
@@ -57,9 +62,9 @@ def resolve(workload: str, root: str = ROOT) -> Dict:
         metrics[kind] = [m for m in bench[kind]
                          if cell["name"] in m.get("workloads", [cell["name"]])]
     return dict(name=workload, chips=cell["chips"], config=load_json(root, conf["file"]),
-                traffic=load_json(HERE, "traffic", f"{cell['traffic']}.json"),
-                limits=check.load_limits(workload, HERE),
-                replayed=check.load_check(workload, HERE).get("replayed", 2),
+                traffic=load_json(here, "traffic", f"{cell['traffic']}.json"),
+                limits=check.load_limits(workload, here),
+                replayed=check.load_check(workload, here).get("replayed", 2),
                 run_seconds=bench["run_seconds"], metrics=metrics)
 
 

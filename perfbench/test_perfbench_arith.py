@@ -1,6 +1,6 @@
 """The yardstick's arithmetic on hand-worked cases: attempts and the
-roofline bound, Philox-4x32-10, TF32 rounding, the phase list, the warp
-energy, the p95 and the trace reader."""
+roofline bound (and the cells' own, pinned), Philox-4x32-10, TF32
+rounding, the phase list, the warp energy, the p95 and the trace reader."""
 
 import json
 
@@ -8,24 +8,60 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import harness, trace, work
+from perfbench import harness, instances, trace, work
 from perfbench.reference import philox, precision, sweeps
 
 
-def test_round_work_on_a_hand_worked_shape():
+@pytest.mark.parametrize("extra,chains", [({}, 4), ({"subreplicas": 3}, 12)],
+                         ids=["replicas", "subreplicas"])
+def test_round_work_on_a_hand_worked_shape(extra, chains):
     cfg = dict(replicas=4, sweeps_per_phase=2, num_cycles=2,
-               full_update_frequency=1)
+               full_update_frequency=1, **extra)
     J = np.zeros((3, 5, 5))
     J[:, 0, 1] = J[:, 1, 0] = 1.0
     J[1, 2, 3] = J[1, 3, 2] = -1.0
     w = work.round_work(cfg, J)
-    # 3 instances x 4 replicas x 5 spins x (2 cycles x 3 phases x 2 sweeps)
-    assert w["attempts"] == 3 * 4 * 5 * 12 == 720
-    assert w["ops"] == 720 * 113
+    # 3 instances x 4 replicas (x 3 subreplicas) x 5 spins x (2 cycles x 3
+    # phases x 2 sweeps)
+    visits = 3 * chains * 5 * 12
+    assert w["attempts"] == visits
+    assert w["ops"] == visits * 113
     # union nonzeros 4; couplings, h, then states 13 bytes a spin
-    assert w["bytes"] == 4 * 3 * 4 + 4 * 3 * 5 + 3 * 4 * 5 * 13
+    assert w["bytes"] == 4 * 3 * 4 + 4 * 3 * 5 + 3 * chains * 5 * 13
     peaks = dict(f32_flops=67e12, hbm_bytes_per_s=3.35e12)
-    assert work.bound_seconds(w, peaks) == pytest.approx(720 * 113 / 67e12)
+    assert work.bound_seconds(w, peaks) == pytest.approx(visits * 113 / 67e12)
+    # one instance over two ranks: each holds half of its chains
+    one = work.round_work(cfg, J[:1], world=2)
+    assert one["attempts"] == chains // 2 * 5 * 12
+    assert one["bytes"] == 4 * 2 + 4 * 5 + chains // 2 * 5 * 13
+
+
+# round_work of the cells at their own shapes (on four cards: one rank's
+# share): every cell's attempts_per_s and round_roofline divide by it
+PINNED = {
+    ("chimera2048_x20.nmc", 1): (754974720, 85312143360, 18165760),
+    ("chimera2048_x20.pt", 1): (754974720, 85312143360, 18165760),
+    ("sk1000_x100.pt", 1): (204800000, 23142400000, 483200000),
+    ("chimera5408_sharded.pt_4chip", 4): (49840128, 5631934464, 1274624),
+}
+
+
+@pytest.mark.parametrize("workload,world", list(PINNED))
+def test_round_work_of_the_cells_is_pinned(workload, world):
+    cfg = harness.resolve(workload)["config"]
+    fam = cfg["instances"]
+    # the family's support: every chimera edge; SK's off-diagonal entries
+    if fam["family"] == "chimera":
+        e = instances.chimera_edges(fam["m"], fam["t"])
+        n = 2 * fam["t"] * fam["m"] ** 2
+        support = np.zeros((n, n), dtype=bool)
+        support[e[:, 0], e[:, 1]] = support[e[:, 1], e[:, 0]] = True
+    else:
+        n = fam["n"]
+        support = ~np.eye(n, dtype=bool)
+    J = np.broadcast_to(support, (fam["count"], n, n))
+    w = work.round_work(cfg, J, world)
+    assert (w["attempts"], w["ops"], w["bytes"]) == PINNED[workload, world]
 
 
 def test_round_work_of_the_cells():

@@ -1,5 +1,6 @@
 """On a card: each cell's run at its own size is correct, and its control
-(the reference in a lower precision in the program's place) is not.
+(the reference in a lower precision in the program's place, the one its
+check file's limits were set from) is not.
 
     python3 -m pytest perfbench -m card
 
@@ -16,7 +17,6 @@ import torch
 from perfbench import check, harness
 
 ROOT = harness.ROOT
-CONTROL = {"sk1000_x100.pt": "tf32"}
 
 
 def _cells():
@@ -29,7 +29,7 @@ def _cells():
 def test_a_short_run_is_correct_and_its_control_is_not(workload, chips):
     if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
         pytest.skip(f"{workload} needs {chips} CUDA cards")
-    prec = CONTROL.get(workload, "bfloat16")
+    prec = check.control_precision(workload)
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "perfbench", "run.py"),
          "--workload", workload, "--seed", "2718281828459", "--seconds", "3",

@@ -10,8 +10,8 @@ import torch
 from perfbench import check, harness
 from perfbench.reference.precision import Precision
 
-CELLS = ["chimera2048_x20.nmc", "chimera2048_x20.pt", "sk1000_x100.pt",
-         "chimera5408_sharded.pt_4chip"]
+CELLS = [w["name"] for w in
+         harness.load_json(harness.ROOT, "BENCHMARK.json")["workloads"]]
 
 
 def run(cell, seed=2147483660):
@@ -77,10 +77,12 @@ def _altered(engine_cls):
     return best
 
 
+# each fault and the Engine method it replaces
+FAULTS = [(_unchanged, "round"), (_half, "round"), (_altered, "best")]
+
+
 @pytest.mark.parametrize("workload", CELLS)
-@pytest.mark.parametrize("fault,attr", [(_unchanged, "round"),
-                                        (_half, "round"),
-                                        (_altered, "best")])
+@pytest.mark.parametrize("fault,attr", FAULTS)
 def test_a_broken_timed_path_is_not_correct(tiny, monkeypatch, workload,
                                             fault, attr):
     cell = tiny(workload)

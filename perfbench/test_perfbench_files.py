@@ -1,6 +1,7 @@
 """BENCHMARK.json and the files it names: every cell resolves by name to
-its configuration, traffic mix, check limits and metric readers, and the
-file keeps to the shapes its format sets."""
+its configuration, traffic mix, check limits, metric readers, its engine's
+runner and reference, and its tiny CPU size, and the file keeps to the
+shapes its format sets."""
 
 import json
 import os
@@ -8,7 +9,9 @@ import re
 
 import pytest
 
-from perfbench import harness
+from perfbench import check, harness
+from perfbench.conftest import tiny_path
+from perfbench.reference import precision
 
 ROOT = harness.ROOT
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -77,11 +80,20 @@ def test_cells_and_chips():
     assert used == {c["name"] for c in b["configs"]}
 
 
-@pytest.mark.parametrize("workload", [w["name"] for w in bench()["workloads"]])
+WORKLOADS = [w["name"] for w in bench()["workloads"]]
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
 def test_every_cell_resolves(workload):
     cell = harness.resolve(workload)
-    assert cell["config"]["engine"] in ("ensemble_nmc", "ensemble_pt",
-                                        "sharded_npt")
+    engine = cell["config"]["engine"]
+    runner = os.path.join(harness.HERE, "engines", f"{engine}.py")
+    reference = os.path.join(harness.HERE, "reference", f"{engine}.py")
+    for path in (runner, reference):
+        assert os.path.exists(path), f"{workload}: no {path}"
+    eng_mod, ref_mod = harness._engine_modules(engine)
+    assert hasattr(eng_mod, "Engine") and hasattr(eng_mod, "LIBRARIES"), runner
+    assert hasattr(ref_mod, "Reference"), reference
     kinds = cell["metrics"]
     assert any(m["name"] == "setup_s" for m in kinds["end_to_end"])
     assert len(kinds["end_to_end"]) >= 2 and kinds["per_layer"]
@@ -89,6 +101,16 @@ def test_every_cell_resolves(workload):
         assert os.path.exists(os.path.join(harness.HERE, "metrics",
                                            m["name"] + ".py")), m["name"]
     assert cell["limits"] and all(v > 0 for v in cell["limits"].values())
+
+
+@pytest.mark.parametrize("workload", WORKLOADS)
+def test_every_cell_has_a_tiny_cpu_size_and_one_control(workload):
+    path = tiny_path(workload)
+    assert os.path.exists(path), f"{workload}: no {path}"
+    tiny = harness.load_json(path)
+    config = harness.resolve(workload)["config"]
+    assert tiny and set(tiny) <= set(config), (path, set(tiny) - set(config))
+    assert check.control_precision(workload) in precision.KINDS
 
 
 def test_config_files_match_their_entries():

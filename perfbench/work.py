@@ -1,10 +1,12 @@
 """The work a round does, counted from the cell's shapes, and the least
 time the chip could take for it.
 
-An attempt is one spin visited by one sweep of one replica of one
-instance: instances x replicas x spins x sweeps a round, over the real
-spins (padding excluded) and every phase of the round. The bound model
-(PERF.md): per attempt one Philox-4x32-10 and its draw, 110 operations;
+An attempt is one spin visited by one sweep of one chain of one instance:
+instances x chains x spins x sweeps a round, over the real spins (padding
+excluded) and every phase of the round. An instance holds replicas x
+subreplicas chains: `subreplicas` (default 1) is the configuration's
+count of independent chains at each temperature, as in EnsembleICM. The
+bound model (PERF.md): per attempt one Philox-4x32-10 and its draw, 110 operations;
 per spin and sweep 3 operations for the energy; against every input and
 output byte once (couplings as the nonzero entries of J, 4 bytes each; the
 states in, the states and bests out, 4 bytes a spin, and the backbone
@@ -35,20 +37,20 @@ def sweeps_per_round(config: Dict) -> int:
 
 def round_work(config: Dict, J: np.ndarray, world: int = 1) -> Dict:
     """One rank's work a round: attempts, operations and bytes. J [I, n, n]
-    is the family; a rank holds 1 / world of its replicas (of one instance)
+    is the family; a rank holds 1 / world of its chains (of one instance)
     or of its instances."""
     I, n = J.shape[0], J.shape[-1]
-    R = config["replicas"]
+    chains = config["replicas"] * config.get("subreplicas", 1)
     if I == 1:
-        R //= world
+        chains //= world
     else:
         I //= world
     T = sweeps_per_round(config)
-    visits = I * R * n * T
+    visits = I * chains * n * T
     nnz = int(np.count_nonzero(np.any(J != 0, axis=0)))
     return dict(attempts=visits,
                 ops=visits * (OPS_PER_ATTEMPT + OPS_PER_SPIN_SWEEP),
-                bytes=4 * I * nnz + 4 * I * n + I * R * n * (4 + 1 + 4 + 4))
+                bytes=4 * I * nnz + 4 * I * n + I * chains * n * (4 + 1 + 4 + 4))
 
 
 def load_peaks(kind: str) -> Optional[Dict]:
