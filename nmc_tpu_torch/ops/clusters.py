@@ -49,7 +49,7 @@ from scipy.sparse import csr_matrix
 from scipy.sparse.csgraph import connected_components
 
 from ..native import CSRAdjacency, connected_components_masked
-from ..utils.metrics import host_sync
+from ..utils.metrics import count, host_sync
 
 def find_clusters(
     J: np.ndarray,
@@ -218,7 +218,9 @@ def _label_fixpoint(propagate, labels0, diff, max_iters: int, *,
     reads the device once every `_CHECK_EVERY` steps. `stats` (a dict)
     receives "steps" (steps run) and "iterations" (the steps the JAX loop
     of the slowest pair counts: up to and including the first step that
-    changes nothing, at most `max_iters`)."""
+    changes nothing, at most `max_iters`). While an engine records a round
+    (`utils.metrics.RoundSpans`), the steps run are added to its counter
+    "houdayer_steps" (a host integer: no sync)."""
     n = labels0.shape[-1]
     big = n
     labels = labels0
@@ -240,6 +242,7 @@ def _label_fixpoint(propagate, labels0, diff, max_iters: int, *,
             it += 1
         if not host_sync(bool, changed):
             break
+    count("houdayer_steps", it)
     if stats is not None:
         stats["steps"] = max(stats.get("steps", 0), it)
         stats["iterations"] = max(stats.get("iterations", 0),

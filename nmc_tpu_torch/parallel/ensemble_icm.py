@@ -84,7 +84,7 @@ from ..ops.engine import K1_MAX_N_PAD, SweepEngine
 from ..ops.round_cuda import (ensemble_round, ensemble_round_sparse,
                               neighbors_from_dense, neighbors_from_tiles,
                               round_kernel_limit)
-from ..utils.metrics import RoundSpans, host_sync
+from ..utils.metrics import RoundSpans, count, host_sync
 from . import distributed
 from .ensemble_nmc import InstanceDraws, _pad_problem, _union_tiles
 from .swaps import metropolis_label_swap, swap_draws
@@ -510,6 +510,7 @@ class EnsembleICM:
         else:
             g = torch.as_tensor(g, device=dev)[lo:hi].reshape(I * Pn * R, n)
         group = torch.arange(I, device=dev).repeat_interleave(Pn * R)
+        count("houdayer_pairs", I * Pn * R)
         s1n, s2n, moved, flipped = self._move(s1, s2, group,
                                               state.generator, g, stats)
         s1n = s1n.reshape(I, Pn, R, n)
@@ -549,10 +550,13 @@ class EnsembleICM:
         sync-free stage spans (`utils.metrics.RoundSpans`): the device
         seconds of "round" (the sweep stage), "houdayer" (pairing, moves,
         masks) and "swaps" (carried energies, best fold, label swaps), with
-        "rounds", "host_s" and "host_syncs"; a round lands in the dict once
-        the card has passed it, at the latest at `best` or `flush`.
-        `houdayer_stats` receives the fixed-point loops' most "steps" and
-        "iterations" (`ops/clusters._label_fixpoint`)."""
+        "rounds", "host_s" and "host_syncs", and the counters
+        "houdayer_pairs" (the pairs moved) and "houdayer_steps" (the
+        fixed-point loops' steps), host integers that add no sync; a round
+        lands in the dict once the card has passed it, at the latest at
+        `best` or `flush`. `houdayer_stats` receives the fixed-point loops'
+        most "steps" and "iterations" (`ops/clusters._label_fixpoint`;
+        "iterations" reads the card once more a loop)."""
         cfg = self.cfg
         I, S, R, n = self.I, self.S, self.R, self.n_pad
         lo, hi = self.i0, self.i0 + I

@@ -289,7 +289,7 @@ def test_run_scanned_with_generator_timings_and_best():
         s = ens.run_scanned(s, 3, timings=timings)
         finals.append(s)
     assert set(timings) == {"round", "houdayer", "swaps", "rounds", "host_s",
-                            "host_syncs"}
+                            "host_syncs", "houdayer_steps", "houdayer_pairs"}
     assert all(v >= 0 for v in timings.values())
     assert timings["rounds"] == 3
     for f in ("m", "beta_to_slot", "e_best", "cl", "icm_moves"):

@@ -39,7 +39,8 @@ KEYS = {
     "ShardedNPT": BASE_KEYS | {"lbp", "round", "swaps", "lbp_refreshes",
                                "lbp_iterations", "compute_ms_by_round"},
     "EnsemblePT": BASE_KEYS | {"fields", "round", "swaps"},
-    "EnsembleICM": BASE_KEYS | {"round", "houdayer", "swaps"},
+    "EnsembleICM": BASE_KEYS | {"round", "houdayer", "swaps",
+                                "houdayer_steps", "houdayer_pairs"},
 }
 # the round kernels' step counters: a K4/K5 launch on the card adds them,
 # the plain round on the CPU walks no steps and counts none
@@ -244,6 +245,47 @@ def test_host_syncs_count_every_host_sync_of_a_round(runs, name,
     d.round(s, timings)
     assert timings["rounds"] == 1
     assert timings["host_syncs"] == len(calls) > 0
+
+
+def test_icm_counts_houdayer_steps_and_pairs_without_a_sync(runs,
+                                                           monkeypatch):
+    """One EnsembleICM round from one state three ways: plain, with
+    `houdayer_stats`, with `timings`. The counters equal the fixed-point
+    loop's steps and the pairs moved, and counting them syncs nothing and
+    changes no state bit: one convergence read every `_CHECK_EVERY` steps
+    and the swaps' one constant, with or without the dict."""
+    calls = []
+    inner = metrics.host_sync
+
+    def counting(fn, *args, **kw):
+        calls.append(fn)
+        return inner(fn, *args, **kw)
+
+    for mod in (clusters, swaps, ensemble_icm):
+        monkeypatch.setattr(mod, "host_sync", counting)
+    d = runs["EnsembleICM"]
+    eng = d.eng
+    s = d.round(d.init())
+    gen = s.generator.get_state()
+
+    def once(**kw):
+        s.generator.set_state(gen)
+        calls.clear()
+        return eng.run_scanned(s, 1, **kw), len(calls)
+
+    plain, plain_syncs = once()
+    stats = {}
+    once(houdayer_stats=stats)
+    timings = {}
+    traced, traced_syncs = once(timings=timings)
+    assert timings["houdayer_steps"] == stats["steps"] > 0
+    assert timings["houdayer_pairs"] == eng.I * (eng.S // 2) * eng.R
+    assert timings["host_syncs"] == traced_syncs == plain_syncs
+    assert plain_syncs == -(-stats["steps"] // clusters._CHECK_EVERY) + 1
+    for f in plain._fields:
+        a, b = getattr(plain, f), getattr(traced, f)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), f
 
 
 class FakeEvent:
