@@ -352,6 +352,7 @@ def check(cond, msg):
 def _wrappers():
     from nmc_tpu_torch.ops import exact_cuda as ec
     from nmc_tpu_torch.ops import round_cuda as rc
+    from nmc_tpu_torch.ops import swaps_cuda as sw
     from nmc_tpu_torch.ops import sweeps_cuda as sc
     return {"colored_sweeps": sc.colored_sweeps,
             "colored_sweeps_streamed": sc.colored_sweeps_streamed,
@@ -360,7 +361,8 @@ def _wrappers():
             "sequential_sweeps_batched": sc.sequential_sweeps_batched,
             "ensemble_round": rc.ensemble_round,
             "ensemble_round_sparse": rc.ensemble_round_sparse,
-            "mitm_min": ec.mitm_min, "mitm_min_i8": ec.mitm_min_i8}
+            "mitm_min": ec.mitm_min, "mitm_min_i8": ec.mitm_min_i8,
+            "label_swaps": sw.label_swaps}
 
 
 def reset_counts():
@@ -370,6 +372,27 @@ def reset_counts():
 
 def read_counts():
     return {name: w.launches for name, w in _wrappers().items()}
+
+
+def others(counts, *kernels):
+    """The counts of every kernel but `kernels`."""
+    return {k: v for k, v in counts.items() if k not in kernels}
+
+
+# label_swaps launches of the main paths, summed for the kernels line
+MAIN_PATH_SWAPS = {"launches": 0}
+
+
+def check_swaps(counts, rounds, tag, main=True):
+    """One label_swaps launch an engine round, in the counts of a phase's
+    runs (reset just before them); a main path's add to the kernels line's
+    sum. Returns the launches."""
+    n = counts["label_swaps"]
+    check(n == rounds, f"{tag}: label_swaps launched {n} times for "
+          f"{rounds} engine rounds")
+    if main:
+        MAIN_PATH_SWAPS["launches"] += n
+    return n
 
 
 def phase_device():
@@ -1435,6 +1458,7 @@ def _ensemble_main_path(size, rounds, chunks, kernel):
     launches = read_counts()
     check(launches[kernel] == rounds,
           f"{kernel} launched {launches[kernel]} times for {rounds} rounds")
+    swap_launches = check_swaps(launches, rounds, f"{kernel} rounds")
     # the round counters: the launch's steps and the block walk's, a sweep
     from nmc_tpu_torch.ops.round_cuda import phase_list
     cfg = ens.cfg
@@ -1446,7 +1470,7 @@ def _ensemble_main_path(size, rounds, chunks, kernel):
     check(counted == {"round_steps_per_sweep": steps["steps_per_sweep"],
                       "round_blocks_per_sweep": steps["blocks_per_sweep"]},
           f"round counters {counted} against the layout's {steps}")
-    check(all(v == 0 for k, v in launches.items() if k != kernel),
+    check(not any(others(launches, kernel, "label_swaps").values()),
           f"other kernels launched: {launches}")
     e64 = np.array([p.energy(mb[i]) for i, p in enumerate(probs)])
     best_err = float(np.abs(e64 - eb).max())
@@ -1463,7 +1487,8 @@ def _ensemble_main_path(size, rounds, chunks, kernel):
         "instances": len(probs), "N": probs[0].n, "n_pad": ens.n_pad,
         "replicas": ENS_R, "nmc_slots": ENS_NMC, "rounds": rounds,
         "chunks": chunks, "round_path": ens.round_path,
-        "launches": launches[kernel], "setup_seconds": setup,
+        "launches": launches[kernel], "label_swaps_launches": swap_launches,
+        "setup_seconds": setup,
         "chunk_seconds": chunk_seconds,
         "seconds_per_round": sum(chunk_seconds) / rounds,
         "last_chunk_split_seconds_per_round": _per_round(timings),
@@ -1512,8 +1537,9 @@ def phase_round_routing():
     state = ens.run_scanned(state, 2)
     eb, mb = ens.best(state)
     counts = read_counts()
+    check_swaps(counts, 2, "round_routing", main=False)
     check(counts[kernel] == 2
-          and not any(v for k, v in counts.items() if k != kernel),
+          and not any(others(counts, kernel, "label_swaps").values()),
           f"K5: launches {counts}")
     e64 = np.array([p.energy(mb[i]) for i, p in enumerate(probs)])
     err = float(np.abs(e64 - eb).max())
@@ -1581,9 +1607,11 @@ def phase_campaign():
             recs = [json.loads(line) for line in f]
     text = buf.getvalue()
     check("round_path=K4" in text, "the campaign did not take K4")
+    check_swaps(launches, launches["ensemble_round"], "campaign")
     check(launches["ensemble_round"] > 0
-          and all(v == 0 for k, v in launches.items()
-                  if k != "ensemble_round"), f"campaign launches {launches}")
+          and not any(others(launches, "ensemble_round",
+                             "label_swaps").values()),
+          f"campaign launches {launches}")
     check(sorted(r["name"] for r in recs) == sorted(gs),
           "campaign records do not cover the family")
     check(all(r["hit"] and abs(r["found_raw"] - gs[r["name"]]) <= 1e-9
@@ -1684,8 +1712,9 @@ def _icm_main_path(size, rounds, chunks, kernel, hybrid_cold=0):
     launches = read_counts()
     check(launches[kernel] == rounds,
           f"{kernel} launched {launches[kernel]} times for {rounds} rounds")
-    check(all(v == 0 for k, v in launches.items() if k != kernel),
+    check(not any(others(launches, kernel, "label_swaps").values()),
           f"other kernels launched: {launches}")
+    swap_launches = check_swaps(launches, rounds, f"{kernel} rounds")
     e64 = np.array([p.energy(mb[i]) for i, p in enumerate(probs)])
     best_err = float(np.abs(e64 - eb).max())
     check(np.isfinite(eb).all() and best_err <= 1e-3,
@@ -1704,6 +1733,7 @@ def _icm_main_path(size, rounds, chunks, kernel, hybrid_cold=0):
         "replicas": ENS_R, "subreplicas": ICM_S, "slots": ICM_S * ENS_R,
         "rounds": rounds, "chunks": chunks, "round_path": ens.round_path,
         "houdayer": ens.houdayer, "launches": launches[kernel],
+        "label_swaps_launches": swap_launches,
         "setup_seconds": setup, "chunk_seconds": chunk_seconds,
         "seconds_per_round": sum(chunk_seconds) / rounds,
         "last_chunk_split_seconds_per_round": _per_round(timings),
@@ -1912,8 +1942,10 @@ def phase_campaign_icm():
             text = buf.getvalue()
             check(arm == "icm_host" or "round_path=K4" in text,
                   f"campaign {arm} did not take K4")
+            check_swaps(counts, 0 if arm == "icm_host" else counts[kernel],
+                        f"campaign {arm}")
             check(counts[kernel] > 0
-                  and all(v == 0 for k, v in counts.items() if k != kernel),
+                  and not any(others(counts, kernel, "label_swaps").values()),
                   f"campaign {arm} launches {counts}")
             check(sorted(r["name"] for r in recs) == sorted(gs),
                   f"campaign {arm}: records do not cover the family")
@@ -2598,8 +2630,10 @@ def phase_solve_contrived():
     check(res.state.shape == (prob.n,)
           and float(prob.energy(res.state)) == res.energy_raw,
           "solve_contrived: energy_raw is not the f64 energy of the state")
+    check_swaps(counts, res.stages[2].detail["rounds"], "solve_contrived")
     check(counts["sequential_sweeps"] >= 1
-          and sum(counts.values()) == counts["sequential_sweeps"],
+          and sum(others(counts, "label_swaps").values())
+          == counts["sequential_sweeps"],
           f"solve_contrived launches {counts}")
     emit({"phase": "solve_contrived", "N": prob.n, "core_n": core_n,
           "reduced": {"sweeps": [200000, 576]},
@@ -2636,9 +2670,10 @@ def phase_solve_chimera2048():
     check(rc == 0 and rec["target_raw"] is None, f"exit {rc}")
     check("round_path=K5" in text, "the MCMC stage did not take K5")
     rounds = rec["stages"][1]["rounds"]
+    check_swaps(counts, rounds, "solve_chimera2048")
     check(rounds == 20 and counts["ensemble_round_sparse"] == rounds
-          and all(v == 0 for k, v in counts.items()
-                  if k != "ensemble_round_sparse"),
+          and not any(others(counts, "ensemble_round_sparse",
+                             "label_swaps").values()),
           f"{rounds} rounds, launches {counts}")
     check(abs(prob.energy(s) - rec["energy_raw"]) <= 1e-9,
           "solve_chimera2048: the saved state's energy")
@@ -2744,8 +2779,9 @@ def phase_campaign_spectral():
                   f"{tag}: records do not cover the folder")
             check(all(r["hit"] and abs(r["found_raw"] - truth[r["name"]])
                       <= 1e-9 for r in recs), f"{tag} missed a ground state")
+            check_swaps(counts, counts[kernel] if kernel else 0, tag)
             check((kernel is None or counts[kernel] > 0)
-                  and all(v == 0 for k, v in counts.items() if k != kernel),
+                  and not any(others(counts, kernel, "label_swaps").values()),
                   f"{tag}: launches {counts}")
             if tag == "icm_spectral_presolve":
                 check("round_path=K4" in text, f"{tag} did not take K4")
@@ -3902,9 +3938,10 @@ def phase_ensemble_pt():
     torch.cuda.synchronize()
     per_round = (time.perf_counter() - t0) / rounds
     launches = read_counts()
+    check_swaps(launches, rounds + 1, "EnsemblePT")
     check(launches["sequential_sweeps_batched"] == rounds + 1
-          and all(v == 0 for k, v in launches.items()
-                  if k != "sequential_sweeps_batched"),
+          and not any(others(launches, "sequential_sweeps_batched",
+                             "label_swaps").values()),
           f"EnsemblePT launches {launches}")
     # the same rounds again with a `timings` dict: their stage split
     timings = {}
@@ -3983,6 +4020,146 @@ def phase_ensemble_pt():
     return launches["sequential_sweeps_batched"], {
         "kernel_ms_per_call": launch_ms, "plain_ms_per_call": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": twin_err}
+
+
+# The label swaps' shapes, I ladders x R labels x pairs: the benchmark
+# cells' (the two chimera2048_x20 cells share one), then edge cases (one
+# pair, more pairs than fit, lanes holding 2 and 4 pairs, one ladder of 127
+# pairs); the last flag marks a cell's shape, which is also timed.
+SWAP_SHAPES = {"chimera2048_x20": (20, 32, 8, True),
+               "chimera2048_icm_x20": (200, 32, 8, True),
+               "chimera5408_sharded": (1, 64, 16, True),
+               "sk1000_x100": (100, 64, 4, True),
+               "two_labels": (7, 2, 2, False),
+               "more_pairs_than_fit": (9, 8, 6, False),
+               "lanes_hold_two": (13, 40, 12, False),
+               "lanes_hold_four": (5, 100, 40, False),
+               "long_ladder": (3, 128, 60, False)}
+
+
+def phase_label_swaps():
+    """The label-swap kernel (`csrc/label_swaps.cu`) against its plain twin
+    `label_swap_reference` run on the card, at each of SWAP_SHAPES with
+    injected draws (spread, equal, overflowing and infinite energies) and
+    with a generator's draws (the twin fed the same seed's draws in the
+    wrapper's order), every output element for element and one launch a
+    call; then at each cell's shape, in turns (twin, kernel, kernel, twin),
+    ms a call by CUDA events: the wrapper's calls back to back (the host's
+    pace), the twin (the torch stage less its host read; its enqueue paces
+    it), and the stage as it ran before the kernel (the twin after a
+    constant copied from host memory, which waits for the card); and the
+    kernel's own device ms (torch.profiler, 50 calls), beside its bytes at
+    3.35 TB/s. Returns
+    (launches, the kernels line's figures at the chimera2048_x20 shape, with
+    the largest difference of an output element between kernel and twin)."""
+    import torch
+    from nmc_tpu_torch.parallel import swaps as ts
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def case(I, R, num_pairs, kind):
+        b2s = torch.argsort(torch.rand((I, R), generator=gen, device=dev),
+                            dim=1)
+        beta = torch.logspace(-0.6, 1.5, R, device=dev)
+        e = torch.randn((I, R), generator=gen, device=dev)
+        e = {"spread": e * 3.0, "equal": e * 0.0 - 7.5, "huge": e * 1e30,
+             "inf": torch.where(e > 0.6, float("inf"), e)}[kind]
+        g = ts._gumbel((I, num_pairs, R - 1), gen, torch.float32, dev)
+        u = torch.rand((I, num_pairs), generator=gen, device=dev)
+        return b2s, beta, e, g, u
+
+    def diff(a, b):
+        """The largest difference of an output element (dtypes must agree);
+        records it for the kernels line."""
+        check(all(x.dtype == y.dtype for x, y in zip(a, b)),
+              "label_swaps: kernel and twin dtypes differ")
+        d = max(int((x.long() - y.long()).abs().max()) for x, y in zip(a, b))
+        worst[0] = max(worst[0], d)
+        return d
+
+    torch.cuda.synchronize()
+    reset_counts()
+    calls, out, cell, worst = 0, {}, None, [0]
+    for name, (I, R, num_pairs, timed) in SWAP_SHAPES.items():
+        r = {"I": I, "R": R, "num_pairs": num_pairs}
+        for kind in ("spread", "equal", "huge", "inf"):
+            b2s, beta, e, g, u = case(I, R, num_pairs, kind)
+            k = ts.metropolis_label_swap(b2s, beta, e, num_pairs=num_pairs,
+                                         gumbels=g, uniforms=u)
+            calls += 1
+            check(diff(k, ts.label_swap_reference(b2s, beta, e, g, u)) == 0,
+                  f"label_swaps {name} {kind}: kernel != twin")
+            r[f"accepted_{kind}"] = int(k.accepted.sum())
+        seeded = torch.Generator(device=dev).manual_seed(5)
+        twin_gen = torch.Generator(device=dev).manual_seed(5)
+        k = ts.metropolis_label_swap(b2s.int(), beta, e, num_pairs=num_pairs,
+                                     generator=seeded)
+        calls += 1
+        g = ts._gumbel((I, num_pairs, R - 1), twin_gen, torch.float32, dev)
+        u2 = torch.rand((I, num_pairs), generator=twin_gen, device=dev)
+        twin = ts.label_swap_reference(b2s.int(), beta, e, g, u2)
+        check(diff(k, twin) == 0,
+              f"label_swaps {name}: kernel != twin on generator draws")
+        check(read_counts()["label_swaps"] == calls,
+              f"label_swaps launched {read_counts()['label_swaps']} times "
+              f"for {calls} calls")
+        if timed:
+            b2s, beta, e, g, u = case(I, R, num_pairs, "spread")
+
+            def kernel():
+                return ts.metropolis_label_swap(
+                    b2s, beta, e, num_pairs=num_pairs, gumbels=g, uniforms=u)
+
+            def twin():
+                return ts.label_swap_reference(b2s, beta, e, g, u)
+
+            def with_read():
+                torch.tensor(float("-inf"), device=dev)
+                return twin()
+
+            def per_call(fn, n):
+                return _event_ms(torch, lambda: [fn() for _ in range(n)])[0] / n
+
+            for fn in (kernel, twin, with_read):
+                fn()
+            times = {"twin": [per_call(twin, 50)],
+                     "kernel": [per_call(kernel, 500), per_call(kernel, 500)]}
+            times["twin"].append(per_call(twin, 50))
+            times["with_read"] = [per_call(with_read, 50)]
+            # the kernel's own device time (back to back, the calls above
+            # run at the host's pace)
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(50):
+                    kernel()
+                torch.cuda.synchronize()
+            ev = [x for x in prof.key_averages()
+                  if "label_swaps_kernel" in x.key]
+            device_ms = (sum(x.device_time_total for x in ev) / 1e3
+                         / max(1, sum(x.count for x in ev)))
+            calls += 1 + 1000 + 50
+            nbytes = (I * num_pairs * (R - 1) * 4 + I * num_pairs * 4
+                      + I * R * (4 + 8) + R * 4
+                      + I * R * 16 + I * num_pairs * 9)
+            r.update({"kernel_ms": device_ms,
+                      "kernel_calls_profiled": sum(x.count for x in ev),
+                      "call_ms": min(times["kernel"]),
+                      "twin_ms": min(times["twin"]),
+                      "stage_before_ms": times["with_read"][0],
+                      "bytes": nbytes, "bound_ms": nbytes / 3.35e12 * 1e3})
+            if name == "chimera2048_x20":
+                cell = r
+        out[name] = r
+    counts = read_counts()
+    check(counts["label_swaps"] == calls
+          and not any(others(counts, "label_swaps").values()),
+          f"label_swaps: launches {counts} for {calls} calls")
+    emit({"phase": "label_swaps", "launches": calls,
+          "max_abs_diff": worst[0], "shapes": out})
+    return calls, {"kernel_ms_per_call": cell["kernel_ms"],
+                   "plain_ms_per_call": cell["twin_ms"],
+                   "bound_ms": cell["bound_ms"], "bound_by": "bytes",
+                   "max_abs_err": float(worst[0])}
 
 
 def phase_native_clusters():
@@ -4266,9 +4443,10 @@ def phase_sharded_npt(card):
                   * steps["blocks_per_sweep"],
                   f"chimera16x16: the record's round counters against "
                   f"{steps}")
+            check_swaps(counts, n, "chimera16x16")
             check(npt.round_path == "K5" and npt.R_local == 32
                   and counts["ensemble_round_sparse"] == n
-                  and sum(counts.values()) == n,
+                  and sum(others(counts, "label_swaps").values()) == n,
                   f"chimera16x16: route {npt.round_path}, launches {counts}")
             k5 = _sharded_k5_alone(torch, rc, npt, state)
             out["chimera16x16"] = {
@@ -4288,10 +4466,11 @@ def phase_sharded_npt(card):
                            "2", "--rounds", str(n), "--chunk-rounds", str(n)],
                 sk.normalized()[0], seen, n)
             npt = seen["npt"]
+            check_swaps(counts, n, "sk1000")
             check(npt.round_path == "phases"
                   and npt.engine.sweep_kernel == "sequential_sweeps"
                   and counts["sequential_sweeps"] == 9 * n
-                  and sum(counts.values()) == 9 * n,
+                  and sum(others(counts, "label_swaps").values()) == 9 * n,
                   f"sk1000: route {npt.engine.sweep_kernel}, {counts}")
             out["sk1000"] = {
                 "record": rec, "best_f32": e32, "best_f64": e64,
@@ -5180,6 +5359,11 @@ def main():
     if sys.argv[1:2] == ["--ranks"]:
         sharded_ranks_on_cards(int(sys.argv[2]))
         return
+    if sys.argv[1:] == ["--label-swaps"]:
+        phase_device()
+        phase_label_swaps()
+        phase_ensemble_2048()
+        return
     t_start = time.perf_counter()
     card = phase_device()
     floor_lib = phase_build()
@@ -5209,6 +5393,8 @@ def main():
     launches["sequential_sweeps"] = phase_compat()
     launches["sequential_sweeps_batched"], batched_tp = phase_ensemble_pt()
     errs["sequential_sweeps_batched"] = batched_tp["max_abs_err"]
+    _, swaps_tp = phase_label_swaps()
+    errs["label_swaps"] = swaps_tp["max_abs_err"]
     phase_native_clusters()
     phase_spectral()
     phase_solve_wishart()
@@ -5231,6 +5417,8 @@ def main():
     tp = phase_throughput(card, c2048, r4096, ens512, ens2048)
     tp["sequential_sweeps"] = seq_tp
     tp["sequential_sweeps_batched"] = batched_tp
+    tp["label_swaps"] = swaps_tp
+    launches["label_swaps"] = MAIN_PATH_SWAPS["launches"]
     import torch.distributed as dist
     dist.destroy_process_group()          # sharded_npt's NCCL group
     for name in ("mitm_min", "mitm_min_i8"):
@@ -5258,7 +5446,8 @@ def main():
                "mitm_min": ("nmc_tpu_torch/csrc/exact_mitm.cu",
                             "nmc_tpu/ops/exact_pallas.py:85"),
                "mitm_min_i8": ("nmc_tpu_torch/csrc/exact_mitm.cu",
-                               "nmc_tpu/ops/exact_pallas.py:166")}
+                               "nmc_tpu/ops/exact_pallas.py:166"),
+               "label_swaps": ("nmc_tpu_torch/csrc/label_swaps.cu", None)}
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,
         "launches": launches[name], "max_abs_err": errs[name],

@@ -297,10 +297,8 @@ class ShardedNPT:
 
     def _base(self, slot_to_beta, do_nmc):
         """[R_local] the rank's slot betas, global_beta on NMC slots."""
-        return torch.where(
-            do_nmc, host_sync(torch.tensor, self.cfg.global_beta,
-                              dtype=self.dtype, device=self.device),
-            self.beta_list[self._rows(slot_to_beta)])
+        return torch.where(do_nmc, self.cfg.global_beta,
+                           self.beta_list[self._rows(slot_to_beta)])
 
     def _phase_args(self, kind, cl, do_nmc, base):
         """(beta_spin, update_mask) of a C / NC / ALL phase: NMC slots run

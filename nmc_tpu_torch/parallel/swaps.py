@@ -9,10 +9,14 @@ no pair is left), and the Metropolis rule is u < min(1, exp(dB * dE)) with
 states fixed and labels exchanged.
 
 Both functions take a leading instance axis I (the JAX engine vmaps them
-over instances) and stay on the device but for one copy of a constant
-from host memory, which waits for the stream (`utils.metrics.host_sync`). Their draws come from
-a `torch.Generator`, or are injected (`gumbels` [I, num_pairs, R - 1],
-`uniforms` [I, num_pairs]) so that tests can replay JAX's keys.
+over instances) and read nothing back to the host. On CUDA tensors
+`metropolis_label_swap` is one launch of `csrc/label_swaps.cu` (through
+`ops.swaps_cuda.label_swaps`, which counts them), so the host enqueues the
+next round while the card still sweeps this one; on CPU tensors it runs
+its plain twin, `label_swap_reference`, whose torch operations the kernel
+repeats bit for bit. Their draws come from a `torch.Generator`, or are
+injected (`gumbels` [I, num_pairs, R - 1], `uniforms` [I, num_pairs]) so
+that tests can replay JAX's keys.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils.metrics import host_sync
+from ..ops.swaps_cuda import label_swaps
 
 
 def _gumbel(shape, generator, dtype, device):
@@ -29,6 +33,20 @@ def _gumbel(shape, generator, dtype, device):
     tiny = torch.finfo(dtype).tiny
     u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
     return -torch.log(-torch.log(u.clamp(min=tiny)))
+
+
+def _gumbels(I, num_pairs, P, generator, gumbels):
+    """The Gumbels [I, num_pairs, P]: drawn from `generator` on its device,
+    or the injected ones, checked."""
+    if gumbels is None:
+        if generator is None:
+            raise ValueError("pass a torch.Generator or injected gumbels")
+        gumbels = _gumbel((I, num_pairs, P), generator, torch.float32,
+                          generator.device)
+    if tuple(gumbels.shape) != (I, num_pairs, P):
+        raise ValueError(f"gumbels must be [I, {num_pairs}, {P}], "
+                         f"got {tuple(gumbels.shape)}")
+    return gumbels
 
 
 def select_pairs_device(
@@ -46,24 +64,15 @@ def select_pairs_device(
     P = num_replicas - 1
     if P < 1:
         raise ValueError(f"need at least 2 replicas, got {num_replicas}")
-    if gumbels is None:
-        if generator is None:
-            raise ValueError("pass a torch.Generator or injected gumbels")
-        gumbels = _gumbel((num_instances, num_pairs, P), generator,
-                          torch.float32, generator.device)
-    I = gumbels.shape[0]
-    if tuple(gumbels.shape) != (I, num_pairs, P):
-        raise ValueError(f"gumbels must be [I, {num_pairs}, {P}], "
-                         f"got {tuple(gumbels.shape)}")
+    I = num_instances if gumbels is None else gumbels.shape[0]
+    gumbels = _gumbels(I, num_pairs, P, generator, gumbels)
     device = gumbels.device if device is None else torch.device(device)
     gumbels = gumbels.to(device)
     avail = torch.ones((I, P), dtype=torch.bool, device=device)
     cols = torch.arange(P, device=device)
-    neg_inf = host_sync(torch.tensor, float("-inf"), dtype=gumbels.dtype,
-                        device=device)
     picks = []
     for k in range(num_pairs):
-        scores = torch.where(avail, gumbels[:, k], neg_inf)
+        scores = torch.where(avail, gumbels[:, k], float("-inf"))
         idx = torch.argmax(scores, dim=1)                   # first max, as JAX
         valid = avail.any(dim=1)
         picks.append(torch.where(valid, idx, torch.full_like(idx, -1)))
@@ -80,33 +89,14 @@ class SwapResult(NamedTuple):
     pairs: torch.Tensor          # [I, num_pairs] pair base temperature indices
 
 
-def metropolis_label_swap(
-    beta_to_slot: torch.Tensor,   # [I, R] int
-    beta_list: torch.Tensor,      # [R] temperatures by index
-    slot_energies: torch.Tensor,  # [I, R] energy of each chain slot's state
-    *,
-    num_pairs: int,
-    generator: Optional[torch.Generator] = None,
-    gumbels: Optional[torch.Tensor] = None,    # [I, num_pairs, R - 1]
-    uniforms: Optional[torch.Tensor] = None,   # [I, num_pairs]
-) -> SwapResult:
-    """One swap round over temperature labels, per instance: accept iff
-    u < min(1, exp((beta[b+1] - beta[b]) * (E[slot(b+1)] - E[slot(b)])))."""
+def label_swap_reference(beta_to_slot, beta_list, slot_energies, gumbels,
+                         uniforms) -> SwapResult:
+    """The plain twin of the kernel: the picks of `select_pairs_device`,
+    then the Metropolis steps in order, then the inverse permutation."""
     I, R = beta_to_slot.shape
     device = beta_to_slot.device
-    picks = select_pairs_device(R, num_pairs, num_instances=I,
-                                generator=generator, gumbels=gumbels,
-                                device=device)
-    if uniforms is None:
-        if generator is None:
-            raise ValueError("pass a torch.Generator or injected uniforms")
-        uniforms = torch.rand((I, num_pairs), generator=generator,
-                              dtype=slot_energies.dtype,
-                              device=generator.device)
-    if tuple(uniforms.shape) != (I, num_pairs):
-        raise ValueError(f"uniforms must be [{I}, {num_pairs}], "
-                         f"got {tuple(uniforms.shape)}")
-    uniforms = uniforms.to(device)
+    num_pairs = uniforms.shape[1]
+    picks = select_pairs_device(R, num_pairs, gumbels=gumbels, device=device)
     b2s = beta_to_slot.clone()
     rows = torch.arange(I, device=device)
     accepted = []
@@ -127,6 +117,44 @@ def metropolis_label_swap(
                                                device=device).expand(I, R))
     return SwapResult(beta_to_slot=b2s, slot_to_beta=slot_to_beta,
                       accepted=torch.stack(accepted, dim=1), pairs=picks)
+
+
+def metropolis_label_swap(
+    beta_to_slot: torch.Tensor,   # [I, R] int
+    beta_list: torch.Tensor,      # [R] temperatures by index
+    slot_energies: torch.Tensor,  # [I, R] energy of each chain slot's state
+    *,
+    num_pairs: int,
+    generator: Optional[torch.Generator] = None,
+    gumbels: Optional[torch.Tensor] = None,    # [I, num_pairs, R - 1]
+    uniforms: Optional[torch.Tensor] = None,   # [I, num_pairs]
+) -> SwapResult:
+    """One swap round over temperature labels, per instance: accept iff
+    u < min(1, exp((beta[b+1] - beta[b]) * (E[slot(b+1)] - E[slot(b)]))).
+    The kernel on CUDA tensors, `label_swap_reference` on CPU tensors."""
+    I, R = beta_to_slot.shape
+    device = beta_to_slot.device
+    if R < 2:
+        raise ValueError(f"need at least 2 replicas, got {R}")
+    if num_pairs < 1:
+        raise ValueError(f"num_pairs must be at least 1, got {num_pairs}")
+    gumbels = _gumbels(I, num_pairs, R - 1, generator, gumbels).to(device)
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("pass a torch.Generator or injected uniforms")
+        uniforms = torch.rand((I, num_pairs), generator=generator,
+                              dtype=slot_energies.dtype,
+                              device=generator.device)
+    if tuple(uniforms.shape) != (I, num_pairs):
+        raise ValueError(f"uniforms must be [{I}, {num_pairs}], "
+                         f"got {tuple(uniforms.shape)}")
+    uniforms = uniforms.to(device)
+    if device.type == "cpu":
+        return label_swap_reference(beta_to_slot, beta_list, slot_energies,
+                                    gumbels, uniforms)
+    return SwapResult(*label_swaps(beta_to_slot, beta_list, slot_energies,
+                                   gumbels.contiguous(),
+                                   uniforms.contiguous()))
 
 
 def swap_draws(generator: torch.Generator, num_rows: int, num_pairs: int,

@@ -9,6 +9,7 @@ rounds whose events the card has not passed wait until `collect` (after
 `sharded` command logs one `round_spans` record a chunk with `--metrics`.
 """
 
+import collections
 import io
 import json
 import time
@@ -25,7 +26,6 @@ from nmc_tpu_torch.parallel import (EnsembleConfig, EnsembleICM,
                                     EnsembleICMConfig, EnsembleNMC,
                                     EnsemblePT, ShardedNPT, ShardedNPTConfig)
 from nmc_tpu_torch.parallel import ensemble_icm, ensemble_nmc, sharded_pt
-from nmc_tpu_torch.parallel import swaps
 from nmc_tpu_torch.utils import metrics
 
 BETA = np.array([0.3, 0.5, 0.8, 1.2, 1.6, 1.9, 3.0, 6.0])
@@ -227,24 +227,40 @@ def test_lbp_iterations_count_the_trips_of_iterate_per_chain(converge_at,
 @pytest.mark.parametrize("name", ENGINES)
 def test_host_syncs_count_every_host_sync_of_a_round(runs, name,
                                                      monkeypatch):
+    """"host_syncs" is the round's `host_sync` calls, and these are the
+    backbone's and the Houdayer labels' reads alone, each site its exact
+    count: per LBP refresh the plane operands (3), the NMC slots' list
+    (ShardedNPT) and one convergence read before each trip plus one for
+    each loop that converged; per Houdayer stage one read every
+    `_CHECK_EVERY` steps. The swaps and EnsemblePT's round read nothing."""
     calls = []
     inner = metrics.host_sync
+    for mod in (lbp_jit, lbp_planes, clusters, ensemble_nmc, ensemble_icm,
+                sharded_pt):
+        def counting(fn, *args, _site=mod.__name__.rsplit(".", 1)[1], **kw):
+            out = inner(fn, *args, **kw)
+            calls.append((_site, out))
+            return out
 
-    def counting(fn, *args, **kw):
-        calls.append(fn)
-        return inner(fn, *args, **kw)
-
-    for mod in (lbp_jit, lbp_planes, clusters, swaps, ensemble_nmc,
-                ensemble_icm, sharded_pt):
-        if hasattr(mod, "host_sync"):
-            monkeypatch.setattr(mod, "host_sync", counting)
+        monkeypatch.setattr(mod, "host_sync", counting)
     d = runs[name]
     s = d.round(d.init())
     calls.clear()
     timings = {}
     d.round(s, timings)
     assert timings["rounds"] == 1
-    assert timings["host_syncs"] == len(calls) > 0
+    assert timings["host_syncs"] == len(calls)
+    sites = collections.Counter(site for site, _ in calls)
+    converged = sum(out is False for site, out in calls if site == "lbp_jit")
+    lbp = {"lbp_planes": 3 * timings.get("lbp_refreshes", 0),
+           "lbp_jit": timings.get("lbp_iterations", 0) + converged}
+    want = {"EnsembleNMC": lbp,
+            "ShardedNPT": {**lbp, "sharded_pt": 1},
+            "EnsemblePT": {},
+            "EnsembleICM": {"clusters": -(-timings.get("houdayer_steps", 0)
+                                          // clusters._CHECK_EVERY)}}[name]
+    assert dict(sites) == want
+    assert (len(calls) > 0) == (name != "EnsemblePT")
 
 
 def test_icm_counts_houdayer_steps_and_pairs_without_a_sync(runs,
@@ -252,8 +268,8 @@ def test_icm_counts_houdayer_steps_and_pairs_without_a_sync(runs,
     """One EnsembleICM round from one state three ways: plain, with
     `houdayer_stats`, with `timings`. The counters equal the fixed-point
     loop's steps and the pairs moved, and counting them syncs nothing and
-    changes no state bit: one convergence read every `_CHECK_EVERY` steps
-    and the swaps' one constant, with or without the dict."""
+    changes no state bit: one convergence read every `_CHECK_EVERY` steps,
+    with or without the dict."""
     calls = []
     inner = metrics.host_sync
 
@@ -261,7 +277,7 @@ def test_icm_counts_houdayer_steps_and_pairs_without_a_sync(runs,
         calls.append(fn)
         return inner(fn, *args, **kw)
 
-    for mod in (clusters, swaps, ensemble_icm):
+    for mod in (clusters, ensemble_icm):
         monkeypatch.setattr(mod, "host_sync", counting)
     d = runs["EnsembleICM"]
     eng = d.eng
@@ -281,7 +297,7 @@ def test_icm_counts_houdayer_steps_and_pairs_without_a_sync(runs,
     assert timings["houdayer_steps"] == stats["steps"] > 0
     assert timings["houdayer_pairs"] == eng.I * (eng.S // 2) * eng.R
     assert timings["host_syncs"] == traced_syncs == plain_syncs
-    assert plain_syncs == -(-stats["steps"] // clusters._CHECK_EVERY) + 1
+    assert plain_syncs == -(-stats["steps"] // clusters._CHECK_EVERY)
     for f in plain._fields:
         a, b = getattr(plain, f), getattr(traced, f)
         if isinstance(a, torch.Tensor):

@@ -3,7 +3,10 @@
 The port's label swaps take a leading instance axis; fed the Gumbels and
 uniforms that JAX draws from its keys (replayed with the JAX key tree),
 the picks, acceptances and both permutations must be exactly JAX's, per
-instance and batched over instances.
+instance and batched over instances. At the benchmark cells' ladder
+shapes and at edge cases (`swap_cases`), the CPU path returns exactly
+what the stage returned before it became one kernel, and reads nothing
+back to the host; on a tensor neither on the CPU nor on CUDA it raises.
 """
 
 import jax
@@ -13,8 +16,12 @@ import pytest
 import torch
 
 from nmc_tpu.parallel import swaps as js
+from nmc_tpu_torch.ops import swaps_cuda
 from nmc_tpu_torch.parallel import swaps as ts
 
+from nmc_tpu_torch.utils import metrics
+from swap_cases import CASES, assert_same, make_case, old_label_swap
+from swap_cases import old_select_pairs
 from torch_parity import swap_replay
 
 
@@ -134,3 +141,75 @@ def test_injected_draws_are_checked():
                                  uniforms=torch.zeros((1, 3)))
     with pytest.raises(ValueError, match="Generator"):
         ts.select_pairs_device(4, 2)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_cpu_path_equals_the_old_stage_without_a_host_read(name,
+                                                           monkeypatch):
+    """Injected draws: picks, acceptances and both permutations equal the
+    old loop's (dtypes too); no `host_sync` call and no host tensor is
+    made, inside a recorded round or out of it."""
+    b2s, beta, e, g, u = make_case(name, 3, "cpu")
+    want = old_label_swap(b2s, beta, e, g, u)
+    want_picks = old_select_pairs(b2s.shape[1], u.shape[1], g)
+    calls = []
+    inner_sync, inner_tensor = metrics.host_sync, torch.tensor
+
+    def counting_sync(fn, *args, **kw):
+        calls.append(fn)
+        return inner_sync(fn, *args, **kw)
+
+    def counting_tensor(*args, **kw):
+        calls.append(torch.tensor)
+        return inner_tensor(*args, **kw)
+
+    monkeypatch.setattr(metrics, "host_sync", counting_sync)
+    monkeypatch.setattr(torch, "tensor", counting_tensor)
+    spans, timings = metrics.RoundSpans("Test", torch.device("cpu")), {}
+    with spans.round(timings):
+        got = ts.metropolis_label_swap(b2s, beta, e, num_pairs=u.shape[1],
+                                       gumbels=g, uniforms=u)
+        picks = ts.select_pairs_device(b2s.shape[1], u.shape[1], gumbels=g)
+    again = ts.metropolis_label_swap(b2s, beta, e, num_pairs=u.shape[1],
+                                     gumbels=g, uniforms=u)
+    assert calls == [] and timings["host_syncs"] == 0
+    assert_same(got, want)
+    assert_same(again, want)
+    assert torch.equal(picks, want_picks)
+    assert torch.equal(got.pairs, want_picks)
+    if name in ("two_labels", "more_pairs_than_fit"):
+        assert (got.pairs == -1).any()
+    if name == "equal_energies":
+        assert torch.equal(got.accepted, got.pairs >= 0)
+    if name in ("exp_overflows", "nan_from_inf"):
+        assert got.accepted.any() and not got.accepted[got.pairs >= 0].all()
+
+
+def test_other_devices_raise_rather_than_fall_back():
+    b2s, beta, e, g, u = (x.to("meta") for x in
+                          make_case("chimera2048_x20.pt", 1, "cpu"))
+    before = swaps_cuda.label_swaps.launches
+    with pytest.raises(ValueError, match="cuda only, not meta"):
+        ts.metropolis_label_swap(b2s, beta, e, num_pairs=8, gumbels=g,
+                                 uniforms=u)
+    assert swaps_cuda.label_swaps.launches == before
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_kernel_wrapper_takes_cuda_tensors_only(name):
+    """`ops.swaps_cuda.label_swaps` on a case's CPU tensors raises, as
+    it does on a ladder past 48 KB of shared memory, and counts no
+    launch; every case fits one CTA."""
+    b2s, beta, e, g, u = make_case(name, 2, "cpu")
+    R, num_pairs = b2s.shape[1], u.shape[1]
+    assert swaps_cuda.shared_bytes(R, num_pairs) <= 48 * 1024
+    before = swaps_cuda.label_swaps.launches
+    with pytest.raises(ValueError, match="cuda only, not cpu"):
+        swaps_cuda.label_swaps(b2s, beta, e, g, u)
+    R, num_pairs = 4096, 8
+    with pytest.raises(ValueError, match="48 KB"):
+        swaps_cuda.label_swaps(
+            torch.zeros((1, R), dtype=torch.int64), torch.zeros(R),
+            torch.zeros((1, R)), torch.zeros((1, num_pairs, R - 1)),
+            torch.zeros((1, num_pairs)))
+    assert swaps_cuda.label_swaps.launches == before
